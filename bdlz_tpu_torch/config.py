@@ -9,8 +9,9 @@ over scalars.
 
 Fields that only modules not yet ported read (serving, sampling, LZ
 scenarios, robustness knobs) are kept, so that every config the JAX
-package accepts loads here unchanged.  ``write_template`` and ``config_identity_dict``
-come with the port of the single-point CLI.
+package accepts loads here unchanged.  ``write_template`` writes the same
+bytes as the JAX package's, and ``config_identity_dict`` gives the same
+payload for the same Config.
 """
 from __future__ import annotations
 
@@ -20,6 +21,15 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional
 
 from bdlz_tpu_torch.constants import GEV_TO_KG, M_PROTON_KG
+
+#: Keys understood by the reference pipeline, in its declaration order.
+REFERENCE_KEYS = (
+    "m_chi_GeV", "g_chi", "chi_stats", "regime", "sigma_v_chi_GeV_m2",
+    "T_p_GeV", "beta_over_H", "v_w", "I_p", "g_star", "g_star_s",
+    "P_chi_to_B", "source_shape_sigma_y", "Gamma_wash_over_H",
+    "incident_flux_scale", "deplete_DM_from_source",
+    "T_max_over_Tp", "T_min_over_Tp", "Y_chi_init", "n_chi_at_Tp_GeV3",
+)
 
 VALID_ODE_METHODS = ("sdirk4", "kvaerno3")
 VALID_TENANT_ROUTING = ("scenario", "hash")
@@ -151,6 +161,64 @@ def load_config(path: str) -> Config:
     with open(path, "r", encoding="utf-8") as f:
         raw = json.load(f)
     return config_from_dict(raw)
+
+
+def write_template(path: str, include_extensions: bool = False) -> None:
+    """Write the default config as a JSON template: the reference's 20 keys
+    in declaration order, or every key with ``include_extensions``."""
+    cfg = default_config()
+    if not include_extensions:
+        cfg = {k: cfg[k] for k in REFERENCE_KEYS}
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(cfg, f, indent=2)
+    print(f"Wrote template config to {path}")
+
+
+#: Extension keys that change results: always in an identity, at their
+#: resolved values, so that a change of their defaults changes it too.
+RESULT_AFFECTING_EXTENSIONS = ("ode_method", "ode_rtol", "ode_atol")
+
+#: Extension keys that never enter an identity, even when not at their
+#: defaults: they choose how a result is obtained, served or cached, or
+#: belong to a plane with its own identity, and change no output bit.
+ROBUSTNESS_CONFIG_FIELDS = (
+    "fault_injection", "fault_plan", "retry_enabled",
+    "retry_max_attempts", "retry_backoff_s",
+)
+SERVE_CONFIG_FIELDS = (
+    "n_replicas", "queue_bound",
+    "health_enabled", "breaker_window", "breaker_threshold",
+    "breaker_cooldown_s", "breaker_latency_slo_s", "rollback_budget",
+    "tenant_routing", "memory_budget_bytes", "autoscale_interval_s",
+    "pool_min_replicas",
+    "self_improve", "drift_gated_rate", "rebuild_budget",
+)
+CACHE_CONFIG_FIELDS = ("cache_enabled", "cache_root")
+EMULATOR_CONFIG_FIELDS = (
+    "seam_split", "error_gate_tol", "posterior_weight", "refine_signal",
+)
+SAMPLER_CONFIG_FIELDS = ("sampler", "mass_matrix", "target_accept")
+SCENARIO_CONFIG_FIELDS = (
+    "lz_mode", "lz_n_levels", "lz_bath_eta", "lz_bath_omega_c",
+)
+_IDENTITY_EXCLUDED = frozenset(
+    ROBUSTNESS_CONFIG_FIELDS + SERVE_CONFIG_FIELDS + CACHE_CONFIG_FIELDS
+    + EMULATOR_CONFIG_FIELDS + SAMPLER_CONFIG_FIELDS + SCENARIO_CONFIG_FIELDS
+)
+
+
+def config_identity_dict(cfg: Config) -> Dict[str, Any]:
+    """The config as an identity payload: the reference keys always, the
+    result-affecting extensions always, every other extension key that
+    may enter an identity only when it differs from its default."""
+    defaults = default_config()
+    out: Dict[str, Any] = {k: getattr(cfg, k) for k in REFERENCE_KEYS}
+    for k in defaults:
+        if k in REFERENCE_KEYS or k in _IDENTITY_EXCLUDED:
+            continue
+        if k in RESULT_AFFECTING_EXTENSIONS or getattr(cfg, k) != defaults[k]:
+            out[k] = getattr(cfg, k)
+    return out
 
 
 def needs_ode_path(cfg: Config) -> bool:

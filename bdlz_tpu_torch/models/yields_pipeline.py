@@ -7,9 +7,10 @@ tensors and returns (P,) tensors.  Regime semantics follow the reference
 nonthermal regime passes the resolved initial yield through; the
 present-day conversion (:413-417) uses s₀ = 2891 cm⁻³.
 
-Only the trapezoid y-quadrature is ported so far; the snapped-panel
-Gauss–Legendre rule (``static.quad_panel_gl is True``) raises until
-``solvers/panels.py`` is ported.
+``static.quad_panel_gl is True`` selects the snapped-panel Gauss–Legendre
+y-quadrature (``solvers/panels.py``) over the same integrand; ``None`` and
+``False`` keep the trapezoid.  Only the audited sweep layer resolves the
+tri-state on, never these functions.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from bdlz_tpu_torch.config import PointParams, StaticChoices
 from bdlz_tpu_torch.constants import GEV_TO_KG, S0_M3
 from bdlz_tpu_torch.physics.percolation import KJMAGrid
 from bdlz_tpu_torch.physics.thermo import entropy_density, n_chi_equilibrium
+from bdlz_tpu_torch.solvers.panels import integrate_YB_panel_gl
 from bdlz_tpu_torch.solvers.quadrature import (
     integrate_YB_quadrature,
     integrate_YB_quadrature_tabulated,
@@ -55,19 +57,14 @@ def final_Y_chi_quadrature(pp: PointParams, static: StaticChoices) -> torch.Tens
     return pp.Y_chi_init * torch.ones_like(pp.m_chi_GeV)
 
 
-def _require_trapezoid(static: StaticChoices) -> None:
-    if static.quad_panel_gl is True:
-        raise NotImplementedError(
-            "quad_panel_gl=True needs the snapped-panel Gauss-Legendre rule, "
-            "which is not ported yet; use the trapezoid (quad_panel_gl null/false)"
-        )
-
-
 def point_yields(pp: PointParams, static: StaticChoices, grid: KJMAGrid) -> YieldsResult:
     """Full pipeline on the direct quadrature path (the bit-pinned reference
-    integrand, one (P, n_y, 1200) tensor)."""
-    _require_trapezoid(static)
-    Y_B = integrate_YB_quadrature(pp, static.chi_stats, grid, n_y=static.n_y)
+    integrand, one (P, n_y, 1200) tensor), or the panel rule on the same
+    integrand when ``static.quad_panel_gl is True``."""
+    if static.quad_panel_gl is True:
+        Y_B = integrate_YB_panel_gl(pp, static.chi_stats, grid, tabulated=False)
+    else:
+        Y_B = integrate_YB_quadrature(pp, static.chi_stats, grid, n_y=static.n_y)
     Y_chi = final_Y_chi_quadrature(pp, static)
     return present_day(Y_B, Y_chi, pp.m_chi_GeV, pp.m_B_kg)
 
@@ -76,8 +73,11 @@ def point_yields_fast(
     pp: PointParams, static: StaticChoices, table, n_y: int = 8000
 ) -> YieldsResult:
     """Pipeline with the tabulated KJMA kernel in plain PyTorch — the
-    sweep's ``impl="tabulated"`` engine."""
-    _require_trapezoid(static)
-    Y_B = integrate_YB_quadrature_tabulated(pp, static.chi_stats, table, n_y=n_y)
+    sweep's ``impl="tabulated"`` engine.  With ``static.quad_panel_gl is
+    True`` the panel rule replaces the trapezoid and ``n_y`` is unused."""
+    if static.quad_panel_gl is True:
+        Y_B = integrate_YB_panel_gl(pp, static.chi_stats, table, tabulated=True)
+    else:
+        Y_B = integrate_YB_quadrature_tabulated(pp, static.chi_stats, table, n_y=n_y)
     Y_chi = final_Y_chi_quadrature(pp, static)
     return present_day(Y_B, Y_chi, pp.m_chi_GeV, pp.m_B_kg)

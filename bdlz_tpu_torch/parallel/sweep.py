@@ -12,20 +12,25 @@ Engines (``impl``):
 * ``"kernel"`` — the hand-written CUDA interpolate-and-reduce kernels
   (``ops/kjma_kernel.py``), the counterpart of the JAX ``"pallas"``
   engine; its tier is the explicit ``reduce`` / ``fuse_exp`` arguments,
-  with no preflight and no degrade;
-* ``"tabulated"`` — the same quadrature in plain PyTorch.
+  with no preflight and no degrade; trapezoid only, as there;
+* ``"tabulated"`` — the same quadrature in plain PyTorch, on the
+  trapezoid or the audited snapped-panel Gauss–Legendre rule;
+* ``"direct"`` — the exact (n_y × n_z) KJMA integrand, forced when I_p
+  is swept (the F-table is per-I_p);
+* ``"esdirk"`` — the lane-repacking stiff Boltzmann engine, forced when
+  σv, washout or depletion is active; ``"esdirk_lockstep"`` — the same
+  stepper run to completion over the whole chunk, kept for A/B.
 
-Not ported yet, and refused loudly: the stiff (ODE) regime, a swept
-``I_p`` (the direct engine), and the panel Gauss–Legendre quadrature.
-Neither resume directories, self-healing, the chunk cache, LZ profiles
-nor multi-device meshes are ported yet.
+Not ported yet: resume directories and manifests, retry → bisect →
+quarantine, the chunk cache and event log, LZ profiles, and multi-device
+meshes (ROADMAP D).
 """
 from __future__ import annotations
 
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,7 +67,7 @@ AXIS_MAP: Dict[str, str] = {
     "Gamma_wash_over_H": "Gamma_wash_over_H",
 }
 
-IMPLS = ("kernel", "tabulated")
+IMPLS = ("kernel", "tabulated", "direct", "esdirk", "esdirk_lockstep")
 
 
 def build_grid(
@@ -111,12 +116,17 @@ class SweepResult:
     seconds: float
     points_per_sec: float
     chunks: int
-    #: Quadrature scheme that ran ("trap") and its nodes per point.
-    quad_impl: str
-    n_quad_nodes: int
+    #: Quadrature scheme that ran ("trap" or "panel_gl") and its nodes per
+    #: point; None for the stiff engines, which have no y-quadrature.
+    quad_impl: Optional[str]
+    n_quad_nodes: Optional[int]
+    #: The engine that ran, after routing.
+    impl: str = "kernel"
     outputs: Optional[Dict[str, np.ndarray]] = field(default=None, repr=False)
     #: Per-point failure mask (True = non-finite output), full grid order.
     failed_mask: Optional[np.ndarray] = field(default=None, repr=False)
+    #: Per-chunk round counters of the repacked stiff engine.
+    esdirk_stats: Optional[List[Any]] = field(default=None, repr=False)
 
 
 def _pad_chunk(pp: PointParams, lo: int, hi: int, chunk: int) -> PointParams:
@@ -135,9 +145,18 @@ def make_sweep_step(
     impl: str = "kernel",
     fuse_exp: bool = False,
     reduce: bool = REDUCE_DEFAULT,
+    esdirk_knobs: Optional[Dict[str, bool]] = None,
+    esdirk_stats_sink=None,
 ):
-    """The per-chunk step: ``step(pp_chunk, table) -> YieldsResult`` of (P,)
-    tensors on the chunk's device."""
+    """The per-chunk step: ``step(pp_chunk, aux) -> YieldsResult`` of (P,)
+    tensors on the chunk's device.  ``aux`` is the device F-table
+    (``kernel``, ``tabulated``) or the KJMA z-grid (``direct`` and both
+    stiff engines).  The quadrature tri-state in ``static`` must already
+    be resolved."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown sweep impl {impl!r}; expected one of {IMPLS}")
+    if fuse_exp and impl != "kernel":
+        raise ValueError("fuse_exp requires impl='kernel'")
     if impl == "kernel":
         from bdlz_tpu_torch.ops.kjma_kernel import point_yields_kernel
 
@@ -147,37 +166,108 @@ def make_sweep_step(
             )
         return step
     if impl == "tabulated":
-        if fuse_exp:
-            raise ValueError("fuse_exp requires impl='kernel'")
         from bdlz_tpu_torch.models.yields_pipeline import point_yields_fast
 
         def step(pp, table):
             return point_yields_fast(pp, static, table, n_y=n_y)
         return step
-    raise ValueError(f"unknown sweep impl {impl!r}; expected one of {IMPLS}")
+    if impl == "direct":
+        from bdlz_tpu_torch.models.yields_pipeline import point_yields
+
+        def step(pp, grid):
+            return point_yields(pp, static, grid)
+        return step
+    if impl == "esdirk":
+        from bdlz_tpu_torch.solvers.batching import make_batched_esdirk_step
+
+        return make_batched_esdirk_step(
+            static, stats_sink=esdirk_stats_sink, knobs=esdirk_knobs,
+        )
+    from bdlz_tpu_torch.models.yields_pipeline import YieldsResult, present_day
+    from bdlz_tpu_torch.solvers.batching import initial_yields
+    from bdlz_tpu_torch.solvers.sdirk import solve_boltzmann_esdirk
+
+    def step(pp, grid):  # esdirk_lockstep
+        T_hi = pp.T_max_over_Tp * pp.T_p_GeV
+        T_lo = pp.T_min_over_Tp * pp.T_p_GeV
+        sol = solve_boltzmann_esdirk(
+            pp, static, grid, initial_yields(pp, static), T_lo, T_hi
+        )
+        res = present_day(sol.y[:, 1], sol.y[:, 0], pp.m_chi_GeV, pp.m_B_kg)
+        return YieldsResult(*(torch.where(sol.success, f, torch.nan) for f in res))
+    return step
 
 
-def _clamp_chunk_to_memory(chunk_size: int, n_y: int, device: torch.device) -> int:
+def _clamp_chunk_to_memory(
+    chunk_size: int, n_y: int, device: torch.device, impl: str,
+    quad_nodes: Optional[int] = None,
+) -> int:
     """Clamp the chunk so its temporaries fit the device's free memory.
 
-    The fast paths keep ~20 live float64 (n_y,)-buffers per point (the
-    JAX engine's measured footprint model); the budget is 90% of what
-    ``torch.cuda.mem_get_info`` reports free.  CPU runs are never clamped.
+    Per-engine footprint models, the JAX engine's: the fast paths keep
+    ~20 live float64 buffers per node (n_y nodes, or the panel scheme's
+    nodes); the direct engine ~3 copies of its (n_y × 1200) integrand;
+    the stiff engines ~32 of the (1200,) z-integral per lane.  The budget
+    is 90% of what ``torch.cuda.mem_get_info`` reports free.  CPU runs
+    are never clamped.
     """
     if device.type != "cuda":
         return chunk_size
     free, _ = torch.cuda.mem_get_info(device)
-    per_point_bytes = 20 * max(int(n_y), 1) * 8
+    nz = 1200
+    if impl == "direct":
+        per_point_bytes = 3 * max(int(n_y), 1) * nz * 8
+    elif impl in ("esdirk", "esdirk_lockstep"):
+        per_point_bytes = 32 * nz * 8
+    elif quad_nodes:
+        per_point_bytes = 20 * max(int(quad_nodes), 1) * 8
+    else:
+        per_point_bytes = 20 * max(int(n_y), 1) * 8
     max_chunk = max(int(0.9 * free) // per_point_bytes, 1)
     if chunk_size > max_chunk:
         print(
             f"[sweep] chunk_size {chunk_size} would need "
-            f"~{chunk_size * per_point_bytes / 1e9:.1f} GB at n_y={n_y}, "
-            f"{free / 1e9:.1f} GB free; clamping to {max_chunk}",
+            f"~{chunk_size * per_point_bytes / 1e9:.1f} GB for the {impl!r} "
+            f"engine at n_y={n_y}, {free / 1e9:.1f} GB free; clamping to "
+            f"{max_chunk}",
             file=sys.stderr,
         )
         return max_chunk
     return chunk_size
+
+
+def route_impl(base: Config, axes: Mapping[str, Sequence[float]], impl: str,
+               fuse_exp: bool = False) -> str:
+    """The engine a sweep runs, as the JAX sweep routes it: the stiff
+    regime goes to ``esdirk`` unless ``esdirk_lockstep`` was asked for; a
+    swept I_p sends the table engines to ``direct``.  A forced change is
+    announced on stderr; ``fuse_exp`` on a forced non-kernel engine
+    raises."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown sweep impl {impl!r}; expected one of {IMPLS}")
+    needs_ode = needs_ode_path(base) or any(
+        np.any(np.asarray(axes[k], dtype=np.float64) != 0.0)
+        for k in ("sigma_v_chi_GeV_m2", "Gamma_wash_over_H") if k in axes
+    )
+    requested, reason = impl, None
+    if needs_ode and impl != "esdirk_lockstep":
+        impl = "esdirk"
+        reason = "stiff regime: sigma_v/washout/depletion active"
+    if "I_p" in axes and impl in ("tabulated", "kernel"):
+        impl = "direct"
+        reason = "I_p swept: per-I_p table unavailable"
+    if impl != requested:
+        print(
+            f"[sweep] impl {requested!r} is invalid for this configuration; "
+            f"using {impl!r} ({reason})",
+            file=sys.stderr,
+        )
+        if fuse_exp:
+            raise ValueError(
+                "fuse_exp requires the kernel engine, but this configuration "
+                f"forces impl={impl!r}"
+            )
+    return impl
 
 
 def run_sweep(
@@ -193,41 +283,47 @@ def run_sweep(
     reduce: bool = REDUCE_DEFAULT,
     device=None,
 ) -> SweepResult:
-    """Run a full sweep on one device: grid build → per-chunk evaluation.
+    """Run a full sweep on one device: route the engine, resolve the
+    quadrature, then evaluate chunk by chunk.
 
     ``device`` defaults to the first CUDA card and raises without one;
     ``device="cpu"`` runs the plain PyTorch versions of the kernels.
+    ``static.quad_panel_gl`` is the tri-state of the JAX sweep: None runs
+    the population audit over the full grid (tabulated engine only) and
+    turns the panel rule on only when it passes, loudly either way.
+    Chunks never hold more points than the grid has.
     """
+    from bdlz_tpu_torch.interop import point_params_from_numpy
     from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
     from bdlz_tpu_torch.ops.kjma_table import make_f_table, table_to_device
-    from bdlz_tpu_torch.interop import point_params_from_numpy
+    from bdlz_tpu_torch.physics.percolation import make_kjma_grid
+    from bdlz_tpu_torch.solvers.panels import N_PANELS_DEFAULT, NODES_PER_PANEL_DEFAULT
+    from bdlz_tpu_torch.validation import resolve_quad_panel_gl
 
     dev = resolve_device(device)
-    if needs_ode_path(base) or any(
-        np.any(np.asarray(axes[k], dtype=np.float64) != 0.0)
-        for k in ("sigma_v_chi_GeV_m2", "Gamma_wash_over_H") if k in axes
-    ):
-        raise NotImplementedError(
-            "stiff regime (sigma_v/washout/depletion active) needs the ESDIRK "
-            "engines, which are not ported yet"
-        )
-    if "I_p" in axes:
-        raise NotImplementedError(
-            "a swept I_p needs the direct (n_y x n_z) engine, which is not "
-            "ported yet (the F-table is per-I_p)"
-        )
-    if static.quad_panel_gl is True:
-        raise NotImplementedError(
-            "quad_panel_gl=True needs the snapped-panel Gauss-Legendre rule, "
-            "which is not ported yet"
-        )
-    step = make_sweep_step(static, n_y, impl, fuse_exp, reduce)
-
+    impl = route_impl(base, axes, impl, fuse_exp)
     pp_all = build_grid(base, axes)
     n_total = len(pp_all.m_chi_GeV)
-    chunk_size = _clamp_chunk_to_memory(chunk_size, n_y, dev)
+
+    table_np = (make_f_table(float(base.I_p), n=table_nodes)
+                if impl in ("kernel", "tabulated") else None)
+    quad_on, _ = resolve_quad_panel_gl(pp_all, static, impl, n_y, table=table_np)
+    static = static._replace(quad_panel_gl=quad_on)
+    quad_nodes = N_PANELS_DEFAULT * NODES_PER_PANEL_DEFAULT if quad_on else None
+    stats: List[Any] = []
+    step = make_sweep_step(
+        static, n_y, impl, fuse_exp, reduce,
+        esdirk_knobs=(_engine_knobs(static, pp_all) if impl == "esdirk" else None),
+        esdirk_stats_sink=stats.append,
+    )
+
+    chunk_size = min(int(chunk_size), n_total)
+    chunk_size = _clamp_chunk_to_memory(chunk_size, n_y, dev, impl, quad_nodes)
     n_chunks = (n_total + chunk_size - 1) // chunk_size
-    table = table_to_device(make_f_table(float(base.I_p), n=table_nodes), dev)
+    if table_np is None:
+        aux = make_kjma_grid(dev)
+    else:
+        aux = table_to_device(table_np, dev)
     if impl == "kernel" and dev.type == "cuda":
         from bdlz_tpu_torch.ops.kjma_kernel import load_library
 
@@ -240,7 +336,7 @@ def run_sweep(
     for ci in range(n_chunks):
         lo, hi = ci * chunk_size, min((ci + 1) * chunk_size, n_total)
         ppc = point_params_from_numpy(_pad_chunk(pp_all, lo, hi, chunk_size), dev)
-        res = step(ppc, table)
+        res = step(ppc, aux)
         host = {f: getattr(res, f)[: hi - lo].cpu().numpy() for f in fields}
         masks.append(~np.isfinite(host["DM_over_B"]))
         if keep_outputs:
@@ -250,15 +346,30 @@ def run_sweep(
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
     failed_mask = np.concatenate(masks)
+    if impl in ("esdirk", "esdirk_lockstep"):
+        quad_impl, n_quad = None, None
+    else:
+        quad_impl = "panel_gl" if quad_on else "trap"
+        n_quad = quad_nodes if quad_on else max(int(n_y), 2000)
     return SweepResult(
         n_points=n_total,
         n_failed=int(failed_mask.sum()),
         seconds=seconds,
         points_per_sec=n_total / max(seconds, 1e-9),
         chunks=n_chunks,
-        quad_impl="trap",
-        n_quad_nodes=max(int(n_y), 2000),
+        quad_impl=quad_impl,
+        n_quad_nodes=n_quad,
+        impl=impl,
         outputs=({f: np.concatenate(collected[f]) for f in fields}
                  if keep_outputs else None),
         failed_mask=failed_mask,
+        esdirk_stats=stats if impl == "esdirk" else None,
     )
+
+
+def _engine_knobs(static: StaticChoices, pp_all: PointParams) -> Dict[str, bool]:
+    """The repacked engine's knobs, resolved ONCE over the full grid's I_p
+    column, so that chunk boundaries never change which RHS runs."""
+    from bdlz_tpu_torch.solvers.batching import resolve_engine_knobs
+
+    return resolve_engine_knobs(static, np.asarray(pp_all.I_p))

@@ -64,18 +64,39 @@ def make_kjma_grid(device, z_max: float = Z_MAX_DEFAULT, nz: int = NZ_DEFAULT) -
     ))
 
 
-def trapezoid(f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def pairwise_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum along the last axis in a fixed pairwise order: halve the axis
+    with elementwise adds (zero-padding an odd length) until one term is
+    left.  Every row is summed in the same order whatever the batch shape
+    or the row's position in memory, which ``Tensor.sum`` does not promise
+    on a CUDA device (its split of a row depends on the output count and
+    the row's alignment)."""
+    n = t.shape[-1]
+    while n > 1:
+        if n % 2:
+            t = torch.cat([t, torch.zeros_like(t[..., :1])], dim=-1)
+            n += 1
+        n //= 2
+        t = t[..., :n] + t[..., n:]
+    return t[..., 0]
+
+
+def trapezoid(f: torch.Tensor, x: torch.Tensor, fixed_order: bool = False) -> torch.Tensor:
     """Trapezoid rule along the last axis, in NumPy's operation order:
-    Σ d·(f[1:] + f[:-1]) / 2 with d = diff(x)."""
+    Σ d·(f[1:] + f[:-1]) / 2 with d = diff(x).  ``fixed_order`` sums with
+    :func:`pairwise_sum`, so a row's result is the same bits in any batch."""
     d = x[..., 1:] - x[..., :-1]
-    return (d * (f[..., 1:] + f[..., :-1]) / 2.0).sum(dim=-1)
+    terms = d * (f[..., 1:] + f[..., :-1]) / 2.0
+    return pairwise_sum(terms) if fixed_order else terms.sum(dim=-1)
 
 
-def area_over_volume(y, I_p, beta_over_H, T_p, v_w, g_star, grid: KJMAGrid):
+def area_over_volume(y, I_p, beta_over_H, T_p, v_w, g_star, grid: KJMAGrid,
+                     fixed_order: bool = False):
     """KJMA bubble-wall area per unit volume [A/V](y) [GeV] with the z-integral
     done directly on the fixed grid: (I_p/2)(β/v_w) e^y ∫ z² e^{−z}
     exp(−(I_p/6) e^y γ₄(z)) dz.  Parameters broadcast against ``y``; the
-    z-axis is appended for the reduction."""
+    z-axis is appended for the reduction (summed in a fixed order when
+    ``fixed_order``, as the stiff engine needs for lane independence)."""
     H_p = hubble_rate(T_p, g_star)
     beta = beta_over_H * H_p
     v_w_safe = torch.clamp_min(v_w, 1e-12)
@@ -87,5 +108,5 @@ def area_over_volume(y, I_p, beta_over_H, T_p, v_w, g_star, grid: KJMAGrid):
     # broadcast against the z-grid (same products as the reference).
     exponent = (-(I_p / 6.0) * expy)[..., None] * grid.gamma4
     integrand = grid.weight * torch.exp(exponent)
-    F = trapezoid(integrand, grid.z)
+    F = trapezoid(integrand, grid.z, fixed_order)
     return torch.where(y > 50.0, 0.0, prefactor * F)

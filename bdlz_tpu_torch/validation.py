@@ -1,0 +1,345 @@
+"""Accuracy gates: the adversarial audit population, the panel-quadrature
+population audit and its tri-state resolver, and the shared scoring rules.
+
+Counterpart of ``bdlz_tpu/validation.py:22-447``.  The audit decides a
+quadrature *scheme*, so it never depends on the device: like the JAX
+package's NumPy audit it runs on the host, here through the port's own
+batched integrands on CPU tensors (the sample is integrated all at once
+instead of in a per-point loop).  The LZ and bounce audits are not ported
+yet (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import sys
+from typing import Any, Dict, NamedTuple
+
+import numpy as np
+
+
+class AuditPopulation(NamedTuple):
+    grid: Any                     # PointParams, product=False flat grid
+    axes: Dict[str, np.ndarray]   # the raw per-point arrays (for reports)
+    counts: Dict[str, int]        # population-class sizes
+
+
+def build_audit_population(base, n: int, seed: int = 0) -> AuditPopulation:
+    """n randomized configs spanning the pipeline's adversarial corners:
+    60% broad draws, 20% deep Maxwell–Boltzmann (m ≫ T_p), 10% windows
+    against the y-support clips, 10% with the T = m/3 seam mid-window.
+    The same draws as the JAX package's population for the same seed."""
+    from bdlz_tpu_torch.parallel.sweep import build_grid
+
+    rng = np.random.default_rng(seed)
+    n = int(n)
+    n_broad = int(0.6 * n)
+    n_mb = int(0.2 * n)
+    n_clip = int(0.1 * n)
+    n_seam = n - n_broad - n_mb - n_clip
+
+    m = np.concatenate([
+        10 ** rng.uniform(-1.0, 1.0, n_broad),
+        10 ** rng.uniform(1.5, 3.0, n_mb),
+        10 ** rng.uniform(-1.0, 1.0, n_clip),
+        np.full(n_seam, np.nan),
+    ])
+    T_p = np.concatenate([
+        10 ** rng.uniform(1.5, 2.5, n_broad),
+        10 ** rng.uniform(1.4, 1.7, n_mb),
+        10 ** rng.uniform(1.5, 2.5, n_clip),
+        10 ** rng.uniform(1.5, 2.5, n_seam),
+    ])
+    if n_seam:
+        m[-n_seam:] = 3.0 * T_p[-n_seam:] * rng.uniform(0.8, 1.2, n_seam)
+
+    sigma_y = rng.uniform(2.0, 20.0, n)
+    beta = rng.uniform(50.0, 500.0, n)
+    v_w = rng.uniform(0.05, 0.95, n)
+    P = rng.uniform(0.01, 0.9, n)
+    T_min = np.full(n, base.T_min_over_Tp)
+    T_max = np.full(n, base.T_max_over_Tp)
+    T_min[n_broad + n_mb:n_broad + n_mb + n_clip] = 10 ** rng.uniform(
+        -4.0, -2.0, n_clip
+    )
+    T_max[n_broad + n_mb:n_broad + n_mb + n_clip] = rng.uniform(
+        3.0, 8.0, n_clip
+    )
+
+    axes = {
+        "m_chi_GeV": m,
+        "T_p_GeV": T_p,
+        "source_shape_sigma_y": sigma_y,
+        "beta_over_H": beta,
+        "v_w": v_w,
+        "P_chi_to_B": P,
+        "T_min_over_Tp": T_min,
+        "T_max_over_Tp": T_max,
+    }
+    grid = build_grid(base, axes, product=False)
+    counts = {
+        "broad": n_broad, "deep_MB": n_mb,
+        "clip_edges": n_clip, "seam_T=m/3": n_seam,
+    }
+    return AuditPopulation(grid=grid, axes=axes, counts=counts)
+
+
+class PanelAuditResult(NamedTuple):
+    """Outcome of one per-population panel-quadrature convergence audit."""
+
+    ok: bool
+    reason: str                       # "" when ok; the loud fallback cause
+    n_sampled: int
+    n_seam_inside: int                # points with the T=m/3 seam in-window
+    max_rel_vs_trap: "float | None"   # GL(m) vs the reference trapezoid
+    max_err_half: "float | None"      # ladder: GL(m/2) vs GL(m)
+    max_err_quarter: "float | None"   # ladder: GL(m/4) vs GL(m)
+    n_quad_nodes: int
+
+
+def _audit_sample_indices(
+    grid, y_lo: np.ndarray, y_hi: np.ndarray, n_sample: int
+) -> np.ndarray:
+    """Deterministic audit sample: an even stride plus the population's
+    adversarial extremes (deepest Maxwell–Boltzmann, most relativistic,
+    widest/narrowest window and source, boundary-layer proxy m/(T_p·β̂),
+    nearest to the seam)."""
+    n = int(np.asarray(grid.m_chi_GeV).shape[0])
+    m = np.asarray(grid.m_chi_GeV, dtype=np.float64)
+    Tp = np.asarray(grid.T_p_GeV, dtype=np.float64)
+    beta = np.asarray(grid.beta_over_H, dtype=np.float64)
+    sigma = np.asarray(grid.sigma_y, dtype=np.float64)
+    span = np.asarray(y_hi - y_lo, dtype=np.float64)
+    stride = np.linspace(0, n - 1, min(int(n_sample), n)).astype(np.int64)
+    corners = np.array([
+        0, n - 1,
+        int(np.argmax(m / Tp)), int(np.argmin(m / Tp)),
+        int(np.argmax(m / (Tp * np.maximum(beta, 1e-30)))),
+        int(np.argmax(span)), int(np.argmin(span)),
+        int(np.argmax(sigma)), int(np.argmin(sigma)),
+        int(np.argmin(np.abs(3.0 * Tp - m))),
+    ])
+    return np.unique(np.concatenate([stride, corners]))
+
+
+def panel_gl_population_audit(
+    grid,
+    chi_stats: str,
+    n_y: int = 8000,
+    table=None,
+    n_sample: int = 24,
+    rel_tol: float = 1e-9,
+    decay_ratio_max: float = 0.25,
+    decay_floor: float = 1e-10,
+) -> PanelAuditResult:
+    """Decide whether snapped-panel Gauss–Legendre may replace the
+    trapezoid for THIS population (the ``quad_panel_gl: None`` resolver).
+
+    The three checks of the JAX package's audit, on the host:
+
+    * no point has the T = m/3 seam inside its y-window (checked on every
+      point: the trapezoid carries O(h) jump error there, so the scheme
+      may not change under the 1e-6 reference contract);
+    * the node ladder decays spectrally on a deterministic adversarial
+      sample: err(m/2) ≤ max(decay_ratio_max · err(m/4), decay_floor);
+    * the rule agrees with the n_y-node trapezoid to ``rel_tol`` on the
+      same sample.
+
+    ``grid`` is a PointParams of host arrays; ``table`` a host-built
+    ``KJMATable`` (built from the grid's uniform I_p when omitted).
+    """
+    import torch
+
+    from bdlz_tpu_torch.interop import point_params_from_numpy
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table, table_to_device
+    from bdlz_tpu_torch.solvers.panels import (
+        integrate_YB_panel_gl,
+        make_panel_scheme,
+        y_branch_seam,
+    )
+    from bdlz_tpu_torch.solvers.quadrature import (
+        integrate_YB_quadrature_tabulated,
+        quadrature_bounds,
+    )
+
+    n = int(np.asarray(grid.m_chi_GeV).shape[0])
+    if n == 0:
+        return PanelAuditResult(
+            False, "empty population", 0, 0, None, None, None, 0
+        )
+    I_p = np.asarray(grid.I_p, dtype=np.float64)
+    if np.ptp(I_p) != 0.0:
+        return PanelAuditResult(
+            False, "population sweeps I_p (per-I_p table unavailable)",
+            0, 0, None, None, None, 0,
+        )
+    host = torch.device("cpu")
+    pp = point_params_from_numpy(grid, host)
+    y_lo, y_hi = quadrature_bounds(pp)
+    y_seam = y_branch_seam(pp)
+    seam_inside = (y_seam > y_lo) & (y_seam < y_hi) & (y_hi > y_lo)
+    n_seam = int(seam_inside.sum())
+    scheme = make_panel_scheme(host)
+    if n_seam:
+        return PanelAuditResult(
+            False,
+            f"T=m/3 branch seam inside the y-window for {n_seam}/{n} "
+            "points: the reference trapezoid carries O(h) jump error "
+            "there, so the 1e-6 reference contract pins the scheme "
+            "(set quad_panel_gl=true explicitly for the converged panel "
+            "values)",
+            0, n_seam, None, None, None, scheme.n_quad_nodes,
+        )
+
+    sample = _audit_sample_indices(grid, y_lo.numpy(), y_hi.numpy(), n_sample)
+    if table is None:
+        table = make_f_table(float(I_p.reshape(-1)[0]))
+    table = table_to_device(table, host)
+    half = make_panel_scheme(host, n_nodes=max(scheme.nodes.shape[0] // 2, 2))
+    quarter = make_panel_scheme(host, n_nodes=max(scheme.nodes.shape[0] // 4, 2))
+    idx = torch.as_tensor(sample, dtype=torch.int64)
+    pp_s = type(pp)(*(f[idx] for f in pp))
+    trap = integrate_YB_quadrature_tabulated(pp_s, chi_stats, table, n_y=int(n_y))
+    vals = {key: integrate_YB_panel_gl(pp_s, chi_stats, table, scheme=sch).numpy()
+            for key, sch in (("m", scheme), ("h", half), ("q", quarter))}
+    try:
+        errs_trap = relative_errors(vals["m"], trap.numpy())
+        err_h = relative_errors(vals["h"], vals["m"])
+        err_q = relative_errors(vals["q"], vals["m"])
+    except GateFailure as exc:
+        return PanelAuditResult(
+            False, f"audit sample not scoreable: {exc}", len(sample),
+            0, None, None, None, scheme.n_quad_nodes,
+        )
+    stalled = err_h > np.maximum(decay_ratio_max * err_q, decay_floor)
+    max_trap = float(errs_trap.max())
+    res = PanelAuditResult(
+        ok=True, reason="", n_sampled=len(sample), n_seam_inside=0,
+        max_rel_vs_trap=max_trap,
+        max_err_half=float(err_h.max()),
+        max_err_quarter=float(err_q.max()),
+        n_quad_nodes=scheme.n_quad_nodes,
+    )
+    if stalled.any():
+        i_bad = int(sample[int(np.argmax(err_h / np.maximum(err_q, 1e-300)))])
+        return res._replace(ok=False, reason=(
+            f"node ladder is not spectrally decaying on "
+            f"{int(stalled.sum())}/{len(sample)} sampled points (worst at "
+            f"flat index {i_bad}: err(m/2)={float(err_h.max()):.2e} vs "
+            f"err(m/4)={float(err_q.max()):.2e}) — unresolved integrand "
+            "feature; staying on the trapezoid"
+        ))
+    if max_trap > rel_tol:
+        i_bad = int(sample[int(np.argmax(errs_trap))])
+        return res._replace(ok=False, reason=(
+            f"panel rule disagrees with the n_y={int(n_y)} reference "
+            f"trapezoid by {max_trap:.2e} > {rel_tol:.0e} (worst at flat "
+            f"index {i_bad}); staying on the trapezoid"
+        ))
+    return res
+
+
+def resolve_quad_panel_gl(
+    grid, static, impl: str, n_y: int, table=None, label: str = "sweep",
+) -> "tuple[bool, PanelAuditResult | None]":
+    """THE tri-state resolver for ``static.quad_panel_gl``.
+
+    Engines other than ``tabulated`` resolve False (warning when the
+    caller asked for the panel rule); an explicit True/False passes
+    through; ``None`` runs :func:`panel_gl_population_audit` over ``grid``
+    and announces the verdict on stderr.  Returns ``(resolved, audit)``,
+    ``audit`` None unless it ran.
+    """
+    q = static.quad_panel_gl
+    if impl != "tabulated":
+        if q:
+            print(
+                f"[{label}] quad_panel_gl requires the tabulated engine; "
+                f"ignoring it for impl={impl!r}",
+                file=sys.stderr,
+            )
+        return False, None
+    if q is not None:
+        return bool(q), None
+    audit = panel_gl_population_audit(
+        grid, static.chi_stats, n_y=int(n_y), table=table,
+    )
+    if audit.ok:
+        print(
+            f"[{label}] quad_panel_gl on: audit passed over "
+            f"{audit.n_sampled} sampled points (vs trapezoid "
+            f"{audit.max_rel_vs_trap:.1e}, ladder "
+            f"{audit.max_err_half:.1e}/{audit.max_err_quarter:.1e}) — "
+            f"{audit.n_quad_nodes} nodes/point instead of "
+            f"{max(int(n_y), 2000)}",
+            file=sys.stderr,
+        )
+    else:
+        print(
+            f"[{label}] quad_panel_gl off (audit fallback to trapezoid): "
+            f"{audit.reason}",
+            file=sys.stderr,
+        )
+    return audit.ok, audit
+
+
+class GateFailure(ValueError):
+    """An accuracy gate could not produce a trustworthy number."""
+
+
+def relative_errors(got: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """Per-point relative error with the gate's zero-reference rule:
+    ``|got/ref − 1|`` where ``ref != 0``, else ``|got| / median(|ref[nz]|)``.
+    Non-finite values under comparison raise :class:`GateFailure`."""
+    got = np.asarray(got, dtype=np.float64)
+    ref = np.asarray(ref, dtype=np.float64)
+    bad = ~np.isfinite(got)
+    if bad.any():
+        raise GateFailure(
+            f"{int(bad.sum())}/{got.size} non-finite values under comparison"
+        )
+    bad_ref = ~np.isfinite(ref)
+    if bad_ref.any():
+        raise GateFailure(
+            f"{int(bad_ref.sum())}/{ref.size} non-finite reference values "
+            "under comparison"
+        )
+    nz = ref != 0.0
+    if not nz.any():
+        raise GateFailure(
+            "comparison reference is identically zero — nothing to compare"
+        )
+    errs = np.empty(ref.shape)
+    errs[nz] = np.abs(got[nz] / ref[nz] - 1.0)
+    if (~nz).any():
+        abs_scale = float(np.median(np.abs(ref[nz])))
+        errs[~nz] = np.abs(got[~nz]) / abs_scale
+    return errs
+
+
+def population_max_rel(run_chunk, chunk: int, ref: np.ndarray) -> float:
+    """Max rel err of a chunk-runner (``run_chunk(lo, hi)`` returning at
+    least ``hi − lo`` values) over a gate population against ``ref``.
+    Zero-reference points are held to an absolute tolerance of 1e-6 ×
+    the median nonzero |ref| and excluded from the max."""
+    n = int(ref.shape[0])
+    got = np.empty(n)
+    for lo in range(0, n, int(chunk)):
+        hi = min(lo + int(chunk), n)
+        got[lo:hi] = np.asarray(run_chunk(lo, hi))[: hi - lo]
+    errs = relative_errors(got, ref)
+    nz = ref != 0.0
+    n_zero = int(n - nz.sum())
+    if n_zero:
+        abs_tol = 1e-6 * float(np.median(np.abs(ref[nz])))
+        worst = float(np.max(np.abs(got[~nz])))
+        if worst > abs_tol:
+            raise GateFailure(
+                f"engine output {worst:.3e} at a zero-reference point "
+                f"exceeds the absolute tolerance {abs_tol:.3e} "
+                f"({n_zero}/{n} ref==0 points)"
+            )
+        print(
+            f"[gate] {n_zero}/{n} ref==0 points held to |got| <= "
+            f"{abs_tol:.3e} (max {worst:.3e}); excluded from max-rel",
+            file=sys.stderr, flush=True,
+        )
+    return float(np.max(errs[nz]))

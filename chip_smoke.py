@@ -8,6 +8,10 @@ It builds the port's CUDA kernels from ``bdlz_tpu_torch/csrc`` with
 the production shapes, drives the port's sweep — the system's main path —
 at full width through each kernel tier, checks the results against the
 plain tabulated engine and the archived point, and times the kernels.
+Then it drives the paths that hold no hand kernel: the stiff Boltzmann
+sweep (the lane-repacking ESDIRK engine on a 1024-point washout grid),
+the audited panel Gauss–Legendre quadrature of the tabulated sweep, and
+the single-point CLI (``python -m bdlz_tpu_torch``) in a subprocess.
 
 Every phase prints one JSON line; the card's name and power limit as
 ``nvidia-smi`` reports them and a ``kernels`` line come before the last
@@ -19,9 +23,12 @@ of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +55,15 @@ MAIN_AXES = {  # 64 x 32 x 16 = 32768 points, 4 chunks of 8192
 TIERS = {"reduce": (False, True), "fused_reduce": (True, True),
          "stream": (False, False), "fused_stream": (True, False)}
 REDUCE_RTOL, STREAM_RTOL, SWEEP_RTOL, ARCHIVED_RTOL = 1e-12, 1e-13, 1e-10, 1e-9
+# The stiff grid: the archived point with washout on and the window cut at
+# T_p/20, over m_chi x Gamma_wash/H = 32 x 32 = 1024 points, nothing cut.
+STIFF = dict(ARCHIVED, Gamma_wash_over_H=0.01, T_min_over_Tp=0.05)
+STIFF_AXES = {
+    "m_chi_GeV": np.geomspace(0.3, 3.0, 32),
+    "Gamma_wash_over_H": np.linspace(0.005, 0.1, 32),
+}
+# repacked (knobs on) vs lockstep (knobs off), card vs CPU, panel vs trapezoid
+STIFF_RTOL, CARD_CPU_RTOL, PANEL_RTOL = 1e-6, 1e-6, 1e-9
 
 # H100 SXM peaks from NVIDIA's data sheet: HBM3 at 3.35 TB/s, and
 # 34 TFLOP/s FP64 outside the tensor cores.
@@ -187,7 +203,9 @@ def phase_main_path(dev) -> dict:
     base = config_from_dict(ARCHIVED)
     static = static_choices_from_config(base)
     kw = dict(chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev)
-    ref = run_sweep(base, MAIN_AXES, static, impl="tabulated", **kw)
+    # pinned: an unresolved tri-state would let the audit pick the panel rule
+    ref = run_sweep(base, MAIN_AXES, static._replace(quad_panel_gl=False),
+                    impl="tabulated", **kw)
     check(ref.n_failed == 0, "tabulated sweep all finite")
     ref_ratio = ref.outputs["DM_over_B"]
     launches, runs = {}, {}
@@ -276,13 +294,25 @@ def phase_timing(dev, streams, table) -> dict:
           "sweep_points_per_sec_median": float(np.median(sweep_pps)),
           "sweep_points_per_sec_samples": sweep_pps,
           "peak_hbm_bytes_per_s": HBM_BYTES_PER_S, "peak_fp64_flop_per_s": FP64_FLOP_PER_S})
-    return out
+    return out, float(np.median(sweep_pps))
+
+
+def _device_ms(prof) -> dict:
+    """Device time (ms) by kernel or copy name from a ``torch.profiler``
+    run: device-side events only."""
+    from torch.autograd import DeviceType
+
+    device_ms: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            key = e.key[:96]
+            device_ms[key] = device_ms.get(key, 0.0) + e.self_device_time_total / 1e3
+    return device_ms
 
 
 def phase_profile(dev) -> None:
     """One default-tier sweep under ``torch.profiler``: device busy time
     against the host clock, and device time by kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
@@ -293,11 +323,7 @@ def phase_profile(dev) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = run_sweep(base, MAIN_AXES, static, impl="kernel", chunk_size=N_POINTS,
                         n_y=N_Y, table_nodes=TABLE_N, device=dev)
-    device_ms: dict = {}
-    for e in prof.key_averages():  # device-side events only: kernels and copies
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            key = e.key[:96]
-            device_ms[key] = device_ms.get(key, 0.0) + e.self_device_time_total / 1e3
+    device_ms = _device_ms(prof)
     busy_ms = sum(device_ms.values())
     kjma_ms = sum(v for k, v in device_ms.items() if "kjma_interp_kernel" in k)
     copy_ms = sum(v for k, v in device_ms.items() if "Memcpy" in k or "Memset" in k)
@@ -308,6 +334,211 @@ def phase_profile(dev) -> None:
           "kjma_kernel_ms": kjma_ms, "copy_ms": copy_ms,
           "other_device_ms": busy_ms - kjma_ms - copy_ms,
           "top_device_ms": dict(top)})
+
+
+def _launches_around(fn):
+    """``fn()`` with every kernel's launch count set to 0 just before and
+    read just after: (result, counts)."""
+    from bdlz_tpu_torch.ops import kjma_kernel as kk
+
+    kk.reset_launches()
+    out = fn()
+    return out, dict(kk.LAUNCHES)
+
+
+def _max_rel(a, b) -> float:
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def phase_stiff_path(dev) -> None:
+    """The stiff sweep at full size through ``run_sweep`` (routed to the
+    repacked ESDIRK engine, knobs resolved on), then: repacked against
+    lockstep with the knobs off (bitwise) and with them on (1e-6) on the
+    first 64 lanes, and 8 corner lanes on the card against the CPU."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.interop import point_params_from_numpy
+    from bdlz_tpu_torch.parallel.sweep import build_grid, run_sweep
+    from bdlz_tpu_torch.physics.percolation import make_kjma_grid
+    from bdlz_tpu_torch.solvers.batching import (
+        initial_yields,
+        make_batched_esdirk_step,
+        solve_boltzmann_esdirk_batch,
+    )
+    from bdlz_tpu_torch.solvers.sdirk import solve_boltzmann_esdirk
+
+    t0 = time.perf_counter()
+    part_s = {}
+    base = config_from_dict(STIFF)
+    static = static_choices_from_config(base)
+    n_points = int(np.prod([len(v) for v in STIFF_AXES.values()]))
+    res, counts = _launches_around(lambda: run_sweep(
+        base, STIFF_AXES, static, chunk_size=n_points, device=dev))
+    n_m, n_g = (len(v) for v in STIFF_AXES.values())
+    check(res.impl == "esdirk" and res.n_points == n_points,
+          f"{n_points} points routed to esdirk, got {res.n_points} to {res.impl}")
+    check(res.n_failed == 0, f"stiff sweep all finite ({res.n_failed} failed)")
+    check(not any(counts.values()), f"no hand kernel on the stiff path, got {counts}")
+    (stats,) = res.esdirk_stats
+    steps = stats.lane_steps
+    part_s["sweep"] = time.perf_counter() - t0
+
+    grid_np = build_grid(base, STIFF_AXES)
+    first = point_params_from_numpy(type(grid_np)(*(f[:64] for f in grid_np)), dev)
+    off = static._replace(ode_auto_h0=False, ode_pi_controller=False, ode_tabulated_av=False)
+    zgrid = make_kjma_grid(dev)
+    t1 = time.perf_counter()
+    rep = solve_boltzmann_esdirk_batch(first, off, zgrid)
+    torch.cuda.synchronize()
+    part_s["repacked_64_knobs_off"] = time.perf_counter() - t1
+    T_lo = first.T_min_over_Tp * first.T_p_GeV
+    T_hi = first.T_max_over_Tp * first.T_p_GeV
+    t1 = time.perf_counter()
+    lock = solve_boltzmann_esdirk(first, off, zgrid, initial_yields(first, off), T_lo, T_hi)
+    torch.cuda.synchronize()
+    part_s["lockstep_64_knobs_off"] = time.perf_counter() - t1
+    check(bool(lock.success.all()), "lockstep, knobs off: all 64 lanes converged")
+    bitwise = all(torch.equal(getattr(rep, f), getattr(lock, f))
+                  for f in ("y", "n_steps", "n_accepted", "n_rejected", "success"))
+    check(bitwise, "repacked == lockstep bit for bit with the knobs off (64 lanes)")
+    on_vs_off = max(_max_rel(res.outputs["Y_B"][:64], lock.y[:, 1].cpu()),
+                    _max_rel(res.outputs["Y_chi"][:64], lock.y[:, 0].cpu()))
+    check(on_vs_off <= STIFF_RTOL, f"knobs on vs lockstep off {on_vs_off:.3e} <= {STIFF_RTOL:g}")
+
+    # 8 lanes at the grid's corners and edges: 4 masses x the two washout ends
+    corners = np.array([i * n_g + j for i in np.linspace(0, n_m - 1, 4).astype(int)
+                        for j in (0, n_g - 1)])
+    sub = type(grid_np)(*(f[corners] for f in grid_np))
+    t1 = time.perf_counter()
+    cpu = make_batched_esdirk_step(static)(point_params_from_numpy(sub, "cpu"),
+                                           make_kjma_grid("cpu"))
+    part_s["cpu_8_lanes"] = time.perf_counter() - t1
+    card_cpu = max(_max_rel(res.outputs[f][corners], getattr(cpu, f).numpy())
+                   for f in ("Y_B", "Y_chi", "DM_over_B"))
+    check(card_cpu <= CARD_CPU_RTOL, f"card vs CPU on 8 lanes {card_cpu:.3e} <= {CARD_CPU_RTOL:g}")
+
+    # device activity only: recording ~700k host ops as well would slow the
+    # host loop that is being measured and take minutes to aggregate
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res_p = run_sweep(base, STIFF_AXES, static, chunk_size=n_points, device=dev)
+    device_ms = _device_ms(prof)
+    part_s["profiled_sweep"] = time.perf_counter() - t1
+    busy_ms = sum(device_ms.values())
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]
+    emit({"phase": "stiff_path", "points": res.n_points, "impl": res.impl,
+          "seconds": time.perf_counter() - t0, "part_seconds": part_s,
+          "sweep_seconds": res.seconds,
+          "points_per_sec": res.points_per_sec, "kernel_launches": counts,
+          "rounds": stats.n_rounds,
+          "lanes_live_per_round": [r.active_lanes for r in stats.rounds],
+          "round_seconds": [r.seconds for r in stats.rounds],
+          "steps_per_lane_median": float(np.median(steps)),
+          "steps_per_lane_max": int(steps.max()),
+          "steps_accepted": stats.summary()["steps_accepted"],
+          "steps_rejected": stats.summary()["steps_rejected"],
+          "repacked_vs_lockstep_knobs_off_bitwise": bitwise,
+          "knobs_on_vs_lockstep_off_max_rel": on_vs_off,
+          "card_vs_cpu_8_lanes_max_rel": card_cpu,
+          "profiled_sweep_wall_ms": res_p.seconds * 1e3, "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / (res_p.seconds * 1e3),
+          "device_kernel_launches": sum(
+              e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+          "top_device_ms": dict(top)})
+
+
+def phase_panel_path(dev, kernel_pps: float) -> None:
+    """The tabulated sweep with quad_panel_gl null over the main grid: the
+    audit's verdict, the scheme that ran, and — when the panel rule runs —
+    agreement with the trapezoid kernel sweep."""
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table
+    from bdlz_tpu_torch.parallel.sweep import build_grid, run_sweep
+    from bdlz_tpu_torch.validation import panel_gl_population_audit
+
+    t0 = time.perf_counter()
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    check(static.quad_panel_gl is None, "the config leaves the tri-state unset")
+    audit = panel_gl_population_audit(build_grid(base, MAIN_AXES), base.chi_stats,
+                                      n_y=N_Y, table=make_f_table(base.I_p, n=TABLE_N))
+    kw = dict(chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev)
+    res, counts = _launches_around(
+        lambda: run_sweep(base, MAIN_AXES, static, impl="tabulated", **kw))
+    check(res.n_failed == 0, "panel-path sweep all finite")
+    check(res.quad_impl == ("panel_gl" if audit.ok else "trap"),
+          f"the sweep ran the audited scheme, got {res.quad_impl}")
+    check(not any(counts.values()), f"no hand kernel on the tabulated path, got {counts}")
+    pps = [res.points_per_sec] + [run_sweep(base, MAIN_AXES, static, impl="tabulated",
+                                            **kw).points_per_sec for _ in range(2)]
+    rel = None
+    if audit.ok:
+        trap = run_sweep(base, MAIN_AXES, static, impl="kernel", **kw)
+        rel = _max_rel(res.outputs["DM_over_B"], trap.outputs["DM_over_B"])
+        check(rel <= PANEL_RTOL, f"panel vs trapezoid kernel sweep {rel:.3e} <= {PANEL_RTOL:g}")
+    emit({"phase": "panel_path", "points": res.n_points,
+          "seconds": time.perf_counter() - t0,
+          "audit": {"ok": audit.ok, "reason": audit.reason, "n_sampled": audit.n_sampled,
+                    "n_seam_inside": audit.n_seam_inside,
+                    "max_rel_vs_trap": audit.max_rel_vs_trap,
+                    "max_err_half": audit.max_err_half,
+                    "max_err_quarter": audit.max_err_quarter},
+          "quad_impl": res.quad_impl, "n_quad_nodes": res.n_quad_nodes,
+          "kernel_launches": counts, "points_per_sec_median": float(np.median(pps)),
+          "points_per_sec_samples": pps, "kernel_tier_points_per_sec_median": kernel_pps,
+          "max_rel_vs_trapezoid_kernel": rel})
+
+
+def phase_cli(dev) -> None:
+    """``python -m bdlz_tpu_torch`` in a subprocess, in a fresh directory:
+    the archived config with --diagnostics --planck, and the stiff config.
+    The same two points in-process first, with the launch counts read
+    around them."""
+    from bdlz_tpu_torch.cli import run_point
+    from bdlz_tpu_torch.config import config_from_dict
+
+    t0 = time.perf_counter()
+    inproc, counts = _launches_around(lambda: [
+        float(run_point(config_from_dict(c), c["P_chi_to_B"], dev).DM_over_B)
+        for c in (ARCHIVED, STIFF)])
+    check(not any(counts.values()), f"no hand kernel on the CLI paths, got {counts}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    work = tempfile.mkdtemp(prefix="bdlz_cli_")
+    runs = {}
+    try:
+        for name, cfg, flags in (("archived", ARCHIVED, ["--diagnostics", "--planck"]),
+                                 ("stiff", STIFF, [])):
+            d = os.path.join(work, name)
+            os.mkdir(d)
+            with open(os.path.join(d, "cfg.json"), "w") as f:
+                json.dump(cfg, f)
+            t1 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "bdlz_tpu_torch", "--config", "cfg.json", *flags],
+                cwd=d, env=env, capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t1
+            check(proc.returncode == 0, f"cli {name}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+            with open(os.path.join(d, "yields_out.json")) as f:
+                ratio = json.load(f)["final"]["DM_over_B"]
+            check(np.isfinite(ratio) and "[warn]" not in proc.stdout, f"cli {name}: finite, converged")
+            runs[name] = {"wall_seconds": wall, "DM_over_B": ratio,
+                          "stdout_lines": len(proc.stdout.splitlines())}
+            if name == "archived":
+                check("DM/B ratio= 5.68893\n" in proc.stdout, "cli archived: DM/B ratio= 5.68893")
+                check("# Diagnostics around percolation" in proc.stdout
+                      and "=== Planck comparison" in proc.stdout, "cli archived: both blocks")
+                arel = abs(ratio / ARCHIVED_RATIO - 1.0)
+                check(arel <= ARCHIVED_RTOL, f"cli archived {ratio!r}: {arel:.3e} <= {ARCHIVED_RTOL:g}")
+                runs[name]["rel_err_vs_archived"] = arel
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "cli", "seconds": time.perf_counter() - t0, "kernel_launches": counts,
+          "in_process_DM_over_B": inproc, "runs": runs})
 
 
 def main() -> int:
@@ -323,9 +554,12 @@ def main() -> int:
     phase_build()
     streams, table, errs = phase_parity(dev)
     launches = phase_main_path(dev)
-    timing = phase_timing(dev, streams, table)
+    timing, sweep_pps = phase_timing(dev, streams, table)
     del streams
     phase_profile(dev)
+    phase_stiff_path(dev)
+    phase_panel_path(dev, sweep_pps)
+    phase_cli(dev)
     emit({"kernels": [{
         "name": kk.KERNELS[name][0],
         "route": "cuda",

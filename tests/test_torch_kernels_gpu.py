@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+paths without a hand kernel (the stiff engine, the panel quadrature, the
+single-point CLI), on the card.
 
 This file imports no JAX (the card's machine has none); run it there
 without the repository's conftest, which imports JAX:
@@ -115,7 +117,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(setup, cuda):
 
 def test_kernel_sweep_matches_tabulated_sweep(setup, cuda):
     base, _, _ = setup
-    static = static_choices_from_config(base)
+    # pinned: an unresolved tri-state would let the audit pick the panel rule
+    static = static_choices_from_config(base)._replace(quad_panel_gl=False)
     axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 8),
             "T_p_GeV": np.geomspace(30.0, 300.0, 4)}
     kk.reset_launches()
@@ -126,3 +129,62 @@ def test_kernel_sweep_matches_tabulated_sweep(setup, cuda):
     g, r = got.outputs["DM_over_B"], ref.outputs["DM_over_B"]
     assert np.isfinite(g).all()
     assert np.max(np.abs(g - r) / np.abs(r)) <= 1e-10
+
+
+STIFF = dict(ARCHIVED, Gamma_wash_over_H=0.01, T_min_over_Tp=0.1)
+STIFF_AXES = {"m_chi_GeV": np.geomspace(0.3, 3.0, 2),
+              "Gamma_wash_over_H": np.geomspace(1e-3, 0.5, 2),
+              "source_shape_sigma_y": [3.0, 15.0]}
+
+
+def test_stiff_repacked_equals_lockstep_bitwise_on_the_card(cuda):
+    from bdlz_tpu_torch.physics.percolation import make_kjma_grid
+    from bdlz_tpu_torch.solvers.batching import initial_yields, solve_boltzmann_esdirk_batch
+    from bdlz_tpu_torch.solvers.sdirk import solve_boltzmann_esdirk
+
+    base = config_from_dict(STIFF)
+    static = static_choices_from_config(base)._replace(
+        ode_auto_h0=False, ode_pi_controller=False, ode_tabulated_av=False)
+    pp = point_params_from_numpy(build_grid(base, STIFF_AXES), cuda)
+    grid = make_kjma_grid(cuda)
+    rep = solve_boltzmann_esdirk_batch(pp, static, grid, round_steps=48)
+    lock = solve_boltzmann_esdirk(pp, static, grid, initial_yields(pp, static),
+                                  pp.T_min_over_Tp * pp.T_p_GeV, pp.T_max_over_Tp * pp.T_p_GeV)
+    assert bool(lock.success.all())
+    for f in ("y", "n_steps", "n_accepted", "n_rejected"):
+        assert torch.equal(getattr(rep, f), getattr(lock, f)), f
+
+
+def test_stiff_sweep_on_the_card_matches_the_cpu(cuda):
+    """The default (repacked, knobs on) stiff sweep on the card and on the
+    CPU: ≤1e-6 rel (only libm-level differences feed the adaptive steps)."""
+    base = config_from_dict(STIFF)
+    static = static_choices_from_config(base)
+    a = run_sweep(base, STIFF_AXES, static, chunk_size=8, device=cuda)
+    b = run_sweep(base, STIFF_AXES, static, chunk_size=8, device="cpu")
+    assert a.impl == "esdirk" and a.n_failed == 0
+    for f, r in b.outputs.items():
+        assert np.max(np.abs(a.outputs[f] / r - 1.0)) <= 1e-6, f
+
+
+def test_panel_sweep_on_the_card_matches_the_trapezoid(setup, cuda):
+    base, _, _ = setup
+    static = static_choices_from_config(base)
+    axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 8), "T_p_GeV": np.geomspace(30.0, 300.0, 4)}
+    kw = dict(chunk_size=32, n_y=8000, device=cuda)
+    gl = run_sweep(base, axes, static, impl="tabulated", **kw)
+    trap = run_sweep(base, axes, static, impl="kernel", **kw)
+    assert (gl.quad_impl, gl.n_quad_nodes) == ("panel_gl", 560)
+    g, r = gl.outputs["DM_over_B"], trap.outputs["DM_over_B"]
+    assert np.max(np.abs(g / r - 1.0)) <= 1e-9
+
+
+def test_cli_point_on_the_card(cuda):
+    from bdlz_tpu_torch.cli import run_point
+
+    cfg = config_from_dict(ARCHIVED)
+    r = run_point(cfg, cfg.P_chi_to_B, cuda)
+    assert r.DM_over_B.device.type == "cuda"
+    assert abs(r.DM_over_B.item() / 5.688926334903014 - 1.0) <= 1e-12
+    stiff = config_from_dict(STIFF)
+    assert np.isfinite(run_point(stiff, stiff.P_chi_to_B, cuda).DM_over_B.item())

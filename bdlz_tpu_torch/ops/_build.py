@@ -27,6 +27,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 )
 
+#: Flags one source adds to ``NVCC_FLAGS``.  The bounce shoot repeats the
+#: plain version's arithmetic operation by operation, so a*b+c must not be
+#: contracted into one rounding.
+SOURCE_FLAGS = {"bounce_shoot.cu": ("-fmad=false",)}
+
 
 class Built(NamedTuple):
     path: pathlib.Path
@@ -51,9 +56,8 @@ def build(source: str) -> Built:
     """Compile ``csrc/<source>`` for sm_90a, or reuse the build of the same
     source and flags.  Raises ``RuntimeError`` with nvcc's output on failure."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{src.stem}-{digest}.so"
     log = lib.with_suffix(".ptxas.txt")
     if lib.exists():
@@ -64,7 +68,7 @@ def build(source: str) -> Built:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            [find_nvcc(), *flags, "-o", tmp, str(src)],
             capture_output=True, text=True, check=False,
         )
         if proc.returncode != 0:

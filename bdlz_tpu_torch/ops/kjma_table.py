@@ -66,6 +66,12 @@ def interp_taps(i1: torch.Tensor, s: torch.Tensor, values: torch.Tensor) -> torc
     (−1, 0, 1, 2) stay in bounds) and fractional offsets ``s``, by tensor
     indexing; the reference's association order."""
     i = torch.clamp(i1, 1, values.shape[0] - 3).long()
+    return lagrange_stencil(s, values[i - 1], values[i], values[i + 1], values[i + 2])
+
+
+def lagrange_stencil(s, f_m1, f_0, f_1, f_2):
+    """The cubic Lagrange combination of the taps at offsets (−1, 0, 1, 2)
+    for fractional offset ``s``, in the reference's association order."""
     sm1 = s + 1.0
     s0 = s
     s1 = s - 1.0
@@ -74,10 +80,7 @@ def interp_taps(i1: torch.Tensor, s: torch.Tensor, values: torch.Tensor) -> torc
     w_0 = (sm1 * s1 * s2) / 2.0
     w_1 = -(sm1 * s0 * s2) / 2.0
     w_2 = (sm1 * s0 * s1) / 6.0
-    return (
-        w_m1 * values[i - 1] + w_0 * values[i]
-        + w_1 * values[i + 1] + w_2 * values[i + 2]
-    )
+    return w_m1 * f_m1 + w_0 * f_0 + w_1 * f_1 + w_2 * f_2
 
 
 def cubic_lagrange_uniform(t: torch.Tensor, values: torch.Tensor) -> torch.Tensor:

@@ -21,9 +21,13 @@ Engines (``impl``):
   σv, washout or depletion is active; ``"esdirk_lockstep"`` — the same
   stepper run to completion over the whole chunk, kept for A/B.
 
+With a bounce profile (``lz_profile``) or a potential (``bounce``, shot
+once into a profile), every point's P is derived from its own wall speed
+through the LZ layer on the run's device before the chunk loop.
+
 Not ported yet: resume directories and manifests, retry → bisect →
-quarantine, the chunk cache and event log, LZ profiles, and multi-device
-meshes (ROADMAP D).
+quarantine, the chunk cache and event log, and multi-device meshes
+(ROADMAP D).
 """
 from __future__ import annotations
 
@@ -127,6 +131,13 @@ class SweepResult:
     failed_mask: Optional[np.ndarray] = field(default=None, repr=False)
     #: Per-chunk round counters of the repacked stiff engine.
     esdirk_stats: Optional[List[Any]] = field(default=None, repr=False)
+    #: What keys the LZ derivation of P, as the JAX sweep's manifest
+    #: ``hash_extra`` holds it (profile and potential fingerprints, the
+    #: two-channel estimator and Γ_φ); None without a profile.
+    lz_identity: Optional[Dict[str, Any]] = None
+    #: Host seconds of the LZ pre-pass (the bounce shoot and the per-point
+    #: P), outside ``seconds``.
+    lz_seconds: float = 0.0
 
 
 def _pad_chunk(pp: PointParams, lo: int, hi: int, chunk: int) -> PointParams:
@@ -282,9 +293,20 @@ def run_sweep(
     fuse_exp: bool = False,
     reduce: bool = REDUCE_DEFAULT,
     device=None,
+    lz_profile=None,
+    lz_method: str = "local",
+    lz_gamma_phi: float = 0.0,
+    bounce=None,
 ) -> SweepResult:
     """Run a full sweep on one device: route the engine, resolve the
     quadrature, then evaluate chunk by chunk.
+
+    ``lz_profile`` (a CSV path or a ``BounceProfile``) derives each
+    point's P from its own wall speed by ``lz_method`` (``lz_gamma_phi``
+    for the dephased estimator), or by the scenario of ``static.lz_mode``;
+    ``bounce`` (a potential spec, mapping or JSON path) is shot once into
+    such a profile and excludes ``lz_profile``.  ``P_chi_to_B`` may not be
+    swept then.
 
     ``device`` defaults to the first CUDA card and raises without one;
     ``device="cpu"`` runs the plain PyTorch versions of the kernels.
@@ -301,8 +323,11 @@ def run_sweep(
     from bdlz_tpu_torch.validation import resolve_quad_panel_gl
 
     dev = resolve_device(device)
+    t_lz = time.perf_counter()
+    pp_all, lz_identity = _grid_with_lz(base, axes, static, lz_profile, lz_method,
+                                        lz_gamma_phi, bounce, dev)
+    lz_seconds = time.perf_counter() - t_lz if lz_identity is not None else 0.0
     impl = route_impl(base, axes, impl, fuse_exp)
-    pp_all = build_grid(base, axes)
     n_total = len(pp_all.m_chi_GeV)
 
     table_np = (make_f_table(float(base.I_p), n=table_nodes)
@@ -364,7 +389,88 @@ def run_sweep(
                  if keep_outputs else None),
         failed_mask=failed_mask,
         esdirk_stats=stats if impl == "esdirk" else None,
+        lz_identity=lz_identity,
+        lz_seconds=lz_seconds,
     )
+
+
+def _grid_with_lz(base: Config, axes, static: StaticChoices, lz_profile, lz_method,
+                  lz_gamma_phi, bounce, dev):
+    """The grid, with each point's P derived from the profile when there is
+    one (``bdlz_tpu/parallel/sweep.py:1031-1128``): ``(pp_all,
+    lz_identity)``.  The bounce is shot once; a scenario mode owns the
+    estimator."""
+    bounce_fp = None
+    if bounce is not None:
+        if lz_profile is not None:
+            raise ValueError(
+                "pass either bounce or lz_profile, not both — the bounce "
+                "solver derives the profile the lz_profile seam would load"
+            )
+        from bdlz_tpu_torch.bounce import as_potential_spec, bounce_profile, potential_fingerprint
+
+        bounce = as_potential_spec(bounce)
+        bounce_fp = potential_fingerprint(bounce)
+        lz_profile = bounce_profile(bounce, device=dev)
+
+    # with a profile the config's P is irrelevant (and may be None): a
+    # placeholder that the per-point probabilities overwrite
+    P_base = 0.0 if (lz_profile is not None and base.P_chi_to_B is None) else None
+    pp_all = build_grid(base, axes, P_base=P_base)
+    lz_mode = getattr(static, "lz_mode", "two_channel")
+    if lz_mode != "two_channel":
+        if lz_profile is None:
+            raise ValueError(
+                f"lz_mode={lz_mode!r} derives P per point from a bounce "
+                "profile; pass lz_profile"
+            )
+        if lz_gamma_phi:
+            raise ValueError(
+                f"lz_gamma_phi has no effect with lz_mode={lz_mode!r} "
+                "(the scenario derives its own dephasing)"
+            )
+        if lz_method != "local":
+            raise ValueError(
+                f"lz_method={lz_method!r} has no effect with "
+                f"lz_mode={lz_mode!r} (the scenario owns the kernel)"
+            )
+    if lz_profile is None:
+        return pp_all, None
+    if "P_chi_to_B" in axes:
+        raise ValueError(
+            "P_chi_to_B cannot be swept when lz_profile derives P per "
+            "point; sweep v_w instead"
+        )
+    from bdlz_tpu_torch.lz.profile import load_profile_csv
+    from bdlz_tpu_torch.lz.sweep_bridge import (
+        probabilities_for_points,
+        profile_fingerprint,
+        scenario_probabilities_for_points,
+    )
+
+    if isinstance(lz_profile, str):
+        lz_profile = load_profile_csv(lz_profile)
+    identity = {"lz_profile": profile_fingerprint(lz_profile)}
+    if lz_mode != "two_channel":
+        # the scenario itself is keyed by its own identity home
+        # (sweep_bridge.scenario_identity), as in the JAX package
+        P_pts = scenario_probabilities_for_points(
+            lz_profile, static, np.asarray(pp_all.v_w),
+            T_p_GeV=np.asarray(pp_all.T_p_GeV), device=dev,
+        )
+    else:
+        P_pts = probabilities_for_points(
+            lz_profile, np.asarray(pp_all.v_w), method=lz_method,
+            T_p_GeV=np.asarray(pp_all.T_p_GeV),
+            m_chi_GeV=np.asarray(pp_all.m_chi_GeV),
+            gamma_phi=lz_gamma_phi, device=dev,
+        )
+        identity["lz_method"] = lz_method
+        if lz_method == "dephased":
+            identity["lz_gamma_phi"] = float(lz_gamma_phi)
+    if bounce_fp is not None:
+        identity["bounce"] = bounce_fp
+    return pp_all._replace(P=np.asarray(P_pts, dtype=np.float64)), identity
 
 
 def _engine_knobs(static: StaticChoices, pp_all: PointParams) -> Dict[str, bool]:

@@ -9,8 +9,11 @@ Axis syntax: ``name=geom:start:stop:n`` (geomspace), ``lin:start:stop:n``
 summary with the JAX sweep CLI's keys goes to stdout.  ``--device cpu``
 runs the plain PyTorch path on the host; the default is the card.
 
-The JAX sweep CLI's flags that the port does not have yet (resume
-directories, event logs, LZ profiles, the sanitizer, meshes and elastic
+``--lz-profile``/``--bounce`` derive each point's P from its wall speed
+through the LZ layer (``--lz-method``, ``--lz-gamma-phi``, and the
+scenario flags ``--lz-mode``/``--lz-n-levels``/``--lz-bath-*``), with the
+JAX sweep CLI's pairing errors.  Its flags that the port does not have
+yet (resume directories, event logs, the sanitizer, meshes and elastic
 fleets) are refused with the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -23,18 +26,13 @@ import numpy as np
 
 from bdlz_tpu_torch.utils.deferred import add_deferred_flags, refuse_deferred_flags
 
-_D1 = "ROADMAP D1, sweep resume, retry and caches"
-_D2 = "ROADMAP D2, LZ and bounce"
+_D2 = "ROADMAP D2, sweep resume, retry and caches"
 _D6 = "ROADMAP D6, host planes"
 _D7 = "ROADMAP D7, serving and elastic sweeps"
 _D9 = "ROADMAP D9, multi-GPU"
 #: Flags of the JAX sweep CLI that the port does not have yet.
 DEFERRED_FLAGS = {
-    "--out": (True, _D1), "--events": (True, _D1),
-    "--lz-profile": (True, _D2), "--lz-method": (True, _D2),
-    "--lz-gamma-phi": (True, _D2), "--lz-mode": (True, _D2),
-    "--lz-n-levels": (True, _D2), "--lz-bath-eta": (True, _D2),
-    "--lz-bath-omega-c": (True, _D2), "--bounce": (True, _D2),
+    "--out": (True, _D2), "--events": (True, _D2),
     "--sanitize": (False, _D6), "--debug-nans": (False, _D6),
     "--profile-dir": (True, _D6),
     "--elastic": (True, _D7), "--elastic-store": (True, _D7),
@@ -88,11 +86,43 @@ def main(argv=None) -> None:
                          "quad_panel_gl")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
+    from bdlz_tpu_torch.lz.options import (
+        SWEEP_METHODS,
+        add_bounce_flag,
+        add_lz_method_flags,
+        add_lz_scenario_flags,
+        apply_scenario_flags,
+        bounce_flag_error,
+        lz_flags_error,
+    )
+
+    add_lz_method_flags(
+        ap, default="local", choices=SWEEP_METHODS,
+        profile_help="Bounce-profile CSV: derive each point's P_chi_to_B "
+                     "from its own wall speed through the two-channel LZ "
+                     "kernel (v_w scans then exercise the distributed-LZ "
+                     "physics end to end)",
+        method_help="Per-point LZ estimator with --lz-profile: local "
+                    "(analytic composition, spectrally exact — the "
+                    "1e-6-contract default), coherent (full transfer "
+                    "matrix, carries Stueckelberg oscillations), "
+                    "local-momentum (thermal flux-weighted average), "
+                    "dephased (density-matrix transport with "
+                    "--lz-gamma-phi dephasing)",
+    )
+    add_lz_scenario_flags(ap)
+    add_bounce_flag(ap)
     add_deferred_flags(ap, DEFERRED_FLAGS)
     args = ap.parse_args(argv)
     refuse_deferred_flags(ap, args, DEFERRED_FLAGS)
     if args.fuse_exp and args.impl != "kernel":
         ap.error("--fuse-exp requires --impl kernel")
+    err = bounce_flag_error(args) or lz_flags_error(args, default_method="local")
+    if err:
+        ap.error(err)
+    if args.lz_mode in ("chain", "thermal") and not (args.lz_profile or args.bounce):
+        ap.error(f"--lz-mode {args.lz_mode} derives P per point from a "
+                 "bounce profile; pass --lz-profile or --bounce")
 
     from bdlz_tpu_torch.config import load_config, static_choices_from_config, validate
     from bdlz_tpu_torch.constants import PLANCK_DM_OVER_B
@@ -102,10 +132,20 @@ def main(argv=None) -> None:
     cfg = validate(load_config(args.config), backend="gpu")
     for key in ("retry_enabled", "cache_enabled", "fault_injection"):
         if getattr(cfg, key):
-            raise SystemExit(f"{key}: true is not ported to bdlz_tpu_torch yet ({_D1})")
+            raise SystemExit(f"{key}: true is not ported to bdlz_tpu_torch yet ({_D2})")
+    # explicit scenario flags override the config's lz_* keys
+    cfg = apply_scenario_flags(cfg, args)
     if cfg.lz_mode != "two_channel":
-        raise SystemExit(f"lz_mode={cfg.lz_mode!r} derives P per point from a "
-                         f"bounce profile, which is not ported yet ({_D2})")
+        if not (args.lz_profile or args.bounce):
+            raise SystemExit(
+                f"lz_mode={cfg.lz_mode!r} derives P per point from a bounce "
+                "profile; pass --lz-profile or --bounce"
+            )
+        if args.lz_method != "local" or args.lz_gamma_phi:
+            raise SystemExit(
+                f"--lz-method/--lz-gamma-phi have no effect with "
+                f"lz_mode={cfg.lz_mode!r} (the scenario owns the kernel)"
+            )
     axes: Dict[str, np.ndarray] = dict(parse_axis(s) for s in args.axis)
     if not axes:
         raise SystemExit("at least one --axis is required")
@@ -116,7 +156,8 @@ def main(argv=None) -> None:
     res = run_sweep(
         cfg, axes, static, chunk_size=args.chunk,
         n_y=args.n_y, impl=args.impl, fuse_exp=args.fuse_exp,
-        device=args.device,
+        device=args.device, lz_profile=args.lz_profile, lz_method=args.lz_method,
+        lz_gamma_phi=args.lz_gamma_phi, bounce=args.bounce,
     )
 
     ratios = res.outputs["DM_over_B"]
@@ -136,6 +177,8 @@ def main(argv=None) -> None:
     else:
         closest = None  # every point failed; keep the summary strict JSON
     print(json.dumps({
+        # omit-at-default, as in the JAX CLI
+        **({"lz_mode": cfg.lz_mode} if cfg.lz_mode != "two_channel" else {}),
         "n_points": res.n_points,
         "n_failed": res.n_failed,
         # the port has no self-healing, resume or output directory yet:

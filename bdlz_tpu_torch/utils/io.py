@@ -1,4 +1,5 @@
-"""Output layer: the ``yields_out.json`` artifact and atomic JSON writes.
+"""Output layer: the ``yields_out.json`` artifact and atomic JSON and text
+writes.
 
 Counterpart of ``atomic_write_json``, ``yields_out_payload`` and
 ``write_yields_out`` in ``bdlz_tpu/utils/io.py``.  The schema is the
@@ -38,11 +39,21 @@ def atomic_write_json(
     destination directory, then ``os.replace``, so a reader sees the old
     file or the new one, never half a write.  ``durable`` also fsyncs the
     file before the rename and the directory after it."""
+    _atomic_write(path, lambda f: json.dump(payload, f, **dump_kwargs), durable)
+
+
+def atomic_write_text(path: str, text: str, durable: bool = False) -> None:
+    """Write ``text`` to ``path`` atomically, as :func:`atomic_write_json`
+    does (profile CSVs derived from a bounce, ``lz/profile.py``)."""
+    _atomic_write(path, lambda f: f.write(text), durable)
+
+
+def _atomic_write(path: str, write, durable: bool) -> None:
     d = os.path.dirname(os.path.abspath(path))
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
     try:
         with os.fdopen(fd, "w", encoding="utf-8") as f:
-            json.dump(payload, f, **dump_kwargs)
+            write(f)
             if durable:
                 f.flush()
                 os.fsync(f.fileno())

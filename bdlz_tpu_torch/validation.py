@@ -5,8 +5,10 @@ Counterpart of ``bdlz_tpu/validation.py:22-447``.  The audit decides a
 quadrature *scheme*, so it never depends on the device: like the JAX
 package's NumPy audit it runs on the host, here through the port's own
 batched integrands on CPU tensors (the sample is integrated all at once
-instead of in a per-point loop).  The LZ and bounce audits are not ported
-yet (ROADMAP A10).
+instead of in a per-point loop).  The LZ scenario and bounce gates
+(``chain_mode_audit``, ``thermal_mode_audit``, ``bounce_audit``,
+``bdlz_tpu/validation.py:558-862``) score the same populations with the
+same tolerances; their kernels run on the ``device`` they are given.
 """
 from __future__ import annotations
 
@@ -343,3 +345,270 @@ def population_max_rel(run_chunk, chunk: int, ref: np.ndarray) -> float:
             file=sys.stderr, flush=True,
         )
     return float(np.max(errs[nz]))
+
+
+# ---------------------------------------------------------------------------
+# LZ scenario-mode and bounce gates: deterministic samples scored against
+# independent references; a non-finite value is a GateFailure, never a
+# small error.
+# ---------------------------------------------------------------------------
+
+class ChainAuditResult(NamedTuple):
+    """Verdict of :func:`chain_mode_audit`."""
+
+    ok: bool
+    #: max rel err of the N = 2 chain vs the coherent two-channel kernel
+    #: (contract <= 1e-12: the chain must reduce to it)
+    n2_vs_coherent: float
+    #: max abs err of the flat-band chain vs the closed-form path-graph
+    #: populations (the midpoint rule is exact for a constant H)
+    analytic_flat_band: float
+    #: max |Σ_k P_k − 1| over the population
+    unitarity_defect: float
+    reason: "str | None" = None
+
+
+def chain_mode_audit(
+    profile,
+    n_levels: int = 3,
+    n_sample: int = 24,
+    rtol_n2: float = 1e-12,
+    atol_analytic: float = 1e-10,
+    device=None,
+) -> ChainAuditResult:
+    """The ``lz_mode="chain"`` gate over geomspace(0.02, 0.95) speeds:
+    (a) N = 2 equals the coherent kernel to ``rtol_n2``; (b) the flat band
+    at ``n_levels`` reproduces the closed-form populations; (c) the
+    populations stay normalized."""
+    from bdlz_tpu_torch.lz.chain import (
+        chain_populations_for_speeds,
+        uniform_chain_populations_analytic,
+        validate_n_levels,
+    )
+    from bdlz_tpu_torch.lz.profile import BounceProfile, load_profile_csv
+    from bdlz_tpu_torch.lz.sweep_bridge import probabilities_for_points
+
+    n_levels = validate_n_levels(n_levels)
+    if isinstance(profile, str):
+        profile = load_profile_csv(profile)
+    v = np.geomspace(0.02, 0.95, int(n_sample))
+    try:
+        P2 = chain_populations_for_speeds(profile, v, 2, device=device)[:, -1]
+        P_ref = probabilities_for_points(profile, v, method="coherent", device=device)
+        n2_err = float(relative_errors(P2, P_ref).max())
+
+        Pn = chain_populations_for_speeds(profile, v, n_levels, device=device)
+        if not np.isfinite(Pn).all():
+            raise GateFailure("non-finite chain populations")
+        unit = float(np.abs(Pn.sum(axis=1) - 1.0).max())
+
+        m_flat, L = 0.35, 6.0
+        xi = np.linspace(0.0, L, 257)
+        flat = BounceProfile(
+            xi=xi, delta=np.zeros_like(xi), mix=np.full_like(xi, m_flat)
+        )
+        an_err = 0.0
+        for vv in (0.2, 0.5, 0.9):
+            got = chain_populations_for_speeds(flat, [vv], n_levels, device=device)[0]
+            ref = uniform_chain_populations_analytic(n_levels, m_flat, L, vv)
+            an_err = max(an_err, float(np.abs(got - ref).max()))
+    except GateFailure as exc:
+        return ChainAuditResult(
+            ok=False, n2_vs_coherent=np.inf, analytic_flat_band=np.inf,
+            unitarity_defect=np.inf, reason=str(exc),
+        )
+    ok = (n2_err <= rtol_n2 and an_err <= atol_analytic
+          and unit <= atol_analytic)
+    reason = None
+    if not ok:
+        reason = (
+            f"chain gate breach: N=2 vs coherent {n2_err:.3e} "
+            f"(<= {rtol_n2:.0e}), flat-band analytic {an_err:.3e}, "
+            f"unitarity {unit:.3e} (<= {atol_analytic:.0e})"
+        )
+    return ChainAuditResult(
+        ok=ok, n2_vs_coherent=n2_err, analytic_flat_band=an_err,
+        unitarity_defect=unit, reason=reason,
+    )
+
+
+class ThermalAuditResult(NamedTuple):
+    """Verdict of :func:`thermal_mode_audit`."""
+
+    ok: bool
+    #: T → 0 and η → 0 reproduce the coherent kernel bit for bit
+    cold_limit_bitwise: bool
+    #: max Γ_φ(T_i) − Γ_φ(T_{i+1}) on an ascending grid (<= 0: monotone)
+    monotonicity_defect: float
+    #: |Γ(T ≫ ω_c) / (2 η ω_c) − 1|
+    saturation_err: float
+    reason: "str | None" = None
+
+
+def thermal_mode_audit(
+    profile,
+    eta: float,
+    omega_c_GeV: float,
+    n_sample: int = 16,
+    T_grid=None,
+    device=None,
+) -> ThermalAuditResult:
+    """The ``lz_mode="thermal"`` gate: (a) the cold limit (T = 0, and
+    η = 0) equals the coherent P bit for bit; (b) Γ_φ(T) is monotone with
+    Γ(0) = 0; (c) Γ saturates at 2ηω_c."""
+    from bdlz_tpu_torch.lz.profile import load_profile_csv
+    from bdlz_tpu_torch.lz.sweep_bridge import probabilities_for_points
+    from bdlz_tpu_torch.lz.thermal import (
+        thermal_gamma_phi,
+        thermal_probabilities_for_points,
+        validate_bath,
+    )
+
+    eta, omega_c = validate_bath(eta, omega_c_GeV)
+    if isinstance(profile, str):
+        profile = load_profile_csv(profile)
+    v = np.geomspace(0.05, 0.95, int(n_sample))
+    if T_grid is None:
+        T_grid = np.geomspace(
+            max(omega_c, 1e-6) * 1e-3, max(omega_c, 1e-6) * 1e3, 41
+        )
+    T_grid = np.asarray(T_grid, dtype=np.float64)
+    try:
+        P_cold = thermal_probabilities_for_points(
+            profile, v, 0.0, eta, omega_c, device=device
+        )
+        P_eta0 = thermal_probabilities_for_points(
+            profile, v, float(T_grid[-1]), 0.0, omega_c, device=device
+        )
+        P_ref = probabilities_for_points(profile, v, method="coherent", device=device)
+        if not (np.isfinite(P_cold).all() and np.isfinite(P_eta0).all()):
+            raise GateFailure("non-finite thermal-mode populations")
+        cold_bitwise = bool(
+            np.array_equal(P_cold, P_ref) and np.array_equal(P_eta0, P_ref)
+        )
+    except GateFailure as exc:
+        return ThermalAuditResult(
+            ok=False, cold_limit_bitwise=False,
+            monotonicity_defect=np.inf, saturation_err=np.inf,
+            reason=str(exc),
+        )
+    gam = np.asarray(thermal_gamma_phi(np.sort(T_grid), eta, omega_c))
+    if not np.isfinite(gam).all():
+        return ThermalAuditResult(
+            ok=False, cold_limit_bitwise=cold_bitwise,
+            monotonicity_defect=np.inf, saturation_err=np.inf,
+            reason="non-finite derived dephasing rate",
+        )
+    mono = float(np.max(np.diff(gam) * -1.0, initial=0.0))
+    gam0 = float(thermal_gamma_phi(0.0, eta, omega_c))
+    sat_ref = 2.0 * eta * omega_c
+    if sat_ref > 0.0:
+        sat = abs(
+            float(thermal_gamma_phi(omega_c * 1e6, eta, omega_c)) / sat_ref
+            - 1.0
+        )
+    else:
+        # η = 0 or ω_c = 0: the rate is identically zero
+        sat = float(np.abs(gam).max(initial=0.0))
+    ok = cold_bitwise and mono <= 0.0 and gam0 == 0.0 and sat <= 1e-3
+    reason = None
+    if not ok:
+        reason = (
+            f"thermal gate breach: cold_bitwise={cold_bitwise}, "
+            f"monotonicity defect {mono:.3e} (<= 0), Gamma(0)={gam0}, "
+            f"saturation err {sat:.3e} (<= 1e-3)"
+        )
+    return ThermalAuditResult(
+        ok=ok, cold_limit_bitwise=cold_bitwise, monotonicity_defect=mono,
+        saturation_err=sat, reason=reason,
+    )
+
+
+class BounceAuditResult(NamedTuple):
+    """Verdict of :func:`bounce_audit`."""
+
+    ok: bool
+    #: rel err of the shot reference potential's P(v_w = 0.3, local) vs
+    #: the archived P_chi_to_B
+    P_vs_archived: float
+    #: rel dev of the shot action vs the closed-form thin-wall S₄
+    action_vs_thin_wall: float
+    #: Δ(ξ) crossings on the derived profile (contract: exactly 1)
+    n_crossings: int
+    reason: "str | None" = None
+
+
+def bounce_audit(
+    rtol_P: float = 1e-6,
+    rtol_action: float = 0.12,
+    n_xi: "int | None" = None,
+    device=None,
+) -> BounceAuditResult:
+    """The bounce-solver gate: shoot the reference potential on ``device``
+    and score (a) P at the benchmark wall speed against the archived
+    ``P_chi_to_B``; (b) the action against the thin-wall S₄; (c) the
+    profile's crossing count.  A non-converged shoot or a non-finite
+    output is a failed result."""
+    from bdlz_tpu_torch.bounce.potential import (
+        REFERENCE_P_CHI_TO_B,
+        REFERENCE_V_WALL,
+        reference_potential,
+        thin_wall_action,
+    )
+    from bdlz_tpu_torch.bounce.shooting import (
+        BounceSolveError,
+        bounce_profile,
+        solve_bounce,
+    )
+    from bdlz_tpu_torch.lz.profile import find_crossings
+    from bdlz_tpu_torch.lz.sweep_bridge import probabilities_for_points
+
+    spec = reference_potential()
+    try:
+        sol = solve_bounce(spec, device=device)
+        if not bool(sol.converged):
+            raise GateFailure(
+                f"bounce shoot did not converge on the reference potential "
+                f"(phi0={float(sol.phi0)!r}, action={float(sol.action)!r})"
+            )
+        if not np.isfinite(float(sol.action)):
+            raise GateFailure("non-finite bounce action")
+        try:
+            kwargs = {} if n_xi is None else {"n_xi": int(n_xi)}
+            profile = bounce_profile(spec, solution=sol, **kwargs)
+        except BounceSolveError as exc:
+            raise GateFailure(str(exc)) from exc
+        crossings = find_crossings(profile)
+        n_cross = int(crossings.xi_star.size)
+        if n_cross != 1:
+            raise GateFailure(
+                f"reference wall profile must cross Δ = 0 exactly once, "
+                f"found {n_cross} crossings"
+            )
+        P = probabilities_for_points(
+            profile, np.asarray([REFERENCE_V_WALL]), method="local"
+        )
+        if not np.isfinite(P).all():
+            raise GateFailure("non-finite bounce-derived probability")
+    except GateFailure as exc:
+        return BounceAuditResult(
+            ok=False, P_vs_archived=np.inf, action_vs_thin_wall=np.inf,
+            n_crossings=-1, reason=str(exc),
+        )
+    p_err = float(
+        abs(float(P[0]) - REFERENCE_P_CHI_TO_B) / REFERENCE_P_CHI_TO_B
+    )
+    s_tw = thin_wall_action(spec)
+    a_err = float(abs(float(sol.action) - s_tw) / s_tw)
+    ok = p_err <= rtol_P and a_err <= rtol_action
+    reason = None
+    if not ok:
+        reason = (
+            f"bounce gate breach: P vs archived {p_err:.3e} "
+            f"(<= {rtol_P:.0e}), action vs thin-wall {a_err:.3e} "
+            f"(<= {rtol_action:.2f})"
+        )
+    return BounceAuditResult(
+        ok=ok, P_vs_archived=p_err, action_vs_thin_wall=a_err,
+        n_crossings=n_cross, reason=reason,
+    )

@@ -12,6 +12,12 @@ Then it drives the paths that hold no hand kernel: the stiff Boltzmann
 sweep (the lane-repacking ESDIRK engine on a 1024-point washout grid),
 the audited panel Gauss–Legendre quadrature of the tabulated sweep, and
 the single-point CLI (``python -m bdlz_tpu_torch``) in a subprocess.
+Last come the bounce solver, whose shoot is one hand-written kernel
+(``bounce_path``: the kernel against its plain version and against the
+JAX package's reference shoot, the audit, batch against loop, times), and
+the LZ layer at full width (``lz_path``: P-tables at their default sizes,
+one of them over a 1,000,001-sample profile, and the sweep with a shot
+bounce through each estimator and scenario).
 
 Every phase prints one JSON line; the card's name and power limit as
 ``nvidia-smi`` reports them and a ``kernels`` line come before the last
@@ -65,6 +71,25 @@ STIFF_AXES = {
 # repacked (knobs on) vs lockstep (knobs off), card vs CPU, panel vs trapezoid
 STIFF_RTOL, CARD_CPU_RTOL, PANEL_RTOL = 1e-6, 1e-6, 1e-9
 
+# The reference potential's shoot by the JAX package (bdlz_tpu.bounce,
+# full knobs; tests/test_torch_bounce.py holds these equal to it) and the
+# archived P it reproduces at v_w = 0.3.
+BOUNCE_REFERENCE = {"phi0": 1.04668034824163, "r_wall": 27.807233670376903,
+                    "action": 49450.36521418286, "P_at_v_w_0.3": 0.14925839040304145}
+BOUNCE_PHI0_RTOL, BOUNCE_RTOL = 1e-10, 1e-6       # kernel vs the JAX constants
+CLASSIFY_RTOL, DENSE_ATOL = 1e-9, 1e-10          # kernel vs plain on the card
+LZ_SWEEP_RTOL, LZ_CARD_CPU_RTOL = 1e-10, 1e-10
+# The bounce kernel is latency bound: one thread runs a lane's whole chain
+# of dependent steps.  f64 operations on the critical path of one
+# attempted SDIRK4 step, counted from csrc/bounce_shoot.cu (PERF.md): per
+# Newton iteration 12 dependent operations and one division (~9), 6
+# iterations per stage, ~10 more per stage, 5 stages, and ~80 for the
+# embedded error, its square root and the controller's pow.
+BOUNCE_DEP_OPS_PER_STEP = 760
+# Dependent-issue latency of one f64 add, multiply or FMA, in cycles (the
+# figure published for Volta and Ampere microbenchmarks; not measured here)
+F64_LATENCY_CYCLES = 8
+
 # H100 SXM peaks from NVIDIA's data sheet: HBM3 at 3.35 TB/s, and
 # 34 TFLOP/s FP64 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -100,17 +125,18 @@ def phase_device() -> dict:
     return dev
 
 
-def phase_build() -> None:
-    from bdlz_tpu_torch.ops import _build, kjma_kernel
-
-    built = _build.build(kjma_kernel.SOURCE)
+def _ptxas_kernels(log: str) -> list:
+    """Registers, spills and static shared memory per kernel, from
+    ``-Xptxas -v``."""
     kernels, name = [], None
-    for line in built.ptxas_log.splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             tmpl = re.search(r"kjma_interp_kernelILb([01])ELb([01])E", m.group(1))
+            plain = re.search(r"(bounce_[a-z]+_kernel)", m.group(1))
             name = {("0", "1"): "reduce", ("0", "0"): "stream", ("1", "1"): "fused_reduce",
-                    ("1", "0"): "fused_stream"}[tmpl.groups()] if tmpl else m.group(1)
+                    ("1", "0"): "fused_stream"}[tmpl.groups()] if tmpl else (
+                        plain.group(1) if plain else m.group(1))
             kernels.append({"kernel": name})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and kernels:
@@ -120,11 +146,32 @@ def phase_build() -> None:
             kernels[-1]["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", line)
             kernels[-1]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return kernels
+
+
+def phase_build() -> None:
+    """Both sources at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bdlz_tpu_torch.ops import _build, bounce_kernel, kjma_kernel
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        kjma, bounce = pool.map(_build.build, (kjma_kernel.SOURCE, bounce_kernel.SOURCE))
+    wall = time.perf_counter() - t0
     kjma_kernel.load_library()
-    check(len(kernels) == 4, f"ptxas reported 4 kernels, got {kernels}")
-    emit({"phase": "build", "source": "bdlz_tpu_torch/csrc/" + kjma_kernel.SOURCE,
-          "seconds": built.seconds, "cached": built.cached,
-          "dynamic_smem_bytes": TABLE_N * 8 + 32 * 8, "kernels": kernels})
+    bounce_kernel.load_library()
+    kk_kernels, bk_kernels = _ptxas_kernels(kjma.ptxas_log), _ptxas_kernels(bounce.ptxas_log)
+    check(len(kk_kernels) == 4, f"ptxas reported 4 KJMA kernels, got {kk_kernels}")
+    check(sorted(k["kernel"] for k in bk_kernels)
+          == ["bounce_classify_kernel", "bounce_shoot_kernel"],
+          f"ptxas reported the bounce shoot and classify kernels, got {bk_kernels}")
+    emit({"phase": "build", "wall_seconds": wall, "sources": [
+        {"source": "bdlz_tpu_torch/csrc/" + kjma_kernel.SOURCE, "seconds": kjma.seconds,
+         "cached": kjma.cached, "dynamic_smem_bytes": TABLE_N * 8 + 32 * 8,
+         "kernels": kk_kernels},
+        {"source": "bdlz_tpu_torch/csrc/" + bounce_kernel.SOURCE, "seconds": bounce.seconds,
+         "cached": bounce.cached, "kernels": bk_kernels}]})
 
 
 def _args(name, streams, values):
@@ -339,11 +386,13 @@ def phase_profile(dev) -> None:
 def _launches_around(fn):
     """``fn()`` with every kernel's launch count set to 0 just before and
     read just after: (result, counts)."""
+    from bdlz_tpu_torch.ops import bounce_kernel as bk
     from bdlz_tpu_torch.ops import kjma_kernel as kk
 
     kk.reset_launches()
+    bk.reset_launches()
     out = fn()
-    return out, dict(kk.LAUNCHES)
+    return out, {**kk.LAUNCHES, **{"bounce_" + k: v for k, v in bk.LAUNCHES.items()}}
 
 
 def _max_rel(a, b) -> float:
@@ -541,6 +590,256 @@ def phase_cli(dev) -> None:
           "in_process_DM_over_B": inproc, "runs": runs})
 
 
+def _rel(a, b) -> float:
+    return abs(float(a) / float(b) - 1.0)
+
+
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def phase_bounce_path(dev) -> dict:
+    """The O(4) bounce shoot: the classify and dense kernels against the
+    plain version on the card, the full-knob shoot (one launch) against the
+    JAX package's reference shoot, the audit, a 64-spec batch against the
+    loop of single shoots, and the times."""
+    from bdlz_tpu_torch.bounce import (
+        PotentialSpec,
+        reference_potential,
+        solve_bounce,
+        solve_bounce_batch,
+        solve_bounce_scalar_loop,
+    )
+    from bdlz_tpu_torch.bounce.shooting import (
+        _params_row,
+        classify_plain,
+        dense_plain,
+        make_knobs,
+    )
+    from bdlz_tpu_torch.ops import bounce_kernel as bk
+    from bdlz_tpu_torch.validation import bounce_audit
+
+    t0 = time.perf_counter()
+    knobs = make_knobs()
+    spec = reference_potential()
+    row = _params_row(spec)
+    phi_false, phi_top, phi_true = row[3], row[4], row[5]
+    dphi = phi_true - phi_false
+    hi = phi_true - 1e-13 * dphi
+
+    # 1. classify: 6 release points across the bracket and 2 beside the
+    # converged φ₀ (1e-7 and 1e-8 of Δφ away), kernel and plain on the card
+    phi0_ref = BOUNCE_REFERENCE["phi0"]
+    points = np.concatenate([np.linspace(phi_top, hi, 8)[1:-1],
+                             [phi0_ref - 1e-7 * dphi, phi0_ref + 1e-8 * dphi]])
+    check(bool(np.all(np.abs(points - phi0_ref) > 1e-9 * dphi)),
+          "no release point within 1e-9 of Δφ of the converged φ₀")
+    params = torch.as_tensor(np.repeat(row[None], len(points), axis=0), dtype=torch.float64,
+                             device=dev)
+    phis = torch.as_tensor(points, dtype=torch.float64, device=dev)
+    kc = bk.bounce_classify(params, phis, knobs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pc = classify_plain(params, phis, knobs)
+    torch.cuda.synchronize()
+    plain_classify_8_s = time.perf_counter() - t1
+    check(torch.equal(kc.verdict, pc.verdict) and torch.equal(kc.segments, pc.segments),
+          f"classify verdicts {kc.verdict.tolist()} / {pc.verdict.tolist()} and segments "
+          f"{kc.segments.tolist()} / {pc.segments.tolist()} equal")
+    first_rel = ((kc.y_first - pc.y_first).abs() / pc.y_first.abs()).max().item()
+    check(first_rel <= CLASSIFY_RTOL, f"first segment's end state {first_rel:.3e} "
+                                      f"<= {CLASSIFY_RTOL:g}")
+    classify_abs = max((kc.y_first - pc.y_first).abs().max().item(),
+                       (kc.y_end - pc.y_end).abs().max().item())
+
+    # 2. the main path: one shoot, one launch
+    sol, counts = _launches_around(lambda: solve_bounce(spec, device=dev))
+    check(counts["bounce_shoot"] == 1 and counts["bounce_classify"] == 0,
+          f"one bounce_shoot launch per solve_bounce, got {counts}")
+    check(bool(sol.converged), "the reference shoot converged")
+    errs = {k: _rel(getattr(sol, k), BOUNCE_REFERENCE[k]) for k in ("phi0", "r_wall", "action")}
+    check(errs["phi0"] <= BOUNCE_PHI0_RTOL, f"phi0 vs JAX {errs['phi0']:.3e}")
+    check(errs["r_wall"] <= BOUNCE_RTOL and errs["action"] <= BOUNCE_RTOL,
+          f"r_wall/action vs JAX {errs}")
+
+    # 3. the dense pass of the plain version at the kernel's φ₀
+    p1 = torch.as_tensor(row[None], dtype=torch.float64, device=dev)
+    phi0_t = torch.as_tensor([float(sol.phi0)], dtype=torch.float64, device=dev)
+    t1 = time.perf_counter()
+    r_wall_p, action_p, _crossed, phi_p, _dphi_p = dense_plain(p1, phi0_t, knobs)
+    torch.cuda.synchronize()
+    plain_dense_s = time.perf_counter() - t1
+    dense_abs = float(np.max(np.abs(phi_p[0].cpu().numpy() - sol.phi)))
+    check(dense_abs <= DENSE_ATOL, f"dense phi kernel vs plain {dense_abs:.3e} <= {DENSE_ATOL:g}")
+
+    # 4. the audit on the card
+    audit = bounce_audit(device=dev)
+    check(audit.ok and audit.P_vs_archived <= 1e-6 and audit.action_vs_thin_wall <= 0.12
+          and audit.n_crossings == 1, f"bounce audit passed: {audit}")
+
+    # 5. 64 specs around the reference: the batch (one launch) equals the
+    # loop of single shoots bit for bit
+    lam4s, epss = np.linspace(0.45, 0.55, 8), np.linspace(0.045, 0.055, 8)
+    specs = [PotentialSpec(l4, spec.vev, e, spec.g_delta, spec.m_mix0)
+             for l4 in lam4s for e in epss]
+    t1 = time.perf_counter()
+    batch = solve_bounce_batch(specs, lane_width=len(specs), device=dev)
+    batch_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    loop = solve_bounce_scalar_loop(specs, device=dev)
+    loop_s = time.perf_counter() - t1
+    bitwise = all(np.array_equal(getattr(batch, f), getattr(loop, f), equal_nan=True)
+                  for f in batch._fields)
+    check(bitwise, "solve_bounce_batch equals solve_bounce_scalar_loop bit for bit")
+    check(bool(batch.converged.all()), "all 64 shoots converged")
+
+    # 6. times: one shoot and one plain classify (CUDA events), the bound
+    one = _cuda_ms(lambda: bk.bounce_shoot(p1, knobs), 1, repeats=3)
+    shoot = bk.bounce_shoot(p1, knobs)
+    steps = int(shoot.steps.item())
+    # the plain version is eager: one timed classify, no warm-up
+    mid = torch.as_tensor([points[-2]], dtype=torch.float64, device=dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    classify_plain(p1, mid, knobs)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_classify = [start.elapsed_time(stop)]
+    clock = _sm_clock_hz()
+    bound_ms = steps * BOUNCE_DEP_OPS_PER_STEP * F64_LATENCY_CYCLES / clock * 1e3
+    ms = float(np.median(one))
+    timing = {"ms": ms, "ms_samples": one, "plain_ms": plain_classify[0],
+              "plain_is": "one classify of one release point 1e-7 of the bracket from phi0",
+              "bound_ms": bound_ms, "bound_by": "operations", "attempted_steps": steps,
+              "segment_solves": int(shoot.segments.item()),
+              "dep_ops_per_step": BOUNCE_DEP_OPS_PER_STEP,
+              "f64_latency_cycles": F64_LATENCY_CYCLES, "sm_clock_hz": clock,
+              "fraction_of_bound": bound_ms / ms}
+    emit({"phase": "bounce_path", "seconds": time.perf_counter() - t0,
+          "classify": {"points": points.tolist(), "verdicts": kc.verdict.tolist(),
+                       "segments": kc.segments.tolist(), "steps": kc.steps.tolist(),
+                       "first_segment_max_rel": first_rel, "max_abs_err": classify_abs,
+                       "plain_8_lanes_seconds": plain_classify_8_s},
+          "shoot": {"launches": counts["bounce_shoot"], "phi0": float(sol.phi0),
+                    "r_wall": float(sol.r_wall), "action": float(sol.action),
+                    "rel_vs_jax": errs},
+          "dense_max_abs_kernel_vs_plain": dense_abs, "plain_dense_seconds": plain_dense_s,
+          "plain_dense_r_wall": r_wall_p.item(), "plain_dense_action": action_p.item(),
+          "audit": {"ok": audit.ok, "P_vs_archived": audit.P_vs_archived,
+                    "action_vs_thin_wall": audit.action_vs_thin_wall,
+                    "n_crossings": audit.n_crossings},
+          "batch_64": {"seconds": batch_s, "loop_seconds": loop_s, "bitwise_equal": bitwise,
+                       "launches": 1, "action_range": [float(batch.action.min()),
+                                                       float(batch.action.max())]},
+          "timing": timing})
+    return {"launches": counts["bounce_shoot"], "max_abs_err": max(classify_abs, dense_abs),
+            **timing, "solution": sol}
+
+
+LZ_METHODS = {  # sweep estimators and scenarios of the lz_path sweeps
+    "local": ({}, {"lz_method": "local"}),
+    "coherent": ({}, {"lz_method": "coherent"}),
+    "local-momentum": ({}, {"lz_method": "local-momentum"}),
+    "dephased": ({}, {"lz_method": "dephased", "lz_gamma_phi": 0.01}),
+    "chain": ({"lz_mode": "chain", "lz_n_levels": 3}, {}),
+    "thermal": ({"lz_mode": "thermal", "lz_bath_eta": 0.001, "lz_bath_omega_c": 50.0}, {}),
+}
+
+
+def phase_lz_path(dev, sol, kernel_pps: float) -> None:
+    """The LZ layer at full width: the P-tables at their default sizes over
+    the kernel-shot reference profile (801 samples) and over a
+    1,000,001-sample profile of the same wall (profiled), the sweep with
+    the shot bounce through each estimator and scenario against the
+    tabulated engine, and the table on the card against the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bdlz_tpu_torch.bounce import bounce_profile, reference_potential
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.lz.sweep_bridge import (
+        make_P_of_vw_gamma_table,
+        make_P_of_vw_table,
+        make_P_table_n,
+    )
+    from bdlz_tpu_torch.parallel.sweep import run_sweep
+
+    t0 = time.perf_counter()
+    spec = reference_potential()
+    prof = bounce_profile(spec, solution=sol)
+    big = bounce_profile(spec, solution=sol, n_xi=1_000_001)
+    check(len(prof.xi) == 801 and len(big.xi) == 1_000_001, "profiles of 801 and 1,000,001")
+    tables = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        vals = out.values
+        check(bool(torch.isfinite(vals).all()) and vals.device.type == "cuda",
+              f"{name}: finite, on the card")
+        tables[name] = {"seconds": time.perf_counter() - t1, "shape": list(vals.shape)}
+        return out
+
+    timed("coherent_16384_over_801", lambda: make_P_of_vw_table(
+        prof, "coherent", 0.05, 0.95, device=dev))
+    timed("coherent_16384_over_1000001", lambda: make_P_of_vw_table(
+        big, "coherent", 0.05, 0.95, device=dev))
+    timed("dephased_2d_16384x33_over_801", lambda: make_P_of_vw_gamma_table(
+        prof, 0.05, 0.95, 0.0, 0.05, device=dev))
+    timed("chain3_16384_over_801", lambda: make_P_table_n(prof, 3, 0.05, 0.95, device=dev))
+
+    # device activity of the 1,000,001-sample table
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_run:
+        make_P_of_vw_table(big, "coherent", 0.05, 0.95, device=dev)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    device_ms = _device_ms(prof_run)
+    busy_ms = sum(device_ms.values())
+    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]
+
+    # the table's P on the card against the CPU, 64 nodes
+    card = make_P_of_vw_table(prof, "coherent", 0.05, 0.95, n=64, device=dev).values.cpu()
+    cpu = make_P_of_vw_table(prof, "coherent", 0.05, 0.95, n=64, device="cpu").values
+    card_cpu = float(((card - cpu).abs() / cpu.abs()).max())
+    check(card_cpu <= LZ_CARD_CPU_RTOL, f"table card vs CPU {card_cpu:.3e}")
+
+    # the sweep CLI's path with a shot bounce, per estimator and scenario
+    sweeps = {}
+    bounce = dict(spec._asdict())
+    for name, (cfg_over, kw) in LZ_METHODS.items():
+        base = config_from_dict(dict(ARCHIVED, **cfg_over))
+        static = static_choices_from_config(base)
+        common = dict(chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev,
+                      bounce=bounce, **kw)
+        res, counts = _launches_around(lambda: run_sweep(base, MAIN_AXES, static,
+                                                         impl="kernel", **common))
+        check(res.n_points == 32768 and res.n_failed == 0, f"{name}: 32768 finite points")
+        check(counts["reduce"] == 4 and counts["bounce_shoot"] == 1,
+              f"{name}: K1 launched 4 times and the shoot once, got {counts}")
+        ref = run_sweep(base, MAIN_AXES, static._replace(quad_panel_gl=False),
+                        impl="tabulated", **common)
+        rel = _max_rel(res.outputs["DM_over_B"], ref.outputs["DM_over_B"])
+        check(rel <= LZ_SWEEP_RTOL, f"{name}: kernel vs tabulated {rel:.3e}")
+        check("bounce" in res.lz_identity, f"{name}: the potential keys the sweep")
+        sweeps[name] = {"points_per_sec": res.points_per_sec, "sweep_seconds": res.seconds,
+                        "lz_prepass_seconds": res.lz_seconds, "launches": counts,
+                        "max_rel_vs_tabulated": rel, "lz_identity": res.lz_identity}
+    emit({"phase": "lz_path", "seconds": time.perf_counter() - t0, "tables": tables,
+          "profile_1000001": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                              "device_busy_share": busy_ms / wall_ms,
+                              "top_device_ms": dict(top)},
+          "table_card_vs_cpu_64_nodes_max_rel": card_cpu,
+          "sweeps": sweeps, "plain_P_kernel_tier_points_per_sec": kernel_pps})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -560,6 +859,10 @@ def main() -> int:
     phase_stiff_path(dev)
     phase_panel_path(dev, sweep_pps)
     phase_cli(dev)
+    bounce = phase_bounce_path(dev)
+    phase_lz_path(dev, bounce.pop("solution"), sweep_pps)
+    from bdlz_tpu_torch.ops import bounce_kernel as bk
+
     emit({"kernels": [{
         "name": kk.KERNELS[name][0],
         "route": "cuda",
@@ -572,7 +875,19 @@ def main() -> int:
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": None,  # no single PyTorch call computes interpolate-and-reduce
-    } for name in TIERS]})
+    } for name in TIERS] + [{
+        "name": bk.KERNELS["shoot"][0],
+        "route": "cuda",
+        "source": "bdlz_tpu_torch/csrc/" + bk.SOURCE,
+        "replaces": bk.KERNELS["shoot"][1],
+        "launches": bounce["launches"],
+        "max_abs_err": bounce["max_abs_err"],
+        "ms": bounce["ms"],
+        "plain_ms": bounce["plain_ms"],  # one plain classify, not a whole shoot
+        "bound_ms": bounce["bound_ms"],
+        "bound_by": bounce["bound_by"],
+        "library_ms": None,  # no PyTorch call shoots a bounce
+    }]})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "device": dev_info["nvidia_smi"]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],

@@ -190,7 +190,7 @@ def test_sweep_cli_runs_the_stiff_engine(tmp_path, capsys):
 def test_sweep_cli_refuses_unported_config_planes(tmp_path, key):
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(dict(ARCHIVED, **{key: True})))
-    with pytest.raises(SystemExit, match="ROADMAP D1"):
+    with pytest.raises(SystemExit, match="ROADMAP D2"):
         t_sweep_main(["--config", str(path), "--axis", "m_chi_GeV=1.0", "--device", "cpu"])
 
 

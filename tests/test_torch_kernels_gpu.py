@@ -188,3 +188,72 @@ def test_cli_point_on_the_card(cuda):
     assert abs(r.DM_over_B.item() / 5.688926334903014 - 1.0) <= 1e-12
     stiff = config_from_dict(STIFF)
     assert np.isfinite(run_point(stiff, stiff.P_chi_to_B, cuda).DM_over_B.item())
+
+
+# ---- the bounce shoot kernel and the LZ layer on the card -------------------
+
+def test_bounce_classify_kernel_matches_plain(cuda):
+    """Verdicts, segment and step counts equal; states within 1e-9 rel (the
+    plain version's torch pow and the kernel's may round apart)."""
+    from bdlz_tpu_torch.bounce import reference_potential
+    from bdlz_tpu_torch.bounce.shooting import _params_row, classify_plain, make_knobs
+    from bdlz_tpu_torch.ops import bounce_kernel as bk
+
+    knobs = make_knobs()
+    row = _params_row(reference_potential())
+    points = np.linspace(row[4], row[5], 5)[1:-1]
+    params = torch.as_tensor(np.repeat(row[None], len(points), axis=0), device=cuda)
+    phis = torch.as_tensor(points, device=cuda)
+    bk.reset_launches()
+    got = bk.bounce_classify(params, phis, knobs)
+    ref = classify_plain(params, phis, knobs)
+    assert bk.LAUNCHES == {"shoot": 0, "classify": 1}
+    for f in ("verdict", "segments", "steps", "ok"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    for f in ("y_first", "y_end"):
+        assert ((getattr(got, f) - getattr(ref, f)).abs()
+                / getattr(ref, f).abs()).max().item() <= 1e-9, f
+
+
+def test_bounce_batch_equals_loop_bitwise_on_the_card(cuda):
+    from bdlz_tpu_torch.bounce import (
+        PotentialSpec,
+        reference_potential,
+        solve_bounce_batch,
+        solve_bounce_scalar_loop,
+    )
+
+    ref = reference_potential()
+    specs = [ref._replace(eps=e) for e in (0.045, 0.05, 0.055)] + [
+        PotentialSpec(0.8, 1.1, 0.09, 1.3, 0.04)]
+    batch = solve_bounce_batch(specs, lane_width=3, device=cuda)
+    loop = solve_bounce_scalar_loop(specs, device=cuda)
+    assert batch.converged.all()
+    for f in batch._fields:
+        assert np.array_equal(getattr(batch, f), getattr(loop, f), equal_nan=True), f
+
+
+def test_bounce_audit_on_the_card_launches_the_kernel(cuda):
+    from bdlz_tpu_torch.ops import bounce_kernel as bk
+    from bdlz_tpu_torch.validation import bounce_audit
+
+    bk.reset_launches()
+    audit = bounce_audit(device=cuda)
+    assert bk.LAUNCHES["shoot"] == 1
+    assert audit.ok and audit.n_crossings == 1 and audit.P_vs_archived <= 1e-6
+
+
+def test_lz_table_on_the_card_matches_the_cpu(cuda):
+    from bdlz_tpu_torch.lz.profile import BounceProfile
+    from bdlz_tpu_torch.lz.sweep_bridge import make_P_of_vw_gamma_table, make_P_of_vw_table
+
+    xi = np.linspace(-30.0, 30.0, 1001)
+    prof = BounceProfile(xi=xi, delta=-0.08 * np.tanh(xi / 4.0), mix=np.full_like(xi, 0.02))
+    for method in ("coherent", "dephased"):
+        kw = {"gamma_phi": 0.01} if method == "dephased" else {}
+        a = make_P_of_vw_table(prof, method, 0.05, 0.95, n=64, device=cuda, **kw)
+        b = make_P_of_vw_table(prof, method, 0.05, 0.95, n=64, device="cpu", **kw)
+        assert a.values.device.type == "cuda"
+        assert ((a.values.cpu() - b.values).abs() / b.values).max().item() <= 1e-10
+    t2 = make_P_of_vw_gamma_table(prof, 0.05, 0.95, 0.0, 0.1, n_v=32, n_g=8, device=cuda)
+    assert t2.values.shape == (32, 8) and torch.isfinite(t2.values).all()

@@ -12,12 +12,15 @@ adaptive SDIRK4(3) solve, and stops at the first verdict; the converged
 φ₀ is then densified by a fixed-grid RK4 pass that accumulates the
 Euclidean action S₄ = 2π²∫ρ³[½φ'² + V − V(φ_false)]dρ in order.
 
-On the card the whole shoot — about 45,000 sequential attempted steps for
-the reference potential — is one hand-written CUDA kernel
-(``csrc/bounce_shoot.cu`` through ``ops/bounce_kernel.py``), one thread per
-lane.  The plain version below is the same algorithm in eager PyTorch,
-batched over lanes: each segment is one ``solvers/sdirk.esdirk_solve`` of
-the lanes still undecided, with an RHS whose ``at(ρ)`` gives the
+On the card the whole shoot — about 45,000 attempted steps for the
+reference potential, in 60 dependent classifications — is one
+hand-written CUDA kernel (``csrc/bounce_shoot.cu`` through
+``ops/bounce_kernel.py``): a block per lane classifies the midpoints of a
+depth-k subtree of the bracket at once and walks it with their verdicts
+(:func:`bisect_tree`), which gives the serial bisection bit for bit.  The
+plain version below is the same algorithm in eager PyTorch, batched over
+lanes and tree nodes: each segment is one ``solvers/sdirk.esdirk_solve``
+of the rows still undecided, with an RHS whose ``at(ρ)`` gives the
 closed-form Jacobian [[0, 1], [V″(φ), −3/ρ]].  The kernel wrapper runs it
 only for CPU tensors.  At the full knobs it takes minutes (a few
 milliseconds of host dispatch per attempted step); the tests run it at
@@ -262,29 +265,94 @@ def dense_plain(params: torch.Tensor, phi0: torch.Tensor, knobs: Knobs):
     return r_wall, action, crossed, phis, dphis
 
 
-def shoot_plain(params: torch.Tensor, knobs: Knobs) -> ShootOut:
-    """The whole shoot in eager PyTorch: ``n_bisect`` halvings, then the
-    dense pass at the lower bracket (the undershoot side)."""
+class TreeWalk(NamedTuple):
+    lo: torch.Tensor              # the bracket's lower end after n_bisect halvings
+    ok: torch.Tensor              # AND of the chosen path's nodes' ok, bool (W,)
+    steps: torch.Tensor           # Σ of the chosen path's nodes' steps, int64 (W,)
+    segments: torch.Tensor        # Σ of the chosen path's nodes' segments
+    critical_steps: torch.Tensor  # Σ over rounds of the round's largest node steps
+    total_steps: torch.Tensor     # Σ of every node's steps
+    rounds: int
+
+
+def bisect_tree(lo: torch.Tensor, hi: torch.Tensor, n_bisect: int, depth: int,
+                classify) -> TreeWalk:
+    """``n_bisect`` halvings of [lo, hi] (W,) in rounds of depth d =
+    min(depth, halvings left): each round classifies the 2^d − 1 midpoints
+    of the depth-d subtree of the bracket at once — ``classify(mids)`` on a
+    (W, 2^d − 1) array in heap order (node t's children are 2t+1, taken
+    after an overshoot, and 2t+2, after an undershoot) returns (verdict, ok,
+    steps, segments), each (W, 2^d − 1) — and walks it from the root
+    (verdict < 0: lo = mid, else hi = mid).  Each midpoint is
+    ``0.5 * (lo + hi)`` of its node's own bracket, so the bracket equals the
+    serial bisection's bit for bit for every depth; ok, steps and segments
+    are taken over the chosen path's nodes only.  ``depth=1`` is the serial
+    loop."""
+    if int(depth) < 1:
+        raise ValueError(f"bisect_tree: depth must be >= 1, got {depth}")
+    W = lo.shape[0]
+    ok = torch.ones(W, dtype=torch.bool, device=lo.device)
+    steps = torch.zeros(W, dtype=torch.int64, device=lo.device)
+    segments, critical, total = steps.clone(), steps.clone(), steps.clone()
+    left, rounds = int(n_bisect), 0
+    while left > 0:
+        d = min(int(depth), left)
+        # the nodes' brackets, level by level: position p at level l has
+        # children 2p (hi = mid) and 2p+1 (lo = mid)
+        lv_lo, lv_hi = lo[:, None], hi[:, None]
+        node_lo, node_hi = [lv_lo], [lv_hi]
+        for _ in range(d - 1):
+            mid = 0.5 * (lv_lo + lv_hi)
+            lv_lo = torch.stack([lv_lo, mid], dim=-1).flatten(1)
+            lv_hi = torch.stack([mid, lv_hi], dim=-1).flatten(1)
+            node_lo.append(lv_lo)
+            node_hi.append(lv_hi)
+        mids = 0.5 * (torch.cat(node_lo, dim=1) + torch.cat(node_hi, dim=1))
+        verdict, ok_n, steps_n, segments_n = classify(mids)
+        at = torch.zeros((W, 1), dtype=torch.int64, device=lo.device)
+        for _ in range(d):
+            mid = 0.5 * (lo + hi)
+            under = verdict.gather(1, at)[:, 0] < 0
+            lo = torch.where(under, mid, lo)
+            hi = torch.where(under, hi, mid)
+            ok = ok & ok_n.gather(1, at)[:, 0]
+            steps = steps + steps_n.gather(1, at)[:, 0]
+            segments = segments + segments_n.gather(1, at)[:, 0]
+            at = 2 * at + 1 + under[:, None].to(torch.int64)
+        critical = critical + steps_n.amax(dim=1)
+        total = total + steps_n.sum(dim=1)
+        left -= d
+        rounds += 1
+    return TreeWalk(lo, ok, steps, segments, critical, total, rounds)
+
+
+def shoot_plain(params: torch.Tensor, knobs: Knobs, depth: int = 1, stats: bool = False):
+    """The whole shoot in eager PyTorch: ``n_bisect`` halvings by
+    :func:`bisect_tree` at ``depth`` (one ``classify_plain`` of W·(2^d − 1)
+    rows per round; the outputs do not depend on the depth), then the dense
+    pass at the lower bracket (the undershoot side).  ``ShootOut``, and with
+    ``stats`` also the (W, 4) int64 stats of ``ops/bounce_kernel``."""
     _lam4, _vev, _eps, phi_false, phi_top, phi_true = params.unbind(-1)
     delta_phi = phi_true - phi_false
-    lo = phi_top
-    hi = phi_true - _HI_OFFSET_FRAC * delta_phi
-    ok = torch.ones_like(lo, dtype=torch.bool)
-    steps = torch.zeros_like(lo, dtype=torch.int64)
-    segments = torch.zeros_like(steps)
-    for _ in range(knobs.n_bisect):
-        mid = 0.5 * (lo + hi)
-        c = classify_plain(params, mid, knobs)
-        under = c.verdict < 0
-        lo = torch.where(under, mid, lo)
-        hi = torch.where(under, hi, mid)
-        ok = ok & c.ok
-        steps = steps + c.steps
-        segments = segments + c.segments
+
+    def classify(mids):
+        W, n = mids.shape
+        c = classify_plain(params.repeat_interleave(n, dim=0), mids.reshape(-1), knobs)
+        return tuple(t.reshape(W, n) for t in (c.verdict, c.ok, c.steps, c.segments))
+
+    walk = bisect_tree(phi_top, phi_true - _HI_OFFSET_FRAC * delta_phi, knobs.n_bisect,
+                       depth, classify)
+    lo = walk.lo
     r_wall, action, crossed, phis, dphis = dense_plain(params, lo, knobs)
-    converged = (ok & crossed & torch.isfinite(action)
+    converged = (walk.ok & crossed & torch.isfinite(action)
                  & torch.isfinite(phis).all(dim=1))
-    return ShootOut(lo, r_wall, action, converged, phis, dphis, steps, segments)
+    out = ShootOut(lo, r_wall, action, converged, phis, dphis, walk.steps, walk.segments)
+    if not stats:
+        return out
+    st = torch.stack([walk.critical_steps, walk.total_steps,
+                      torch.full_like(walk.steps, int(depth)),
+                      torch.full_like(walk.steps, walk.rounds)], dim=1)
+    return out, st
 
 
 # ---- the solver API ----------------------------------------------------

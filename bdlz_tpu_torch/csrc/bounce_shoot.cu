@@ -1,4 +1,4 @@
-// O(4) bounce shoot for NVIDIA Hopper (sm_90a): one thread per lane.
+// O(4) bounce shoot for NVIDIA Hopper (sm_90a): a depth-k bisection tree per lane.
 //
 // What it computes.  For each lane's potential V(φ) = (λ₄/8)(φ²−v²)² −
 // (ε/2)(φ/v+1), given params (λ₄, v, ε, φ_false, φ_top, φ_true), the
@@ -22,31 +22,69 @@
 // Which TPU program it replaces: bdlz_tpu/bounce/shooting.py:105
 // (_bounce_program), one XLA program per lane width — no pallas_call.  The
 // plain PyTorch version is bdlz_tpu_torch/bounce/shooting.py, which drives
-// the port's eager ESDIRK solver; this kernel repeats its arithmetic
+// the port's eager ESDIRK solver; this file repeats its arithmetic
 // operation by operation, in the same order.  It is built with
 // -fmad=false (no contraction of a*b+c into one rounding), and torch's
-// NaN-propagating min/max/clamp are written out, so on the card the kernel
+// NaN-propagating min/max/clamp are written out, so on the card the kernels
 // and the plain version on CUDA tensors agree to the last bit wherever
 // CUDA's libm (pow) is shared.
 //
-// Bound on this card: latency.  A lane is one sequential chain of about
-// 45,000 attempted steps (the reference shoot: 2,152 segment solves); each
-// step is 5 implicit stages of 6 dependent Newton iterations, so nothing
-// in a lane can run in parallel and the card's throughput is idle.  The
-// least time is steps x dependent f64 operations per step x the latency
-// of one dependent f64 operation (the count is derived in PERF.md).  The
-// design keeps every value of a lane in registers; lanes are independent
-// threads, so a batch costs the slowest lane.  A block per lane that
-// evaluates a depth-k bisection tree in parallel is later work.
+// Kernels (all share one classify arithmetic: seg_start / seg_attempt):
+//   bounce_tree_kernel — the main path (entry bounce_shoot).  One block per
+//     lane.  Bisection's brackets depend only on the verdicts, so a round
+//     of depth d = min(k, halvings left) classifies the 2^d − 1 midpoints
+//     of the depth-d subtree of the current bracket at once, one thread per
+//     node (heap order: node t has children 2t+1, taken after an overshoot,
+//     and 2t+2, after an undershoot).  Each node's midpoint is 0.5*(lo+hi) of
+//     its own sub-bracket; thread 0 then walks from the root with the
+//     verdicts (verdict < 0: lo = mid, else hi = mid).  Every node on the
+//     chosen path saw the bracket the serial halving sees and ran the same
+//     classify, so φ₀ and every output equal the serial bisection's bit for
+//     bit, for every k: THE OUTPUTS DO NOT DEPEND ON k.  ok, attempted
+//     steps and segment solves are taken over the chosen path's nodes
+//     only, as bdlz_tpu/bounce/shooting.py:177 (bisect_body) takes them;
+//     an off-path node that fails marks nothing.  Thread 0 runs the dense
+//     pass after the last round.  k is derived on the host
+//     (bounce_tree_plan) from W, the SM count and the kernel's registers
+//     as the occupancy calculator reports them: the fewest (waves × rounds)
+//     with every depth up to 9 (511 nodes in 512 threads, 128 registers a
+//     thread), the shallower tree on a tie.  It is no knob of the solver.
+//   bounce_shoot_serial_kernel — the one-thread-per-lane shoot: one thread
+//     runs the n_bisect classifications in turn (entry
+//     bounce_shoot_serial).  The witness the tree is held against.
+//   bounce_classify_kernel — one release point's verdict per lane, check only.
+//   bounce_latency_probe_kernel — one thread times dependent f64 chains
+//     (add, multiply, division, sqrt, pow) with clock64().
+//
+// Warp divergence.  The nodes of a warp classify different release points.
+// Nested as segments around attempted steps, a warp would pay Σ over
+// segments of its slowest thread's steps; the tree's classify
+// (classify_flat) is one loop over attempted steps in which a segment's end
+// and the next segment's Hairer–Wanner start are state transitions, so a
+// warp pays its slowest thread's total.  The serial kernel keeps the
+// nested form; both call the same seg_start / seg_attempt.
+//
+// Bound on this card: latency.  A classification is one chain of dependent
+// attempted steps; each step is 5 implicit stages of 6 dependent Newton
+// iterations, so nothing inside a step runs in parallel.  The least time of
+// a tree shoot is Σ over rounds of the round's slowest node's attempted
+// steps (the critical path, which the kernel reports) × the dependent f64
+// chain of one step × the latency of each operation, plus the dense pass's
+// chain; chip_smoke.py counts the chain and measures the latencies with the
+// probe kernel.  A lane's values live in registers; lanes are independent
+// blocks, so a batch costs its slowest lane when it fits one wave.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kSerialThreads = 32;
+constexpr int kMaxDepth = 9;
+constexpr int kTreeThreads = 512;  // 2^kMaxDepth − 1 nodes in whole warps
 
 // solver knobs of bdlz_tpu_torch/bounce/shooting.py and solvers/sdirk.py
 constexpr double kOvershootFrac = 1e-6;
@@ -136,21 +174,21 @@ __device__ __forceinline__ void newton(const Pot& p, double rho, double c0, doub
   }
 }
 
-struct Segment {
-  double y0, y1;
-  bool success;
+// One adaptive SDIRK4(3) solve over [x0, x1] (sdirk.esdirk_solve with
+// auto_h0=True, the I controller, no step cap beyond the span), as a state
+// that seg_start opens and seg_attempt advances by one attempted step.
+struct SegState {
+  double x, x1, y0, y1, fl0, fl1, h, abs_span;
   int64_t n;
+  bool done;
 };
 
-// One adaptive SDIRK4(3) solve over [x0, x1] (sdirk.esdirk_solve with
-// auto_h0=True, the I controller, no step cap beyond the span).
-__device__ Segment esdirk_segment(const Pot& p, double x0, double x1, double yy0,
-                                  double yy1) {
+// esdirk_init, Hairer–Wanner starting step
+__device__ __forceinline__ void seg_start(const Pot& p, double x0, double x1, double yy0,
+                                          double yy1, SegState& s) {
   const double span = x1 - x0;
   const double abs_span = fabs(span);
   const double h_cap = abs_span;
-
-  // esdirk_init, Hairer–Wanner starting step
   double f0, f1;
   rhs(p, x0, yy0, yy1, f0, f1);
   const double sc0 = kAtol + kRtol * fabs(yy0);
@@ -167,68 +205,78 @@ __device__ Segment esdirk_segment(const Pot& p, double x0, double x1, double yy0
                                  : pow(0.01 / dm, 1.0 / (kOrder + 1.0));
   double h = tmin(100.0 * h_a, h_b);
   h = tclamp(h, abs_span * 1e-12, h_cap);
+  s.x = x0;
+  s.x1 = x1;
+  s.y0 = yy0;
+  s.y1 = yy1;
+  s.fl0 = f0;
+  s.fl1 = f1;
+  s.h = h;
+  s.abs_span = abs_span;
+  s.n = 0;
+  s.done = false;
+}
 
-  double x = x0, y0 = yy0, y1 = yy1;
-  double fl0 = f0, fl1 = f1;
-  int64_t n = 0;
-  bool done = false;
-  while (!done && n < kMaxSteps) {
-    const double h_eff = tmin(tmin(h, h_cap), x1 - x);
-    // attempt_step: every stage implicit, predicted from the previous slope
-    double k0[5], k1[5];
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      const double x_s = x + kC[i] * h_eff;
-      double acc0 = y0, acc1 = y1;
-#pragma unroll
-      for (int j = 0; j < i; ++j) {
-        acc0 = acc0 + h_eff * kA[i][j] * k0[j];
-        acc1 = acc1 + h_eff * kA[i][j] * k1[j];
-      }
-      const double kp0 = i ? k0[i - 1] : fl0;
-      const double kp1 = i ? k1[i - 1] : fl1;
-      const double hg = h_eff * kG;
-      double Y0 = acc0 + hg * kp0;
-      double Y1 = acc1 + hg * kp1;
-      newton(p, x_s, acc0, acc1, Y0, Y1, hg);
-      rhs(p, x_s, Y0, Y1, k0[i], k1[i]);
-    }
-    double yn0 = y0, yn1 = y1, ye0 = y0, ye1 = y1;
-#pragma unroll
-    for (int j = 0; j < 5; ++j) {
-      yn0 = yn0 + h_eff * kB[j] * k0[j];
-      yn1 = yn1 + h_eff * kB[j] * k1[j];
-      ye0 = ye0 + h_eff * kBEmb[j] * k0[j];
-      ye1 = ye1 + h_eff * kBEmb[j] * k1[j];
-    }
-    const double s0 = kAtol + kRtol * tmax(fabs(y0), fabs(yn0));
-    const double s1 = kAtol + kRtol * tmax(fabs(y1), fabs(yn1));
-    double err = rms2((yn0 - ye0) / s0, (yn1 - ye1) / s1);
+__device__ __forceinline__ bool seg_running(const SegState& s) {
+  return !s.done && s.n < kMaxSteps;
+}
 
-    // the I controller
-    err = isfinite(err) ? err : INFINITY;
-    const bool accept = err <= 1.0;
-    const double e = err > 0.0 ? err : 1e-10;
-    double factor = 0.9 * pow(e, -1.0 / kOrder);
-    factor = tclamp(factor, 0.2, 5.0);
-    const double h_next = tclamp(h_eff * factor, abs_span * 1e-12, h_cap);
-    if (accept) {
-      x = x + h_eff;
-      y0 = yn0;
-      y1 = yn1;
-      fl0 = k0[4];
-      fl1 = k1[4];
+__device__ __forceinline__ bool seg_success(const SegState& s) {
+  return s.done && isfinite(s.y0) && isfinite(s.y1);
+}
+
+// one attempted step: every stage implicit, predicted from the previous
+// slope, then the embedded error and the I controller
+__device__ __forceinline__ void seg_attempt(const Pot& p, SegState& s) {
+  const double h_cap = s.abs_span;
+  const double h_eff = tmin(tmin(s.h, h_cap), s.x1 - s.x);
+  double k0[5], k1[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const double x_s = s.x + kC[i] * h_eff;
+    double acc0 = s.y0, acc1 = s.y1;
+#pragma unroll
+    for (int j = 0; j < i; ++j) {
+      acc0 = acc0 + h_eff * kA[i][j] * k0[j];
+      acc1 = acc1 + h_eff * kA[i][j] * k1[j];
     }
-    h = h_next;
-    ++n;
-    done = x >= x1 - abs_span * 1e-14;
+    const double kp0 = i ? k0[i - 1] : s.fl0;
+    const double kp1 = i ? k1[i - 1] : s.fl1;
+    const double hg = h_eff * kG;
+    double Y0 = acc0 + hg * kp0;
+    double Y1 = acc1 + hg * kp1;
+    newton(p, x_s, acc0, acc1, Y0, Y1, hg);
+    rhs(p, x_s, Y0, Y1, k0[i], k1[i]);
   }
-  Segment s;
-  s.y0 = y0;
-  s.y1 = y1;
-  s.success = done && isfinite(y0) && isfinite(y1);
-  s.n = n;
-  return s;
+  double yn0 = s.y0, yn1 = s.y1, ye0 = s.y0, ye1 = s.y1;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    yn0 = yn0 + h_eff * kB[j] * k0[j];
+    yn1 = yn1 + h_eff * kB[j] * k1[j];
+    ye0 = ye0 + h_eff * kBEmb[j] * k0[j];
+    ye1 = ye1 + h_eff * kBEmb[j] * k1[j];
+  }
+  const double s0 = kAtol + kRtol * tmax(fabs(s.y0), fabs(yn0));
+  const double s1 = kAtol + kRtol * tmax(fabs(s.y1), fabs(yn1));
+  double err = rms2((yn0 - ye0) / s0, (yn1 - ye1) / s1);
+
+  // the I controller
+  err = isfinite(err) ? err : INFINITY;
+  const bool accept = err <= 1.0;
+  const double e = err > 0.0 ? err : 1e-10;
+  double factor = 0.9 * pow(e, -1.0 / kOrder);
+  factor = tclamp(factor, 0.2, 5.0);
+  const double h_next = tclamp(h_eff * factor, s.abs_span * 1e-12, h_cap);
+  if (accept) {
+    s.x = s.x + h_eff;
+    s.y0 = yn0;
+    s.y1 = yn1;
+    s.fl0 = k0[4];
+    s.fl1 = k1[4];
+  }
+  s.h = h_next;
+  ++s.n;
+  s.done = s.x >= s.x1 - s.abs_span * 1e-14;
 }
 
 struct Lane {
@@ -264,10 +312,9 @@ struct Verdict {
   double first0, first1, end0, end1;
 };
 
-__device__ Verdict classify(const Lane& L, double phi0, double rho0, double h_seg,
-                            int n_segments) {
+__device__ __forceinline__ Verdict verdict_start(const Lane& L, double phi0, double rho0,
+                                                 double& y0, double& y1) {
   Verdict v;
-  double y0, y1;
   series_ic(L.p, phi0, rho0, y0, y1);
   v.verdict = 0;
   v.segments = 0;
@@ -275,24 +322,70 @@ __device__ Verdict classify(const Lane& L, double phi0, double rho0, double h_se
   v.ok = true;
   v.first0 = y0;
   v.first1 = y1;
+  return v;
+}
+
+// a finished segment's end state and counts, folded into the verdict
+__device__ __forceinline__ void verdict_segment(const Lane& L, const SegState& s, int k,
+                                                Verdict& v, double& y0, double& y1) {
   const double floor_phi = L.phi_false - kOvershootFrac * L.delta_phi;
-  for (int k = 0; k < n_segments && v.verdict == 0; ++k) {
-    const double a = rho0 + h_seg * static_cast<double>(k);
-    const Segment s = esdirk_segment(L.p, a, a + h_seg, y0, y1);
-    y0 = s.y0;
-    y1 = s.y1;
-    v.verdict = y0 < floor_phi ? 1 : (y1 > kUndershootVTol ? -1 : 0);
-    v.ok = v.ok && s.success;
-    v.segments += 1;
-    v.steps += s.n;
-    if (k == 0) {
-      v.first0 = y0;
-      v.first1 = y1;
-    }
+  y0 = s.y0;
+  y1 = s.y1;
+  v.verdict = y0 < floor_phi ? 1 : (y1 > kUndershootVTol ? -1 : 0);
+  v.ok = v.ok && seg_success(s);
+  v.segments += 1;
+  v.steps += s.n;
+  if (k == 0) {
+    v.first0 = y0;
+    v.first1 = y1;
   }
+}
+
+__device__ __forceinline__ void verdict_end(Verdict& v, double y0, double y1) {
   if (v.verdict == 0) v.verdict = -1;  // friction won by ρ_max: undershoot
   v.end0 = y0;
   v.end1 = y1;
+}
+
+// the nested form: segments around attempted steps
+__device__ Verdict classify(const Lane& L, double phi0, double rho0, double h_seg,
+                            int n_segments) {
+  double y0, y1;
+  Verdict v = verdict_start(L, phi0, rho0, y0, y1);
+  for (int k = 0; k < n_segments && v.verdict == 0; ++k) {
+    const double a = rho0 + h_seg * static_cast<double>(k);
+    SegState s;
+    seg_start(L.p, a, a + h_seg, y0, y1, s);
+    while (seg_running(s)) seg_attempt(L.p, s);
+    verdict_segment(L, s, k, v, y0, y1);
+  }
+  verdict_end(v, y0, y1);
+  return v;
+}
+
+// the flattened form: one loop over attempted steps; a segment opens at the
+// top of an iteration and closes when its solve stops
+__device__ Verdict classify_flat(const Lane& L, double phi0, double rho0, double h_seg,
+                                 int n_segments) {
+  double y0, y1;
+  Verdict v = verdict_start(L, phi0, rho0, y0, y1);
+  SegState s;
+  int k = 0;
+  bool open = false;
+  while (v.verdict == 0 && k < n_segments) {
+    if (!open) {
+      const double a = rho0 + h_seg * static_cast<double>(k);
+      seg_start(L.p, a, a + h_seg, y0, y1, s);
+      open = true;
+    }
+    seg_attempt(L.p, s);
+    if (!seg_running(s)) {
+      verdict_segment(L, s, k, v, y0, y1);
+      ++k;
+      open = false;
+    }
+  }
+  verdict_end(v, y0, y1);
   return v;
 }
 
@@ -301,38 +394,18 @@ __device__ __forceinline__ double integrand(const Pot& p, double rho, double y0,
   return rho * (rho * rho) * (0.5 * y1 * y1 + pot_V(y0, p) - v_false);
 }
 
-__global__ void __launch_bounds__(kThreads)
-bounce_shoot_kernel(const double* __restrict__ params, int n_lanes, double rho0,
-                    double h_seg, int n_segments, int n_bisect, double h_dense,
-                    int n_dense, double two_pi_sq, double* __restrict__ phi0_out,
-                    double* __restrict__ r_wall_out, double* __restrict__ action_out,
-                    uint8_t* __restrict__ converged_out, double* __restrict__ phi_out,
-                    double* __restrict__ dphi_out, int64_t* __restrict__ steps_out,
-                    int64_t* __restrict__ segments_out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_lanes) return;
-  const Lane L = load_lane(params, i);
+struct Outputs {
+  double *phi0, *r_wall, *action;
+  uint8_t* converged;
+  double *phi, *dphi;
+  int64_t *steps, *segments;
+};
 
-  // bisection on the release point
-  double lo = L.phi_top;
-  double hi = L.phi_true - kHiOffsetFrac * L.delta_phi;
-  bool ok = true;
-  int64_t steps = 0, segments = 0;
-  for (int it = 0; it < n_bisect; ++it) {
-    const double mid = 0.5 * (lo + hi);
-    const Verdict v = classify(L, mid, rho0, h_seg, n_segments);
-    if (v.verdict < 0) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
-    ok = ok && v.ok;
-    steps += v.steps;
-    segments += v.segments;
-  }
-  const double phi0 = lo;
-
-  // dense pass: fixed-grid RK4 with the settle freeze, action in order
+// dense pass: fixed-grid RK4 with the settle freeze, action in order; then
+// lane i's outputs
+__device__ void dense_pass(const Lane& L, int i, double phi0, bool ok, int64_t steps,
+                           int64_t segments, double rho0, double h_dense, int n_dense,
+                           double two_pi_sq, const Outputs& out) {
   const double v_false = pot_V(L.phi_false, L.p);
   const double settle = L.phi_false + kSettleFrac * L.delta_phi;
   const double half_h = 0.5 * h_dense;
@@ -342,8 +415,8 @@ bounce_shoot_kernel(const double* __restrict__ params, int n_lanes, double rho0,
   series_ic(L.p, phi0, rho0, y0, y1);
   double f_prev = integrand(L.p, rho0, y0, y1, v_false);
   double s_acc = 0.0;
-  phi_out[row] = y0;
-  dphi_out[row] = y1;
+  out.phi[row] = y0;
+  out.dphi[row] = y1;
   bool finite = isfinite(y0);
   // wall radius: the first grid point at or below φ_mid
   int idx = (y0 <= L.phi_mid) ? 0 : -1;
@@ -371,8 +444,8 @@ bounce_shoot_kernel(const double* __restrict__ params, int n_lanes, double rho0,
     }
     y0 = n0;
     y1 = n1;
-    phi_out[row + k + 1] = y0;
-    dphi_out[row + k + 1] = y1;
+    out.phi[row + k + 1] = y0;
+    out.dphi[row + k + 1] = y1;
     finite = finite && isfinite(y0);
   }
   const double action = two_pi_sq * s_acc;
@@ -383,21 +456,143 @@ bounce_shoot_kernel(const double* __restrict__ params, int n_lanes, double rho0,
     const double frac = (L.phi_mid - p_prev) / denom;
     r_wall = (rho0 + h_dense * static_cast<double>(idx - 1)) + frac * h_dense;
   }
-  phi0_out[i] = phi0;
-  r_wall_out[i] = r_wall;
-  action_out[i] = action;
-  converged_out[i] = ok && crossed && isfinite(action) && finite;
-  steps_out[i] = steps;
-  segments_out[i] = segments;
+  out.phi0[i] = phi0;
+  out.r_wall[i] = r_wall;
+  out.action[i] = action;
+  out.converged[i] = ok && crossed && isfinite(action) && finite;
+  out.steps[i] = steps;
+  out.segments[i] = segments;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kSerialThreads)
+bounce_shoot_serial_kernel(const double* __restrict__ params, int n_lanes, double rho0,
+                           double h_seg, int n_segments, int n_bisect, double h_dense,
+                           int n_dense, double two_pi_sq, Outputs out) {
+  const int i = blockIdx.x * kSerialThreads + threadIdx.x;
+  if (i >= n_lanes) return;
+  const Lane L = load_lane(params, i);
+  double lo = L.phi_top;
+  double hi = L.phi_true - kHiOffsetFrac * L.delta_phi;
+  bool ok = true;
+  int64_t steps = 0, segments = 0;
+  for (int it = 0; it < n_bisect; ++it) {
+    const double mid = 0.5 * (lo + hi);
+    const Verdict v = classify(L, mid, rho0, h_seg, n_segments);
+    if (v.verdict < 0) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+    ok = ok && v.ok;
+    steps += v.steps;
+    segments += v.segments;
+  }
+  dense_pass(L, i, lo, ok, steps, segments, rho0, h_dense, n_dense, two_pi_sq, out);
+}
+
+// one tree node's classification, as thread 0's walk reads it
+struct Node {
+  int64_t steps;
+  int32_t segments;
+  int8_t verdict;
+  uint8_t ok;
+};
+
+int tree_threads(int depth) { return (((1 << depth) - 1) + 31) / 32 * 32; }
+size_t tree_smem(int depth) { return static_cast<size_t>((1 << depth) - 1) * sizeof(Node); }
+
+// stats, per lane: critical-path steps (Σ over rounds of the slowest node's
+// attempted steps), every node's steps, the depth k, the rounds
+constexpr int kStats = 4;
+
+__global__ void __launch_bounds__(kTreeThreads, 1)
+bounce_tree_kernel(const double* __restrict__ params, double rho0, double h_seg,
+                   int n_segments, int n_bisect, int depth, double h_dense, int n_dense,
+                   double two_pi_sq, Outputs out, int64_t* __restrict__ stats) {
+  extern __shared__ Node node[];
+  __shared__ double s_lo, s_hi;
+  const int i = blockIdx.x;
+  const int t = threadIdx.x;
+  const Lane L = load_lane(params, i);
+  if (t == 0) {
+    s_lo = L.phi_top;
+    s_hi = L.phi_true - kHiOffsetFrac * L.delta_phi;
+  }
+  __syncthreads();
+  // thread 0's walk: the chosen path's sums, and the round statistics
+  bool ok = true;
+  int64_t steps = 0, segments = 0, critical = 0, total = 0;
+  int rounds = 0;
+  for (int left = n_bisect; left > 0; ++rounds) {
+    const int d = left < depth ? left : depth;
+    const int nodes = (1 << d) - 1;
+    if (t < nodes) {
+      // the bracket of node t: its position's bits, root first
+      const int level = 31 - __clz(t + 1);
+      const int pos = t + 1 - (1 << level);
+      double lo = s_lo, hi = s_hi;
+      for (int b = level - 1; b >= 0; --b) {
+        const double mid = 0.5 * (lo + hi);
+        if ((pos >> b) & 1) {
+          lo = mid;
+        } else {
+          hi = mid;
+        }
+      }
+      const Verdict v = classify_flat(L, 0.5 * (lo + hi), rho0, h_seg, n_segments);
+      node[t].steps = v.steps;
+      node[t].segments = static_cast<int32_t>(v.segments);
+      node[t].verdict = static_cast<int8_t>(v.verdict);
+      node[t].ok = v.ok;
+    }
+    __syncthreads();
+    if (t == 0) {
+      double lo = s_lo, hi = s_hi;
+      int at = 0;
+      for (int l = 0; l < d; ++l) {
+        const double mid = 0.5 * (lo + hi);
+        const Node& n = node[at];
+        if (n.verdict < 0) {
+          lo = mid;
+          at = 2 * at + 2;
+        } else {
+          hi = mid;
+          at = 2 * at + 1;
+        }
+        ok = ok && n.ok;
+        steps += n.steps;
+        segments += n.segments;
+      }
+      int64_t slowest = 0;
+      for (int j = 0; j < nodes; ++j) {
+        total += node[j].steps;
+        slowest = node[j].steps > slowest ? node[j].steps : slowest;
+      }
+      critical += slowest;
+      s_lo = lo;
+      s_hi = hi;
+    }
+    left -= d;
+    __syncthreads();
+  }
+  if (t != 0) return;
+  dense_pass(L, i, s_lo, ok, steps, segments, rho0, h_dense, n_dense, two_pi_sq, out);
+  if (stats != nullptr) {
+    int64_t* s = stats + kStats * static_cast<int64_t>(i);
+    s[0] = critical;
+    s[1] = total;
+    s[2] = depth;
+    s[3] = rounds;
+  }
+}
+
+__global__ void __launch_bounds__(kSerialThreads)
 bounce_classify_kernel(const double* __restrict__ params, const double* __restrict__ phi0,
                        int n_lanes, double rho0, double h_seg, int n_segments,
                        int64_t* __restrict__ verdict_out, double* __restrict__ first_out,
                        double* __restrict__ end_out, int64_t* __restrict__ segments_out,
                        int64_t* __restrict__ steps_out, uint8_t* __restrict__ ok_out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * kSerialThreads + threadIdx.x;
   if (i >= n_lanes) return;
   const Lane L = load_lane(params, i);
   const Verdict v = classify(L, phi0[i], rho0, h_seg, n_segments);
@@ -411,24 +606,137 @@ bounce_classify_kernel(const double* __restrict__ params, const double* __restri
   ok_out[i] = v.ok;
 }
 
-int blocks_for(int n_lanes) { return (n_lanes + kThreads - 1) / kThreads; }
+// Dependent chains of 16·reps f64 operations each, timed with clock64():
+// cycles[0..4] = add, multiply, division, sqrt, pow.  Every operand comes
+// from the arguments, so nothing folds; the results land in sink.
+constexpr int kProbeUnroll = 16;
+
+template <int Op>
+__device__ __forceinline__ double probe_op(double x, double a, double b, double c) {
+  if (Op == 0) return x + c;            // c = 1e-3
+  if (Op == 1) return x * b;            // b = 1 + 1e-7
+  if (Op == 2) return a / x;            // alternates between a and 1
+  if (Op == 3) return sqrt(x);          // from 1e300·a down to 1
+  return pow(0.5 * b, x);               // settles near 0.64
+}
+
+template <int Op>
+__device__ __forceinline__ void probe_chain(double x, double a, double b, double c, int reps,
+                                            long long* cycles, double* sink) {
+  const long long t0 = clock64();
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll
+    for (int u = 0; u < kProbeUnroll; ++u) x = probe_op<Op>(x, a, b, c);
+  }
+  const long long t1 = clock64();
+  sink[Op] = x;
+  cycles[Op] = t1 - t0;
+}
+
+__global__ void bounce_latency_probe_kernel(double a, double b, double c, int reps,
+                                            long long* cycles, double* sink) {
+  probe_chain<0>(a, a, b, c, reps, cycles, sink);
+  probe_chain<1>(a, a, b, c, reps, cycles, sink);
+  probe_chain<2>(a, a, b, c, reps, cycles, sink);
+  probe_chain<3>(1e300 * a, a, b, c, reps, cycles, sink);
+  probe_chain<4>(a, a, b, c, reps, cycles, sink);
+}
+
+int blocks_for(int n_lanes) { return (n_lanes + kSerialThreads - 1) / kSerialThreads; }
+
+Outputs outputs(double* phi0, double* r_wall, double* action, uint8_t* converged,
+                double* phi, double* dphi, int64_t* steps, int64_t* segments) {
+  Outputs o;
+  o.phi0 = phi0;
+  o.r_wall = r_wall;
+  o.action = action;
+  o.converged = converged;
+  o.phi = phi;
+  o.dphi = dphi;
+  o.steps = steps;
+  o.segments = segments;
+  return o;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Each entry point launches on `stream`, does not synchronise, and returns
-// the launch's cudaError_t (0 = launched).
+// Each launching entry point launches on `stream`, does not synchronise,
+// and returns the launch's cudaError_t (0 = launched).
 
+// The tree's depth for W lanes and n_bisect halvings on the current device:
+// the fewest (waves × rounds) over depths 1..min(9, n_bisect), where a wave
+// is the lanes the occupancy calculator fits on every SM at once; the
+// shallower tree on a tie.  Also reports the kernel's registers per thread,
+// its blocks per SM at that depth, and the SM count.
+int bounce_tree_plan(int n_lanes, int n_bisect, int* depth, int* registers,
+                     int* blocks_per_sm, int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, bounce_tree_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *registers = attr.numRegs;
+  *depth = 1;
+  *blocks_per_sm = 0;
+  long long best = LLONG_MAX;
+  const int lanes = n_lanes > 0 ? n_lanes : 1;
+  const int kmax = n_bisect < kMaxDepth ? (n_bisect > 1 ? n_bisect : 1) : kMaxDepth;
+  for (int k = 1; k <= kmax; ++k) {
+    const int threads = tree_threads(k);
+    if (threads > attr.maxThreadsPerBlock) break;
+    int nb = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, bounce_tree_kernel, threads,
+                                                        tree_smem(k));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (nb < 1) break;
+    const long long per_wave = static_cast<long long>(nb) * (*sms);
+    const long long waves = (lanes + per_wave - 1) / per_wave;
+    const long long rounds = n_bisect > 0 ? (n_bisect + k - 1) / k : 0;
+    if (waves * rounds < best) {
+      best = waves * rounds;
+      *depth = k;
+      *blocks_per_sm = nb;
+    }
+  }
+  return 0;
+}
+
+// The main path: the tree kernel at `depth` (0 = bounce_tree_plan's).
+// `stats` is null or (n_lanes, 4) int64: critical-path steps, total steps,
+// depth, rounds.
 int bounce_shoot(const double* params, int n_lanes, double rho0, double h_seg,
                  int n_segments, int n_bisect, double h_dense, int n_dense,
-                 double two_pi_sq, double* phi0, double* r_wall, double* action,
+                 double two_pi_sq, int depth, double* phi0, double* r_wall, double* action,
                  uint8_t* converged, double* phi, double* dphi, int64_t* steps,
-                 int64_t* segments, void* stream) {
-  bounce_shoot_kernel<<<blocks_for(n_lanes), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+                 int64_t* segments, int64_t* stats, void* stream) {
+  if (depth <= 0) {
+    int regs, nb, sms;
+    const int err = bounce_tree_plan(n_lanes, n_bisect, &depth, &regs, &nb, &sms);
+    if (err != 0) return err;
+  }
+  if (depth > kMaxDepth) return static_cast<int>(cudaErrorInvalidValue);
+  bounce_tree_kernel<<<n_lanes, tree_threads(depth), tree_smem(depth),
+                       static_cast<cudaStream_t>(stream)>>>(
+      params, rho0, h_seg, n_segments, n_bisect, depth, h_dense, n_dense, two_pi_sq,
+      outputs(phi0, r_wall, action, converged, phi, dphi, steps, segments), stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The one-thread-per-lane shoot, the witness the tree is held against.
+int bounce_shoot_serial(const double* params, int n_lanes, double rho0, double h_seg,
+                        int n_segments, int n_bisect, double h_dense, int n_dense,
+                        double two_pi_sq, double* phi0, double* r_wall, double* action,
+                        uint8_t* converged, double* phi, double* dphi, int64_t* steps,
+                        int64_t* segments, void* stream) {
+  bounce_shoot_serial_kernel<<<blocks_for(n_lanes), kSerialThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       params, n_lanes, rho0, h_seg, n_segments, n_bisect, h_dense, n_dense, two_pi_sq,
-      phi0, r_wall, action, converged, phi, dphi, steps, segments);
+      outputs(phi0, r_wall, action, converged, phi, dphi, steps, segments));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,12 +744,22 @@ int bounce_classify(const double* params, const double* phi0, int n_lanes, doubl
                     double h_seg, int n_segments, int64_t* verdict, double* first,
                     double* end, int64_t* segments, int64_t* steps, uint8_t* ok,
                     void* stream) {
-  bounce_classify_kernel<<<blocks_for(n_lanes), kThreads, 0,
+  bounce_classify_kernel<<<blocks_for(n_lanes), kSerialThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       params, phi0, n_lanes, rho0, h_seg, n_segments, verdict, first, end, segments,
       steps, ok);
   return static_cast<int>(cudaGetLastError());
 }
+
+// `cycles` (5,) int64 and `sink` (5,) f64 on the device: 16·reps dependent
+// add, multiply, division, sqrt and pow, in that order.
+int bounce_latency_probe(int reps, long long* cycles, double* sink, void* stream) {
+  bounce_latency_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      1.3, 1.0 + 1e-7, 1e-3, reps, cycles, sink);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bounce_probe_unroll() { return kProbeUnroll; }
 
 const char* bounce_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

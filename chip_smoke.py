@@ -13,8 +13,10 @@ sweep (the lane-repacking ESDIRK engine on a 1024-point washout grid),
 the audited panel Gauss–Legendre quadrature of the tabulated sweep, and
 the single-point CLI (``python -m bdlz_tpu_torch``) in a subprocess.
 Last come the bounce solver, whose shoot is one hand-written kernel
-(``bounce_path``: the kernel against its plain version and against the
-JAX package's reference shoot, the audit, batch against loop, times), and
+(``bounce_path``: a depth-k bisection tree per lane, against its plain
+version, against the JAX package's reference shoot and bit for bit
+against the one-thread-per-lane kernel; the audit, batch against loop,
+the measured f64 latencies, times and bounds), and
 the LZ layer at full width (``lz_path``: P-tables at their default sizes,
 one of them over a 1,000,001-sample profile, and the sweep with a shot
 bounce through each estimator and scenario).
@@ -79,16 +81,22 @@ BOUNCE_REFERENCE = {"phi0": 1.04668034824163, "r_wall": 27.807233670376903,
 BOUNCE_PHI0_RTOL, BOUNCE_RTOL = 1e-10, 1e-6       # kernel vs the JAX constants
 CLASSIFY_RTOL, DENSE_ATOL = 1e-9, 1e-10          # kernel vs plain on the card
 LZ_SWEEP_RTOL, LZ_CARD_CPU_RTOL = 1e-10, 1e-10
-# The bounce kernel is latency bound: one thread runs a lane's whole chain
-# of dependent steps.  f64 operations on the critical path of one
-# attempted SDIRK4 step, counted from csrc/bounce_shoot.cu (PERF.md): per
-# Newton iteration 12 dependent operations and one division (~9), 6
-# iterations per stage, ~10 more per stage, 5 stages, and ~80 for the
-# embedded error, its square root and the controller's pow.
-BOUNCE_DEP_OPS_PER_STEP = 760
-# Dependent-issue latency of one f64 add, multiply or FMA, in cycles (the
-# figure published for Volta and Ampere microbenchmarks; not measured here)
-F64_LATENCY_CYCLES = 8
+# The bounce shoot is latency bound: a classification is one chain of
+# dependent attempted steps.  Dependent f64 operations on the critical path
+# of one attempted SDIRK4 step, counted from csrc/bounce_shoot.cu (PERF.md):
+# per Newton iteration 12 adds or multiplies and one division; per stage 6
+# iterations, ~10 more adds or multiplies and the slope's division (3φ'/ρ);
+# 5 stages; then the embedded error (~12 adds or multiplies, one division,
+# one square root) and the I controller's pow.
+STEP_CHAIN = {"add": 5 * (6 * 12 + 10) + 12, "div": 5 * (6 + 1) + 1, "sqrt": 1, "pow": 1}
+# One RK4 step of the dense pass: per stage the predictor (2), 3φ'/ρ (1 and
+# a division) and V' − 3φ'/ρ (1); the combination (6) and the settle test (1).
+DENSE_CHAIN = {"add": 4 * 4 + 7, "div": 4}
+# The serial shoot's first bound: 760 dependent operations per step at an
+# assumed 8 cycles each (the latency published for Volta and Ampere).
+ASSUMED_OPS_PER_STEP, ASSUMED_LATENCY_CYCLES = 760, 8
+# Dependent f64 operations the latency probe runs per kind.
+PROBE_REPS = 4096
 
 # H100 SXM peaks from NVIDIA's data sheet: HBM3 at 3.35 TB/s, and
 # 34 TFLOP/s FP64 outside the tensor cores.
@@ -133,7 +141,7 @@ def _ptxas_kernels(log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             tmpl = re.search(r"kjma_interp_kernelILb([01])ELb([01])E", m.group(1))
-            plain = re.search(r"(bounce_[a-z]+_kernel)", m.group(1))
+            plain = re.search(r"(bounce_[a-z_]+?_kernel)", m.group(1))
             name = {("0", "1"): "reduce", ("0", "0"): "stream", ("1", "1"): "fused_reduce",
                     ("1", "0"): "fused_stream"}[tmpl.groups()] if tmpl else (
                         plain.group(1) if plain else m.group(1))
@@ -164,8 +172,9 @@ def phase_build() -> None:
     kk_kernels, bk_kernels = _ptxas_kernels(kjma.ptxas_log), _ptxas_kernels(bounce.ptxas_log)
     check(len(kk_kernels) == 4, f"ptxas reported 4 KJMA kernels, got {kk_kernels}")
     check(sorted(k["kernel"] for k in bk_kernels)
-          == ["bounce_classify_kernel", "bounce_shoot_kernel"],
-          f"ptxas reported the bounce shoot and classify kernels, got {bk_kernels}")
+          == ["bounce_classify_kernel", "bounce_latency_probe_kernel",
+              "bounce_shoot_serial_kernel", "bounce_tree_kernel"],
+          f"ptxas reported the tree, serial, classify and probe kernels, got {bk_kernels}")
     emit({"phase": "build", "wall_seconds": wall, "sources": [
         {"source": "bdlz_tpu_torch/csrc/" + kjma_kernel.SOURCE, "seconds": kjma.seconds,
          "cached": kjma.cached, "dynamic_smem_bytes": TABLE_N * 8 + 32 * 8,
@@ -603,11 +612,19 @@ def _sm_clock_hz() -> float:
     return float(out) * 1e6
 
 
+def _shoot_bitwise(a, b) -> bool:
+    """Every ``ShootOut`` field of two shoots bit for bit (NaN where NaN)."""
+    return all(torch.equal(x.view(torch.int64), y.view(torch.int64))
+               if x.is_floating_point() else torch.equal(x, y) for x, y in zip(a, b))
+
+
 def phase_bounce_path(dev) -> dict:
     """The O(4) bounce shoot: the classify and dense kernels against the
-    plain version on the card, the full-knob shoot (one launch) against the
-    JAX package's reference shoot, the audit, a 64-spec batch against the
-    loop of single shoots, and the times."""
+    plain version on the card, the full-knob shoot (one tree-kernel launch)
+    against the JAX package's reference shoot, the audit, a 64-spec batch
+    against the loop of single shoots, the tree kernel against the
+    one-thread-per-lane kernel bit for bit, the f64 latencies, and the
+    times with the tree's and the serial shoot's bounds."""
     from bdlz_tpu_torch.bounce import (
         PotentialSpec,
         reference_potential,
@@ -659,8 +676,9 @@ def phase_bounce_path(dev) -> dict:
 
     # 2. the main path: one shoot, one launch
     sol, counts = _launches_around(lambda: solve_bounce(spec, device=dev))
-    check(counts["bounce_shoot"] == 1 and counts["bounce_classify"] == 0,
-          f"one bounce_shoot launch per solve_bounce, got {counts}")
+    check(counts["bounce_shoot"] == 1 and counts["bounce_shoot_serial"] == 0
+          and counts["bounce_classify"] == 0,
+          f"one tree-kernel launch per solve_bounce and no other, got {counts}")
     check(bool(sol.converged), "the reference shoot converged")
     errs = {k: _rel(getattr(sol, k), BOUNCE_REFERENCE[k]) for k in ("phi0", "r_wall", "action")}
     check(errs["phi0"] <= BOUNCE_PHI0_RTOL, f"phi0 vs JAX {errs['phi0']:.3e}")
@@ -698,10 +716,39 @@ def phase_bounce_path(dev) -> dict:
     check(bitwise, "solve_bounce_batch equals solve_bounce_scalar_loop bit for bit")
     check(bool(batch.converged.all()), "all 64 shoots converged")
 
-    # 6. times: one shoot and one plain classify (CUDA events), the bound
+    # 6. the tree kernel against the one-thread-per-lane kernel, every
+    # field bit for bit: the reference shoot (at the derived depth and at
+    # depth 4) and the 64-spec batch in one launch each
+    pb = torch.as_tensor(np.stack([_params_row(s) for s in specs]), dtype=torch.float64,
+                         device=dev)
+    tree, tree_stats = bk.bounce_shoot(p1, knobs, stats=True)
+    tree4 = bk.bounce_shoot(p1, knobs, depth=4)
+    serial = bk.bounce_shoot_serial(p1, knobs)
+    tree_b, stats_b = bk.bounce_shoot(pb, knobs, stats=True)
+    serial_b = bk.bounce_shoot_serial(pb, knobs)
+    torch.cuda.synchronize()
+    for name, a, b in (("reference", tree, serial), ("reference at depth 4", tree4, serial),
+                       ("64-spec batch", tree_b, serial_b)):
+        check(_shoot_bitwise(a, b), f"tree == serial kernel bit for bit, {name}")
+    plan = {w: bk.tree_plan(w, knobs.n_bisect, dev) for w in (1, len(specs))}
+    crit, total, depth, rounds = (int(v) for v in tree_stats[0].tolist())
+    steps = int(serial.steps.item())
+    check(depth == plan[1]["depth"] and rounds == -(-knobs.n_bisect // depth),
+          f"depth {depth} and rounds {rounds} as planned ({plan[1]})")
+    check(crit <= steps <= total, f"critical {crit} <= serial {steps} <= total {total} steps")
+    check(bool((stats_b[:, 0] <= serial_b.steps).all()
+               and (serial_b.steps <= stats_b[:, 1]).all()),
+          "64-spec batch: critical <= serial <= total steps per lane")
+
+    # 7. times: the tree and the serial shoot, and one plain classify (CUDA
+    # events); the f64 latencies and the bounds they give
     one = _cuda_ms(lambda: bk.bounce_shoot(p1, knobs), 1, repeats=3)
-    shoot = bk.bounce_shoot(p1, knobs)
-    steps = int(shoot.steps.item())
+    one_serial = _cuda_ms(lambda: bk.bounce_shoot_serial(p1, knobs), 1, repeats=3)
+    batch_tree = _cuda_ms(lambda: bk.bounce_shoot(pb, knobs), 1, repeats=3)
+    batch_serial = _cuda_ms(lambda: bk.bounce_shoot_serial(pb, knobs), 1, repeats=3)
+    # the depth's trade: fewer rounds against more warps per SM
+    depth_ms = {d: _cuda_ms(lambda d=d: bk.bounce_shoot(p1, knobs, depth=d), 1, repeats=1)[0]
+                for d in (3, 6)}
     # the plain version is eager: one timed classify, no warm-up
     mid = torch.as_tensor([points[-2]], dtype=torch.float64, device=dev)
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -711,15 +758,35 @@ def phase_bounce_path(dev) -> dict:
     torch.cuda.synchronize()
     plain_classify = [start.elapsed_time(stop)]
     clock = _sm_clock_hz()
-    bound_ms = steps * BOUNCE_DEP_OPS_PER_STEP * F64_LATENCY_CYCLES / clock * 1e3
-    ms = float(np.median(one))
+    lat = bk.f64_latency_probe(dev, PROBE_REPS)
+    # adds and multiplies share one count: the larger of the two latencies
+    per_op = dict(lat, add=max(lat["add"], lat["mul"]))
+    step_cycles = sum(n * per_op[op] for op, n in STEP_CHAIN.items())
+    dense_ms = knobs.n_dense * sum(n * per_op[op] for op, n in DENSE_CHAIN.items()) / clock * 1e3
+    bound_ms = crit * step_cycles / clock * 1e3 + dense_ms
+    serial_bound_ms = steps * step_cycles / clock * 1e3 + dense_ms
+    assumed_bound_ms = steps * ASSUMED_OPS_PER_STEP * ASSUMED_LATENCY_CYCLES / clock * 1e3
+    ms, serial_ms = float(np.median(one)), float(np.median(one_serial))
     timing = {"ms": ms, "ms_samples": one, "plain_ms": plain_classify[0],
               "plain_is": "one classify of one release point 1e-7 of the bracket from phi0",
-              "bound_ms": bound_ms, "bound_by": "operations", "attempted_steps": steps,
-              "segment_solves": int(shoot.segments.item()),
-              "dep_ops_per_step": BOUNCE_DEP_OPS_PER_STEP,
-              "f64_latency_cycles": F64_LATENCY_CYCLES, "sm_clock_hz": clock,
-              "fraction_of_bound": bound_ms / ms}
+              "bound_ms": bound_ms, "bound_by": "operations",
+              "serial_ms": serial_ms, "serial_ms_samples": one_serial,
+              "serial_bound_ms": serial_bound_ms,
+              "serial_bound_ms_at_assumed_latency": assumed_bound_ms,
+              "fraction_of_bound": bound_ms / ms,
+              "serial_fraction_of_serial_bound": serial_bound_ms / serial_ms,
+              "tree_fraction_of_serial_bound": serial_bound_ms / ms,
+              "depth": depth, "rounds": rounds, "critical_path_steps": crit,
+              "total_steps": total, "attempted_steps": steps,
+              "segment_solves": int(serial.segments.item()), "plan": plan,
+              "f64_latency_cycles": lat, "step_chain": STEP_CHAIN,
+              "step_chain_cycles": step_cycles, "dense_chain": DENSE_CHAIN,
+              "dense_bound_ms": dense_ms, "sm_clock_hz": clock,
+              "ms_at_depth": depth_ms,
+              "batch_64_tree_ms": float(np.median(batch_tree)),
+              "batch_64_serial_ms": float(np.median(batch_serial)),
+              "batch_64_critical_steps_max": int(stats_b[:, 0].max()),
+              "batch_64_total_steps": int(stats_b[:, 1].sum())}
     emit({"phase": "bounce_path", "seconds": time.perf_counter() - t0,
           "classify": {"points": points.tolist(), "verdicts": kc.verdict.tolist(),
                        "segments": kc.segments.tolist(), "steps": kc.steps.tolist(),
@@ -736,6 +803,8 @@ def phase_bounce_path(dev) -> dict:
           "batch_64": {"seconds": batch_s, "loop_seconds": loop_s, "bitwise_equal": bitwise,
                        "launches": 1, "action_range": [float(batch.action.min()),
                                                        float(batch.action.max())]},
+          "tree_vs_serial_bitwise": {"reference": True, "reference_depth_4": True,
+                                     "batch_64_all_fields": True},
           "timing": timing})
     return {"launches": counts["bounce_shoot"], "max_abs_err": max(classify_abs, dense_abs),
             **timing, "solution": sol}

@@ -134,6 +134,118 @@ def test_plain_shoot_matches_jax_at_reduced_knobs(reduced_pair):
     assert record("shoot_phi_abs", np.max(np.abs(t.phi - j.phi))) <= 1e-10
 
 
+@pytest.fixture(scope="module")
+def plain_depths():
+    """``shoot_plain`` at the reduced knobs at tree depths 1, 2 and 3."""
+    rows = torch.as_tensor(np.stack([tsh._params_row(tb.reference_potential()),
+                                     tsh._params_row(t_spec(OTHER))]))
+    knobs = tsh.make_knobs(**KNOBS)
+    return {d: tsh.shoot_plain(rows, knobs, depth=d, stats=True) for d in (1, 2, 3)}
+
+
+def _same(a, b):
+    return torch.equal(a, b) if not a.is_floating_point() else bool(
+        torch.equal(torch.isnan(a), torch.isnan(b))
+        and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_plain_tree_shoot_is_the_serial_shoot_bitwise(depth, plain_depths, reduced_pair):
+    serial, serial_stats = plain_depths[1]
+    tree, stats = plain_depths[depth]
+    for f in tsh.ShootOut._fields:
+        assert _same(getattr(tree, f), getattr(serial, f)), f
+    j, _t = reduced_pair
+    assert np.max(np.abs(tree.phi0.numpy() / j.phi0 - 1.0)) <= 1e-10
+    assert np.max(np.abs(tree.action.numpy() / j.action - 1.0)) <= 1e-8
+    assert np.array_equal(tree.converged.numpy(), j.converged)
+    # one round per halving at depth 1; fewer, longer-fanned rounds deeper
+    assert serial_stats[:, 0].tolist() == serial_stats[:, 1].tolist() == serial.steps.tolist()
+    assert stats[:, 2].tolist() == [depth] * 2
+    assert stats[:, 3].tolist() == [-(-KNOBS["n_bisect"] // depth)] * 2
+    assert bool((stats[:, 0] <= tree.steps).all() and (tree.steps <= stats[:, 1]).all())
+
+
+def _serial_bisection(lo, hi, n_bisect, classify):
+    """The serial loop the tree must reproduce, written out."""
+    ok = torch.ones_like(lo, dtype=torch.bool)
+    steps = torch.zeros_like(lo, dtype=torch.int64)
+    segments = torch.zeros_like(steps)
+    for _ in range(n_bisect):
+        mid = 0.5 * (lo + hi)
+        v, ok_i, st, sg = (t[:, 0] for t in classify(mid[:, None]))
+        lo, hi = torch.where(v < 0, mid, lo), torch.where(v < 0, hi, mid)
+        ok, steps, segments = ok & ok_i, steps + st, segments + sg
+    return lo, hi, ok, steps, segments
+
+
+def _synthetic(pattern, c):
+    """A classifier of release points with no ODE: the verdict, ok and the
+    two counters are functions of the midpoint's bits alone."""
+    def classify(mids):
+        bits = mids.view(torch.int64)
+        if pattern == "sign":
+            v = torch.where(mids < c[:, None], -1, 1)
+        elif pattern == "hash":
+            v = torch.where(bits % 3 == 0, 1, -1)
+        else:
+            v = torch.full_like(bits, -1 if pattern == "under" else 1)
+        return v, bits % 4 != 0, bits % 1000 + 1, bits % 13 + 1
+    return classify
+
+
+@pytest.mark.parametrize("pattern", ["sign", "hash", "under", "over"])
+@pytest.mark.parametrize("depth", range(1, 7))
+@pytest.mark.parametrize("n_bisect", range(1, 13))
+def test_bisect_tree_is_the_serial_bisection_bitwise(n_bisect, depth, pattern):
+    rng = np.random.default_rng(1000 * n_bisect + depth)
+    lo = torch.as_tensor(rng.uniform(0.1, 0.5, 5))
+    hi = lo + torch.as_tensor(rng.uniform(0.01, 0.5, 5))
+    c = torch.as_tensor(rng.uniform(lo.numpy(), hi.numpy()))
+    classify = _synthetic(pattern, c)
+    s_lo, s_hi, s_ok, s_steps, s_segs = _serial_bisection(lo, hi, n_bisect, classify)
+    walk = tsh.bisect_tree(lo, hi, n_bisect, depth, classify)
+    assert torch.equal(walk.lo.view(torch.int64), s_lo.view(torch.int64))
+    assert torch.equal(walk.ok, s_ok)
+    assert torch.equal(walk.steps, s_steps) and torch.equal(walk.segments, s_segs)
+    assert walk.rounds == -(-n_bisect // depth)
+    assert bool((walk.critical_steps <= walk.total_steps).all())
+    assert bool((walk.steps <= walk.total_steps).all())
+    if depth == 1:
+        assert torch.equal(walk.critical_steps, s_steps) and torch.equal(walk.total_steps,
+                                                                          s_steps)
+
+
+@pytest.mark.parametrize("depth", [2, 3, 5])
+def test_bisect_tree_ignores_a_failed_node_off_the_path(depth):
+    """Every node off the chosen path fails; the path's ok stays true."""
+    rng = np.random.default_rng(depth)
+    lo = torch.as_tensor(rng.uniform(0.1, 0.5, 4))
+    hi = lo + 0.3
+    c = lo + torch.as_tensor(rng.uniform(0.0, 0.3, 4))
+    sign = _synthetic("sign", c)
+    path = set()
+
+    def record_path(mids):
+        out = sign(mids)
+        path.update(mids.view(torch.int64).flatten().tolist())
+        return out
+
+    n_bisect = 7
+    _serial_bisection(lo, hi, n_bisect, record_path)
+    seen_fail = []
+
+    def classify(mids):
+        v, _ok, st, sg = sign(mids)
+        on = torch.tensor([[b in path for b in row] for row in mids.view(torch.int64).tolist()])
+        seen_fail.append(bool((~on).any()))
+        return v, on, st, sg
+
+    walk = tsh.bisect_tree(lo, hi, n_bisect, depth, classify)
+    assert any(seen_fail) and bool(walk.ok.all())
+    assert torch.equal(walk.lo, _serial_bisection(lo, hi, n_bisect, sign)[0])
+
+
 def test_plain_batch_equals_the_scalar_loop_bitwise():
     specs = [t_spec(OTHER), tb.reference_potential()]
     kn = dict(n_bisect=1, n_dense=256, lane_width=2)
@@ -160,7 +272,17 @@ def test_wrappers_on_the_cpu_launch_nothing_and_check_inputs():
     bk.reset_launches()
     out = bk.bounce_shoot(row, knobs)
     assert out.phi.shape == (1, 65) and out.converged.dtype == torch.bool
-    assert bk.LAUNCHES == {"shoot": 0, "classify": 0}
+    with_stats, stats = bk.bounce_shoot(row, knobs, stats=True)
+    serial = bk.bounce_shoot_serial(row, knobs)
+    for f in tsh.ShootOut._fields:
+        assert _same(getattr(with_stats, f), getattr(out, f)), f
+        assert _same(getattr(serial, f), getattr(out, f)), f
+    assert stats.shape == (1, len(bk.STATS_FIELDS)) and stats[0, 2:].tolist() == [1, 1]
+    assert bk.LAUNCHES == {"shoot": 0, "shoot_serial": 0, "classify": 0}
+    with pytest.raises(ValueError, match="depth"):
+        bk.bounce_shoot(row, knobs, depth=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.f64_latency_probe("cpu")
     with pytest.raises(ValueError):
         bk.bounce_shoot(row[:, :5].contiguous(), knobs)
     with pytest.raises(TypeError):

@@ -207,12 +207,59 @@ def test_bounce_classify_kernel_matches_plain(cuda):
     bk.reset_launches()
     got = bk.bounce_classify(params, phis, knobs)
     ref = classify_plain(params, phis, knobs)
-    assert bk.LAUNCHES == {"shoot": 0, "classify": 1}
+    assert bk.LAUNCHES == {"shoot": 0, "shoot_serial": 0, "classify": 1}
     for f in ("verdict", "segments", "steps", "ok"):
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
     for f in ("y_first", "y_end"):
         assert ((getattr(got, f) - getattr(ref, f)).abs()
                 / getattr(ref, f).abs()).max().item() <= 1e-9, f
+
+
+def _shoot_fields_equal(a, b):
+    """Every ``ShootOut`` field bit for bit (NaN where NaN)."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.is_floating_point():
+            assert torch.equal(x.view(torch.int64), y.view(torch.int64)), f
+        else:
+            assert torch.equal(x, y), f
+
+
+@pytest.mark.parametrize("which", ["reference", "batch_3"])
+def test_bounce_tree_equals_the_serial_kernel_bitwise(which, cuda):
+    """The tree kernel (derived depth, and depth 4) against the
+    one-thread-per-lane kernel at full knobs: all eight fields bit for bit;
+    critical-path steps <= the serial steps <= every node's steps."""
+    from bdlz_tpu_torch.bounce import PotentialSpec, reference_potential
+    from bdlz_tpu_torch.bounce.shooting import _params_row, make_knobs
+    from bdlz_tpu_torch.ops import bounce_kernel as bk
+
+    ref = reference_potential()
+    specs = [ref] if which == "reference" else [
+        ref._replace(eps=0.045), PotentialSpec(0.8, 1.1, 0.09, 1.3, 0.04), ref]
+    params = torch.as_tensor(np.stack([_params_row(s) for s in specs]), device=cuda)
+    knobs = make_knobs()
+    serial = bk.bounce_shoot_serial(params, knobs)
+    tree, stats = bk.bounce_shoot(params, knobs, stats=True)
+    tree4 = bk.bounce_shoot(params, knobs, depth=4)
+    torch.cuda.synchronize()
+    _shoot_fields_equal(tree, serial)
+    _shoot_fields_equal(tree4, serial)
+    assert bool(tree.converged.all())
+    plan = bk.tree_plan(len(specs), knobs.n_bisect, cuda)
+    assert stats[:, 2].tolist() == [plan["depth"]] * len(specs)
+    assert stats[:, 3].tolist() == [-(-knobs.n_bisect // plan["depth"])] * len(specs)
+    assert bool((stats[:, 0] <= serial.steps).all() and (serial.steps <= stats[:, 1]).all())
+
+
+def test_solve_bounce_launches_the_tree_kernel_once(cuda):
+    from bdlz_tpu_torch.bounce import reference_potential, solve_bounce
+    from bdlz_tpu_torch.ops import bounce_kernel as bk
+
+    bk.reset_launches()
+    sol = solve_bounce(reference_potential(), device=cuda)
+    assert bk.LAUNCHES == {"shoot": 1, "shoot_serial": 0, "classify": 0}
+    assert bool(sol.converged)
 
 
 def test_bounce_batch_equals_loop_bitwise_on_the_card(cuda):

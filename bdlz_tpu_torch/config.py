@@ -419,6 +419,15 @@ class StaticChoices(NamedTuple):
     lz_bath_omega_c: float = 0.0
 
 
+#: StaticChoices fields that never enter a result identity: retry and
+#: fault handling change no output bit of a clean run.
+ROBUSTNESS_STATIC_FIELDS = ("retry_enabled", "fault_injection")
+
+#: StaticChoices fields kept out of the positional static payload: the
+#: scenario's one identity home is the ``lz_scenario`` key.
+SCENARIO_STATIC_FIELDS = ("lz_mode", "lz_n_levels", "lz_bath_eta", "lz_bath_omega_c")
+
+
 def resolve_Y_chi_init(cfg: Config) -> float:
     """Nonthermal initial-yield policy (reference :378-384 / :392-398):
     Y_chi_init if set, else n_chi(T_p)/s(T_p), else 1e-12."""

@@ -25,12 +25,16 @@ With a bounce profile (``lz_profile``) or a potential (``bounce``, shot
 once into a profile), every point's P is derived from its own wall speed
 through the LZ layer on the run's device before the chunk loop.
 
-Not ported yet: resume directories and manifests, retry → bisect →
-quarantine, the chunk cache and event log, and multi-device meshes
-(ROADMAP D).
+Robustness, as in the JAX engine: resume directories (``manifest.json``
+and ``chunk_{ci:05d}.npz``, the JAX package's format), retry → bisect →
+quarantine under deterministic fault injection, the content-addressed
+chunk cache, and the JSON-lines event log.  Not ported yet: multi-device
+meshes and the multi-process agreement (ROADMAP D9).
 """
 from __future__ import annotations
 
+import json
+import os
 import sys
 import time
 from dataclasses import dataclass, field
@@ -127,7 +131,8 @@ class SweepResult:
     #: The engine that ran, after routing.
     impl: str = "kernel"
     outputs: Optional[Dict[str, np.ndarray]] = field(default=None, repr=False)
-    #: Per-point failure mask (True = non-finite output), full grid order.
+    #: Per-point failure mask (True = non-finite output, quarantined points
+    #: included), full grid order.
     failed_mask: Optional[np.ndarray] = field(default=None, repr=False)
     #: Per-chunk round counters of the repacked stiff engine.
     esdirk_stats: Optional[List[Any]] = field(default=None, repr=False)
@@ -138,6 +143,206 @@ class SweepResult:
     #: Host seconds of the LZ pre-pass (the bounce shoot and the per-point
     #: P), outside ``seconds``.
     lz_seconds: float = 0.0
+    #: The sweep directory (chunk files and manifest), or None.
+    out_dir: Optional[str] = None
+    #: Chunks read back from ``out_dir`` instead of computed.
+    resumed_chunks: int = 0
+    #: Points quarantined by the healing path (a persistent failure
+    #: bisected down to its irreducible range): NaN outputs, counted in
+    #: ``n_failed`` too.
+    n_quarantined: int = 0
+    #: Extra dispatches the healing path paid (retries and bisect probes).
+    n_retries: int = 0
+    #: Chunks served from the content-addressed store and chunks that had
+    #: to compute; None without a store.
+    cache_hits: Optional[int] = None
+    cache_misses: Optional[int] = None
+    #: Per-point quarantine mask (a subset of ``failed_mask``).
+    quarantined_mask: Optional[np.ndarray] = field(default=None, repr=False)
+
+
+def grid_hash(
+    base: Config, axes: Mapping[str, Sequence[float]], n_y: int, impl: str = "tabulated",
+    extra: Optional[Mapping[str, Any]] = None,
+) -> str:
+    """The sweep's resume identity: config, axes, n_y, engine and the
+    resolved ``extra`` blocks.  Byte-equal to the JAX package's for the
+    engines the two share, so a directory resumes in either."""
+    from bdlz_tpu_torch.provenance import sweep_identity
+
+    return sweep_identity(base, axes, n_y, impl, extra=extra).digest(16)
+
+
+def engine_identity_extra(
+    static: StaticChoices,
+    impl: str,
+    *,
+    esdirk_knobs: Optional[Dict[str, bool]] = None,
+    faults=None,
+    fuse_exp: bool = False,
+    kernel_reduce: Optional[bool] = None,
+) -> Dict[str, Any]:
+    """The resolved knobs that change results, as identity ``extra``
+    blocks, one home for the manifest hash and the chunk-cache keys:
+    ``lz_scenario`` (a chain or thermal mode), ``quad`` (the panel rule,
+    omitted for the trapezoid), ``esdirk`` (the repacked engine's knob
+    dict), ``kernel`` (the CUDA kernels' tier, the port's counterpart of
+    the JAX ``pallas`` block) and ``fault_plan`` (an armed plan)."""
+    from bdlz_tpu_torch.lz.sweep_bridge import scenario_identity
+
+    extra: Dict[str, Any] = {}
+    scen = scenario_identity(static)
+    if scen is not None:
+        extra["lz_scenario"] = scen
+    if impl == "tabulated" and static.quad_panel_gl is True:
+        from bdlz_tpu_torch.solvers.panels import N_PANELS_DEFAULT, NODES_PER_PANEL_DEFAULT
+
+        extra["quad"] = {"panel_gl": True, "n_panels": N_PANELS_DEFAULT,
+                         "n_nodes": NODES_PER_PANEL_DEFAULT}
+    if impl == "esdirk":
+        extra["esdirk"] = {"strategy": "repack", **(esdirk_knobs or {})}
+    if impl == "kernel":
+        extra["kernel"] = {
+            "fuse_exp": bool(fuse_exp),
+            "reduce": bool(REDUCE_DEFAULT if kernel_reduce is None else kernel_reduce),
+        }
+    if faults is not None:
+        extra["fault_plan"] = faults.describe()
+    return extra
+
+
+def device_platform(device) -> str:
+    """The ``platform`` of a chunk-cache key: ``"torch-cuda"`` or
+    ``"torch-cpu"``.  It never equals a JAX platform, so an entry of one
+    package is never served to the other, nor a CPU entry to the card."""
+    return f"torch-{torch.device(device).type}"
+
+
+def chunk_cache_key(
+    base: Config,
+    static: StaticChoices,
+    pp: PointParams,
+    lo: int,
+    hi: int,
+    *,
+    n_y: int,
+    impl: str,
+    platform: str,
+    table_nodes: int = 16384,
+    extra: Optional[Mapping[str, Any]] = None,
+    fault_ctx: Optional[tuple] = None,
+) -> str:
+    """Content key of one chunk's result: the engine core (config and
+    static identity, n_y, engine, F-table size, ``platform``, the
+    resolved ``extra`` blocks) and the bytes of the unpadded point slice
+    [lo, hi) — not the axes nor the chunk's position, so a rebuild that
+    repeats a slice hits.  ``fault_ctx`` ``(site, index, lo, hi)`` joins
+    the key whenever a fault plan is armed."""
+    from bdlz_tpu_torch.provenance import config_payload, static_payload, sweep_chunk_identity
+
+    core: Dict[str, Any] = {
+        "schema": 1,
+        "base": config_payload(base),
+        "static": static_payload(static, normalize_quad=True),
+        "n_y": int(n_y),
+        "impl": str(impl),
+        "table_nodes": int(table_nodes),
+        "platform": str(platform),
+    }
+    if extra:
+        core["extra"] = dict(extra)
+    if fault_ctx is not None:
+        core["fault_window"] = [v if isinstance(v, str) else int(v) for v in fault_ctx]
+    arrays = [np.asarray(f)[lo:hi] for f in pp]
+    return sweep_chunk_identity(core, arrays).digest(32)
+
+
+def chunk_entry_ok(ent, n_valid: int) -> bool:
+    """A store entry holds every YieldsResult field and the failure mask
+    at the slice length."""
+    from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
+
+    if ent is None or ent.get("failed") is None:
+        return False
+    return all(ent.get(f) is not None and ent[f].shape == (n_valid,)
+               for f in YieldsResult._fields)
+
+
+def chunk_entry_arrays(
+    host: Mapping[str, np.ndarray], *, n_retries: int = 0,
+    qmask: Optional[np.ndarray] = None,
+) -> Dict[str, np.ndarray]:
+    """One store entry from a chunk's host results: the fields, ``failed``,
+    the retry counter and, when any point was quarantined, its mask."""
+    from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
+
+    arrays: Dict[str, np.ndarray] = {f: host[f] for f in YieldsResult._fields}
+    arrays["failed"] = ~np.isfinite(host["DM_over_B"])
+    arrays["n_retries"] = np.int64(n_retries)
+    if qmask is not None and qmask.any():
+        arrays["quarantined"] = qmask
+    return arrays
+
+
+def heal_budget(n: int, max_attempts: int) -> int:
+    """Attempts allowed for healing one chunk of ``n`` points: enough to
+    retry and bisect out a few poison points (~log2 n probes each), but
+    bounded, so a chunk where everything fails is quarantined whole after
+    O(log n) probes."""
+    attempts = max(int(max_attempts), 1)
+    return attempts * 4 * (1 + max(int(n) - 1, 1).bit_length())
+
+
+def heal_range(ci, lo, hi, first_err, *, attempt, quarantine, policy, budget, paid,
+               fields, on_retry=None):
+    """Retry → bisect → quarantine over [lo, hi), the JAX engine's
+    semantics.  ``attempt(ci, a, b) -> (ok, host, err)`` evaluates [a, b);
+    ``quarantine(ci, a, b, err) -> (host, qmask)`` fills an irreducible
+    range with NaN.  Retries sleep the deterministic backoff keyed on
+    ``chunk<ci>:<lo>``; a persistent failure is halved, the surviving
+    halves kept.  ``budget`` (a one-element list) is shared by the whole
+    heal tree of a chunk and quarantines the rest when spent; ``paid``
+    (a one-element list) counts every extra attempt; ``on_retry(ci, lo,
+    hi, attempt, err)`` observes same-range retries."""
+    from bdlz_tpu_torch.utils.retry import backoff_delay
+
+    err = first_err
+    attempts = max(int(policy.max_attempts), 1)
+    for att in range(1, attempts):
+        if budget[0] <= 0:
+            break
+        if on_retry is not None:
+            on_retry(ci, lo, hi, att, err)
+        policy.sleep(backoff_delay(policy, f"chunk{ci}:{lo}", att - 1))
+        paid[0] += 1
+        budget[0] -= 1
+        ok, host, err2 = attempt(ci, lo, hi)
+        if ok:
+            return host, np.zeros(hi - lo, dtype=bool)
+        err = err2 if err2 is not None else err
+    if hi - lo <= 1 or budget[0] <= 0:
+        return quarantine(ci, lo, hi, err)
+    mid = lo + (hi - lo) // 2
+    parts = []
+    for a, b in ((lo, mid), (mid, hi)):
+        if budget[0] <= 0:
+            parts.append(quarantine(ci, a, b, err))
+            continue
+        paid[0] += 1
+        budget[0] -= 1
+        ok, host, err_h = attempt(ci, a, b)
+        if ok:
+            parts.append((host, np.zeros(b - a, dtype=bool)))
+        else:
+            parts.append(heal_range(
+                ci, a, b, err_h, attempt=attempt, quarantine=quarantine,
+                policy=policy, budget=budget, paid=paid, fields=fields,
+                on_retry=on_retry,
+            ))
+    return (
+        {f: np.concatenate([p[0][f] for p in parts]) for f in fields},
+        np.concatenate([p[1] for p in parts]),
+    )
 
 
 def _pad_chunk(pp: PointParams, lo: int, hi: int, chunk: int) -> PointParams:
@@ -281,14 +486,52 @@ def route_impl(base: Config, axes: Mapping[str, Sequence[float]], impl: str,
     return impl
 
 
+def build_chunk_engine(
+    base: Config,
+    static: StaticChoices,
+    *,
+    n_y: int,
+    impl: str,
+    device,
+    fuse_exp: bool = False,
+    reduce: bool = REDUCE_DEFAULT,
+    table_np=None,
+    table_nodes: int = 16384,
+    esdirk_knobs: Optional[Dict[str, bool]] = None,
+    esdirk_stats_sink=None,
+):
+    """``(step, aux)`` of one engine on ``device``: the F-table shipped
+    once (``table_np`` reuses a host-built table) or the KJMA z-grid, and
+    on the card the kernels' library built and loaded.  Every
+    identity-affecting knob must already be resolved."""
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table, table_to_device
+    from bdlz_tpu_torch.physics.percolation import make_kjma_grid
+
+    if impl in ("kernel", "tabulated"):
+        if table_np is None:
+            table_np = make_f_table(float(base.I_p), n=table_nodes)
+        aux = table_to_device(table_np, device)
+    else:
+        aux = make_kjma_grid(device)
+    if impl == "kernel" and torch.device(device).type == "cuda":
+        from bdlz_tpu_torch.ops.kjma_kernel import load_library
+
+        load_library()
+    step = make_sweep_step(static, n_y, impl, fuse_exp, reduce,
+                           esdirk_knobs=esdirk_knobs, esdirk_stats_sink=esdirk_stats_sink)
+    return step, aux
+
+
 def run_sweep(
     base: Config,
     axes: Mapping[str, Sequence[float]],
     static: StaticChoices,
     chunk_size: int = 4096,
     n_y: int = 8000,
+    out_dir: Optional[str] = None,
     keep_outputs: bool = True,
     table_nodes: int = 16384,
+    event_log=None,
     impl: str = "kernel",
     fuse_exp: bool = False,
     reduce: bool = REDUCE_DEFAULT,
@@ -297,9 +540,13 @@ def run_sweep(
     lz_method: str = "local",
     lz_gamma_phi: float = 0.0,
     bounce=None,
+    fault_plan=None,
+    retry=None,
+    cache=None,
 ) -> SweepResult:
     """Run a full sweep on one device: route the engine, resolve the
-    quadrature, then evaluate chunk by chunk.
+    quadrature, then evaluate chunk by chunk — resuming, healing and
+    caching as the JAX engine does.
 
     ``lz_profile`` (a CSV path or a ``BounceProfile``) derives each
     point's P from its own wall speed by ``lz_method`` (``lz_gamma_phi``
@@ -314,15 +561,48 @@ def run_sweep(
     the population audit over the full grid (tabulated engine only) and
     turns the panel rule on only when it passes, loudly either way.
     Chunks never hold more points than the grid has.
+
+    **Resume.** With ``out_dir`` every chunk lands in ``chunk_{ci:05d}.npz``
+    (atomically) and ``manifest.json`` records it under the sweep's
+    :func:`grid_hash`; a rerun skips the recorded chunks whose files load,
+    recomputes a torn or missing one, and starts over on a hash or
+    ``chunk_size`` mismatch.  The files and manifest are the JAX
+    package's, so a directory resumes in either package for the engines
+    they share.
+
+    **Self-healing.** With the retry policy on (``retry`` ▸
+    ``retry_enabled``, on by default here), a chunk whose dispatch raises
+    is retried with deterministic backoff, then bisected — every probe at
+    the sweep's one padded chunk shape — and its irreducible points are
+    quarantined: NaN outputs, counted in ``n_failed`` and
+    ``quarantined_mask``, ``chunk_retry``/``chunk_quarantine`` events.
+    The same engine is retried: nothing falls back to another path.
+    ``fault_plan`` ▸ ``Config.fault_plan`` ▸ ``BDLZ_FAULT_PLAN`` inject
+    deterministic faults (``faults.py``); an armed plan joins the hash.
+
+    **Chunk cache.** With a store (``cache`` ▸ ``cache_root`` /
+    ``cache_enabled`` ▸ ``BDLZ_CACHE_ROOT``; off by default) each chunk's
+    result is keyed by :func:`chunk_cache_key` and read before dispatch;
+    a resumed chunk wins over a cached one, a fully warm run builds no
+    engine, and quarantined chunks of a run without a fault plan are
+    never stored.  ``event_log`` (an ``EventLog``) receives
+    ``sweep_start``, ``chunk_done``, ``chunk_retry``,
+    ``chunk_quarantine`` and ``esdirk_rounds`` with the JAX engine's
+    fields.
     """
+    from bdlz_tpu_torch.faults import FaultPlan
     from bdlz_tpu_torch.interop import point_params_from_numpy
     from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
-    from bdlz_tpu_torch.ops.kjma_table import make_f_table, table_to_device
-    from bdlz_tpu_torch.physics.percolation import make_kjma_grid
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table
+    from bdlz_tpu_torch.provenance import resolve_store
     from bdlz_tpu_torch.solvers.panels import N_PANELS_DEFAULT, NODES_PER_PANEL_DEFAULT
+    from bdlz_tpu_torch.utils.io import atomic_savez, atomic_write_json
+    from bdlz_tpu_torch.utils.retry import resolve_engine_retry
     from bdlz_tpu_torch.validation import resolve_quad_panel_gl
 
     dev = resolve_device(device)
+    faults = FaultPlan.resolve(fault_plan, base)
+    retry_policy = resolve_engine_retry(retry, base, static)
     t_lz = time.perf_counter()
     pp_all, lz_identity = _grid_with_lz(base, axes, static, lz_profile, lz_method,
                                         lz_gamma_phi, bounce, dev)
@@ -330,55 +610,246 @@ def run_sweep(
     impl = route_impl(base, axes, impl, fuse_exp)
     n_total = len(pp_all.m_chi_GeV)
 
+    # the audit needs the host table; build it once and ship the same one
     table_np = (make_f_table(float(base.I_p), n=table_nodes)
-                if impl in ("kernel", "tabulated") else None)
+                if impl == "tabulated" and static.quad_panel_gl is None else None)
     quad_on, _ = resolve_quad_panel_gl(pp_all, static, impl, n_y, table=table_np)
     static = static._replace(quad_panel_gl=quad_on)
     quad_nodes = N_PANELS_DEFAULT * NODES_PER_PANEL_DEFAULT if quad_on else None
+    esdirk_knobs = _engine_knobs(static, pp_all) if impl == "esdirk" else None
     stats: List[Any] = []
-    step = make_sweep_step(
-        static, n_y, impl, fuse_exp, reduce,
-        esdirk_knobs=(_engine_knobs(static, pp_all) if impl == "esdirk" else None),
-        esdirk_stats_sink=stats.append,
-    )
 
     chunk_size = min(int(chunk_size), n_total)
     chunk_size = _clamp_chunk_to_memory(chunk_size, n_y, dev, impl, quad_nodes)
     n_chunks = (n_total + chunk_size - 1) // chunk_size
-    if table_np is None:
-        aux = make_kjma_grid(dev)
-    else:
-        aux = table_to_device(table_np, dev)
-    if impl == "kernel" and dev.type == "cuda":
-        from bdlz_tpu_torch.ops.kjma_kernel import load_library
-
-        load_library()  # build/load before the clock starts
-
     fields = YieldsResult._fields
+
+    # ---- identity, manifest and the resume plan ----------------------
+    hash_extra = dict(lz_identity) if lz_identity else {}
+    hash_extra.update(engine_identity_extra(
+        static, impl, esdirk_knobs=esdirk_knobs, faults=faults, fuse_exp=fuse_exp,
+        kernel_reduce=reduce))
+    h = grid_hash(base, axes, n_y, impl, extra=hash_extra or None)
+    manifest: Dict[str, Any] = {}
+    manifest_path = None
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        manifest_path = f"{out_dir}/manifest.json"
+        if os.path.exists(manifest_path):
+            with open(manifest_path) as f:
+                manifest = json.load(f)
+            if manifest.get("hash") != h:
+                manifest = {}
+            elif manifest.get("chunk_size") not in (None, chunk_size):
+                print(f"[sweep] resume: manifest chunk_size {manifest.get('chunk_size')} "
+                      f"!= current {chunk_size}; recomputing from scratch", file=sys.stderr)
+                manifest = {}
+        manifest.setdefault("hash", h)
+        manifest.setdefault("impl", impl)
+        manifest.setdefault("n_total", n_total)
+        manifest.setdefault("chunk_size", chunk_size)
+        manifest.setdefault("chunks", {})
+
+    resumed_data: Dict[int, Dict[str, np.ndarray]] = {}
+    for ci, rec in list(manifest.get("chunks", {}).items()):
+        ci = int(ci)
+        chunk_file = f"{out_dir}/chunk_{ci:05d}.npz"
+        try:
+            with np.load(chunk_file) as data:
+                got = {f: np.asarray(data[f]) for f in fields}
+                got["failed"] = np.asarray(
+                    data["failed"] if "failed" in data.files
+                    else ~np.isfinite(data["DM_over_B"]), dtype=bool)
+                got["quarantined"] = (
+                    np.asarray(data["quarantined"], dtype=bool)
+                    if "quarantined" in data.files else np.zeros(len(got["failed"]), bool))
+        except Exception as exc:  # noqa: BLE001 — a torn file is recomputed
+            print(f"[sweep] resume: chunk {ci} listed in manifest but {chunk_file} is "
+                  f"missing/unreadable ({exc!r}); recomputing", file=sys.stderr)
+            del manifest["chunks"][str(ci)]
+            continue
+        got["n_failed"] = int(rec["n_failed"])
+        got["n_quarantined"] = int(rec.get("n_quarantined", 0))
+        resumed_data[ci] = got
+
+    # ---- the chunk cache's hit plan (a resumed chunk wins) -------------
+    store = resolve_store(cache, base, label="sweep")
+    chunk_keys: List[str] = []
+    cache_data: Dict[int, Dict[str, np.ndarray]] = {}
+    if store is not None:
+        chunk_extra = {k: v for k, v in hash_extra.items()
+                       if k in ("quad", "esdirk", "kernel", "fault_plan")}
+        platform = device_platform(dev)
+        for ci in range(n_chunks):
+            lo, hi = ci * chunk_size, min((ci + 1) * chunk_size, n_total)
+            chunk_keys.append(chunk_cache_key(
+                base, static, pp_all, lo, hi, n_y=n_y, impl=impl, platform=platform,
+                table_nodes=table_nodes, extra=chunk_extra,
+                fault_ctx=("step", ci, lo, hi) if faults is not None else None))
+        for ci in range(n_chunks):
+            if ci in resumed_data:
+                continue
+            lo, hi = ci * chunk_size, min((ci + 1) * chunk_size, n_total)
+            ent = store.get_npz(f"sweep_chunk/{chunk_keys[ci]}.npz")
+            if chunk_entry_ok(ent, hi - lo):
+                cache_data[ci] = ent
+
+    # the engine is built only if some chunk computes; before the clock
+    engine = None
+    if len(resumed_data) + len(cache_data) < n_chunks:
+        engine = build_chunk_engine(
+            base, static, n_y=n_y, impl=impl, device=dev, fuse_exp=fuse_exp,
+            reduce=reduce, table_np=table_np, table_nodes=table_nodes,
+            esdirk_knobs=esdirk_knobs, esdirk_stats_sink=stats.append)
+
+    if event_log is not None:
+        event_log.emit("sweep_start", n_points=n_total, chunks=n_chunks,
+                       chunk_size=chunk_size, hash=h, use_table="I_p" not in axes,
+                       impl=impl)
+
     collected: Dict[str, list] = {f: [] for f in fields}
-    masks = []
-    t0 = time.perf_counter()
-    for ci in range(n_chunks):
-        lo, hi = ci * chunk_size, min((ci + 1) * chunk_size, n_total)
-        ppc = point_params_from_numpy(_pad_chunk(pp_all, lo, hi, chunk_size), dev)
-        res = step(ppc, aux)
-        host = {f: getattr(res, f)[: hi - lo].cpu().numpy() for f in fields}
-        masks.append(~np.isfinite(host["DM_over_B"]))
+    masks: List[np.ndarray] = []
+    qmasks: List[np.ndarray] = []
+    totals = {"failed": 0, "quarantined": 0, "retries": 0}
+    n_stats_seen = [0]
+    heal_on = retry_policy is not None
+
+    def _compute(lo_r, hi_r):
+        ppc = point_params_from_numpy(_pad_chunk(pp_all, lo_r, hi_r, chunk_size), dev)
+        res = engine[0](ppc, engine[1])
+        return {f: getattr(res, f)[: hi_r - lo_r].cpu().numpy() for f in fields}
+
+    def _apply_nan_faults(host, lo_r, hi_r):
+        pts = faults.nan_points("step", lo_r, hi_r) if faults is not None else []
+        if pts:
+            for f in fields:
+                arr = np.array(host[f])
+                for p in pts:
+                    arr[p - lo_r] = np.nan
+                host[f] = arr
+        return host
+
+    def _attempt(ci, lo_r, hi_r):
+        try:
+            if faults is not None:
+                faults.fire("step", ci)
+                faults.check_range("step", lo_r, hi_r)
+            return 1, _apply_nan_faults(_compute(lo_r, hi_r), lo_r, hi_r), None
+        except Exception as exc:  # noqa: BLE001 — the healing path decides
+            return 0, None, exc
+
+    def _quarantine(ci, lo_r, hi_r, err):
+        if event_log is not None:
+            event_log.emit("chunk_quarantine", chunk=ci, lo=lo_r, hi=hi_r,
+                           n_points=hi_r - lo_r, error=repr(err))
+        return ({f: np.full(hi_r - lo_r, np.nan) for f in fields},
+                np.ones(hi_r - lo_r, dtype=bool))
+
+    def _on_retry(ci, lo_r, hi_r, attempt, err):
+        if event_log is not None:
+            event_log.emit("chunk_retry", chunk=ci, lo=lo_r, hi=hi_r, attempt=attempt,
+                           error=repr(err))
+
+    def _collect(ci, lo, hi, host, q, t_chunk, paid=0, cached=False):
+        """Count, log, persist and keep one chunk's results; ``paid`` is
+        its retries (for a cache hit, the ones the entry recorded)."""
+        n_valid = hi - lo
+        if not cached:
+            host = _apply_nan_faults(host, lo, hi)
+        totals["quarantined"] += int(q.sum())
+        totals["retries"] += int(paid)
+        bad = ~np.isfinite(host["DM_over_B"])
+        totals["failed"] += int(bad.sum())
+        if event_log is not None:
+            event_log.emit(
+                "chunk_done", chunk=ci, n_valid=n_valid, n_failed=int(bad.sum()),
+                n_quarantined=int(q.sum()), seconds=round(time.time() - t_chunk, 4),
+                **({"cached": True} if cached else {}))
+            for cs in stats[n_stats_seen[0]:]:
+                event_log.emit("esdirk_rounds", chunk=ci, **cs.summary(),
+                               per_round=cs.as_rows())
+        n_stats_seen[0] = len(stats)
+        if out_dir is not None:
+            chunk_file = f"{out_dir}/chunk_{ci:05d}.npz"
+            atomic_savez(chunk_file, **host, failed=bad,
+                         **({"quarantined": q} if q.any() else {}))
+            rec = {"file": chunk_file, "n_valid": n_valid, "n_failed": int(bad.sum())}
+            if q.any():
+                rec["n_quarantined"] = int(q.sum())
+                idx = np.flatnonzero(q)
+                if len(idx) <= 128:
+                    rec["quarantined"] = [int(i) for i in idx]
+                else:
+                    rec["quarantined_truncated"] = True
+            manifest["chunks"][str(ci)] = rec
+            atomic_write_json(manifest_path, manifest)
+            if faults is not None:
+                # torn storage after the atomic write: resume must detect it
+                faults.corrupt_file("chunk_write", ci, chunk_file)
+        # a real quarantine is never cached; an armed plan's is (keyed)
+        if store is not None and not cached and (not q.any() or faults is not None):
+            store.put_npz(f"sweep_chunk/{chunk_keys[ci]}.npz",
+                          chunk_entry_arrays(host, n_retries=paid, qmask=q))
         if keep_outputs:
             for f in fields:
                 collected[f].append(host[f])
+        masks.append(bad)
+        qmasks.append(q)
+
+    resumed = 0
+    t0 = time.perf_counter()
+    for ci in range(n_chunks):
+        lo, hi = ci * chunk_size, min((ci + 1) * chunk_size, n_total)
+        if ci in resumed_data:
+            got = resumed_data[ci]
+            resumed += 1
+            totals["failed"] += got["n_failed"]
+            totals["quarantined"] += got["n_quarantined"]
+            masks.append(got["failed"])
+            qmasks.append(got["quarantined"])
+            if keep_outputs:
+                for f in fields:
+                    collected[f].append(got[f])
+            continue
+        t_chunk = time.time()
+        if ci in cache_data:
+            ent = cache_data[ci]
+            qm = ent.get("quarantined")
+            _collect(ci, lo, hi, {f: ent[f] for f in fields},
+                     np.zeros(hi - lo, bool) if qm is None else np.asarray(qm, bool),
+                     t_chunk, paid=int(ent.get("n_retries", 0)), cached=True)
+            continue
+        q = np.zeros(hi - lo, dtype=bool)
+        paid = [0]
+        try:
+            if faults is not None:
+                faults.fire("step", ci)
+                faults.check_range("step", lo, hi)
+            host = _compute(lo, hi)
+        except Exception as exc:  # noqa: BLE001 — healed below
+            if not heal_on:
+                raise
+            host, q = heal_range(
+                ci, lo, hi, exc, attempt=_attempt, quarantine=_quarantine,
+                policy=retry_policy, budget=[heal_budget(hi - lo, retry_policy.max_attempts)],
+                paid=paid, fields=fields, on_retry=_on_retry)
+        _collect(ci, lo, hi, host, q, t_chunk, paid=paid[0])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
-    failed_mask = np.concatenate(masks)
     if impl in ("esdirk", "esdirk_lockstep"):
         quad_impl, n_quad = None, None
     else:
         quad_impl = "panel_gl" if quad_on else "trap"
         n_quad = quad_nodes if quad_on else max(int(n_y), 2000)
+    cache_hits = cache_misses = None
+    if store is not None:
+        cache_hits = len(cache_data)
+        cache_misses = n_chunks - len(cache_data) - len(resumed_data)
+    failed_mask = np.concatenate(masks) if masks else np.zeros(0, bool)
     return SweepResult(
         n_points=n_total,
-        n_failed=int(failed_mask.sum()),
+        n_failed=totals["failed"],
         seconds=seconds,
         points_per_sec=n_total / max(seconds, 1e-9),
         chunks=n_chunks,
@@ -391,6 +862,13 @@ def run_sweep(
         esdirk_stats=stats if impl == "esdirk" else None,
         lz_identity=lz_identity,
         lz_seconds=lz_seconds,
+        out_dir=out_dir,
+        resumed_chunks=resumed,
+        n_quarantined=totals["quarantined"],
+        n_retries=totals["retries"],
+        cache_hits=cache_hits,
+        cache_misses=cache_misses,
+        quarantined_mask=np.concatenate(qmasks) if qmasks else np.zeros(0, bool),
     )
 
 

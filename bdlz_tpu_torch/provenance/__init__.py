@@ -1,0 +1,21 @@
+"""Content identities and the content-addressed store (counterpart of
+``bdlz_tpu/provenance``; the artifact registry and leases come with
+serving, ROADMAP D7)."""
+from bdlz_tpu_torch.provenance.identity import (  # noqa: F401
+    SCHEMA_VERSION,
+    Identity,
+    array_part,
+    config_payload,
+    emulator_artifact_identity,
+    multidomain_artifact_identity,
+    static_payload,
+    sweep_chunk_identity,
+    sweep_identity,
+)
+from bdlz_tpu_torch.provenance.store import (  # noqa: F401
+    Store,
+    StoreStats,
+    StoreUntrustedError,
+    default_store_root,
+    resolve_store,
+)

@@ -12,8 +12,12 @@ runs the plain PyTorch path on the host; the default is the card.
 ``--lz-profile``/``--bounce`` derive each point's P from its wall speed
 through the LZ layer (``--lz-method``, ``--lz-gamma-phi``, and the
 scenario flags ``--lz-mode``/``--lz-n-levels``/``--lz-bath-*``), with the
-JAX sweep CLI's pairing errors.  Its flags that the port does not have
-yet (resume directories, event logs, the sanitizer, meshes and elastic
+JAX sweep CLI's pairing errors.  ``--out`` writes the chunk files and the
+manifest (a rerun resumes; the JAX CLI resumes the same directory for the
+engines the two share) and ``--events`` the JSON-lines event log; the
+config's ``retry_enabled``, ``cache_enabled``/``cache_root`` and
+``fault_injection``/``fault_plan`` act as in the JAX CLI.  Its flags that
+the port does not have yet (the sanitizer, profiles, meshes and elastic
 fleets) are refused with the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -26,13 +30,11 @@ import numpy as np
 
 from bdlz_tpu_torch.utils.deferred import add_deferred_flags, refuse_deferred_flags
 
-_D2 = "ROADMAP D2, sweep resume, retry and caches"
 _D6 = "ROADMAP D6, host planes"
 _D7 = "ROADMAP D7, serving and elastic sweeps"
 _D9 = "ROADMAP D9, multi-GPU"
 #: Flags of the JAX sweep CLI that the port does not have yet.
 DEFERRED_FLAGS = {
-    "--out": (True, _D2), "--events": (True, _D2),
     "--sanitize": (False, _D6), "--debug-nans": (False, _D6),
     "--profile-dir": (True, _D6),
     "--elastic": (True, _D7), "--elastic-store": (True, _D7),
@@ -61,6 +63,9 @@ def main(argv=None) -> None:
     ap.add_argument("--config", required=True, help="Base yields_config JSON")
     ap.add_argument("--axis", action="append", default=[],
                     help="Sweep axis, e.g. m_chi_GeV=geom:0.1:10:64 (repeatable)")
+    ap.add_argument("--out", default=None, help="Output dir (chunks + manifest; resumable)")
+    ap.add_argument("--events", default=None,
+                    help="Write JSON-lines sweep events to this file")
     ap.add_argument("--chunk", type=int, default=8192)
     ap.add_argument("--n-y", type=int, default=8000, dest="n_y")
     ap.add_argument("--impl", default="kernel",
@@ -130,9 +135,6 @@ def main(argv=None) -> None:
 
     # the sweep runs on a device backend: strict validation
     cfg = validate(load_config(args.config), backend="gpu")
-    for key in ("retry_enabled", "cache_enabled", "fault_injection"):
-        if getattr(cfg, key):
-            raise SystemExit(f"{key}: true is not ported to bdlz_tpu_torch yet ({_D2})")
     # explicit scenario flags override the config's lz_* keys
     cfg = apply_scenario_flags(cfg, args)
     if cfg.lz_mode != "two_channel":
@@ -150,12 +152,18 @@ def main(argv=None) -> None:
     if not axes:
         raise SystemExit("at least one --axis is required")
 
+    event_log = None
+    if args.events:
+        from bdlz_tpu_torch.utils.logging import EventLog
+
+        event_log = EventLog(path=args.events)
     static = static_choices_from_config(cfg)
     if args.quad != "auto":
         static = static._replace(quad_panel_gl=args.quad == "on")
     res = run_sweep(
         cfg, axes, static, chunk_size=args.chunk,
-        n_y=args.n_y, impl=args.impl, fuse_exp=args.fuse_exp,
+        n_y=args.n_y, out_dir=args.out, event_log=event_log,
+        impl=args.impl, fuse_exp=args.fuse_exp,
         device=args.device, lz_profile=args.lz_profile, lz_method=args.lz_method,
         lz_gamma_phi=args.lz_gamma_phi, bounce=args.bounce,
     )
@@ -181,16 +189,14 @@ def main(argv=None) -> None:
         **({"lz_mode": cfg.lz_mode} if cfg.lz_mode != "two_channel" else {}),
         "n_points": res.n_points,
         "n_failed": res.n_failed,
-        # the port has no self-healing, resume or output directory yet:
-        # the JAX CLI's keys are kept at their idle values
-        "n_quarantined": 0,
-        "n_retries": 0,
+        "n_quarantined": res.n_quarantined,
+        "n_retries": res.n_retries,
         "seconds": round(res.seconds, 3),
         "points_per_sec": round(res.points_per_sec, 1),
-        "resumed_chunks": 0,
+        "resumed_chunks": res.resumed_chunks,
         "quad_impl": res.quad_impl,
         "n_quad_nodes": res.n_quad_nodes,
-        "out_dir": None,
+        "out_dir": res.out_dir,
         "closest_to_planck": closest,
     }))
 

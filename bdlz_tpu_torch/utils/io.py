@@ -1,8 +1,9 @@
-"""Output layer: the ``yields_out.json`` artifact and atomic JSON and text
-writes.
+"""Output layer: the ``yields_out.json`` artifact and atomic JSON, text
+and array writes.
 
-Counterpart of ``atomic_write_json``, ``yields_out_payload`` and
-``write_yields_out`` in ``bdlz_tpu/utils/io.py``.  The schema is the
+Counterpart of ``bdlz_tpu/utils/io.py``: ``atomic_write_json``,
+``atomic_write_text``, ``atomic_savez``, ``atomic_save_npy``,
+``yields_out_payload`` and ``write_yields_out``.  The schema is the
 reference contract: ``{"inputs": {<20 reference keys in declaration
 order>, "P_used": P, <extension keys that differ from their defaults>},
 "final": {Y_B, Y_chi, rho_B_kg_m3, rho_DM_kg_m3, DM_over_B}}``.  Results
@@ -48,11 +49,35 @@ def atomic_write_text(path: str, text: str, durable: bool = False) -> None:
     _atomic_write(path, lambda f: f.write(text), durable)
 
 
-def _atomic_write(path: str, write, durable: bool) -> None:
+def atomic_savez(path: str, durable: bool = False, **arrays: Any) -> None:
+    """``np.savez`` made atomic as :func:`atomic_write_json` is: sweep
+    chunk files, emulator tables and store entries.  The temp name ends
+    in ``.npz``, or ``np.savez`` would append the suffix and the rename
+    would miss."""
+    import numpy as np
+
+    if not path.endswith(".npz"):
+        path += ".npz"
+    _atomic_write(path, lambda f: np.savez(f, **arrays), durable,
+                  suffix=".tmp.npz", mode="wb")
+
+
+def atomic_save_npy(path: str, arr: Any, durable: bool = False) -> None:
+    """``np.save`` made atomic; writing through the open file keeps
+    ``np.save`` from appending ``.npy``, so the target is exactly
+    ``path``."""
+    import numpy as np
+
+    _atomic_write(path, lambda f: np.save(f, arr), durable,
+                  suffix=".tmp.npy", mode="wb")
+
+
+def _atomic_write(path: str, write, durable: bool, suffix: str = ".tmp",
+                  mode: str = "w") -> None:
     d = os.path.dirname(os.path.abspath(path))
-    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=suffix)
     try:
-        with os.fdopen(fd, "w", encoding="utf-8") as f:
+        with os.fdopen(fd, mode, **({"encoding": "utf-8"} if mode == "w" else {})) as f:
             write(f)
             if durable:
                 f.flush()

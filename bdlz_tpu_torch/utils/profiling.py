@@ -6,6 +6,7 @@ the JAX package's profiler traces and throughput helpers are not ported
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -55,3 +56,7 @@ class CompactionStats:
             "seconds": round(sum(r.seconds for r in self.rounds), 4),
             "pad_waste": round(1.0 - active / dispatched, 4) if dispatched else 0.0,
         }
+
+    def as_rows(self) -> List[Dict[str, Any]]:
+        """The per-round records as plain dicts (event logs, JSON)."""
+        return [dataclasses.asdict(r) for r in self.rounds]

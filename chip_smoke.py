@@ -19,14 +19,22 @@ against the one-thread-per-lane kernel; the audit, batch against loop,
 the measured f64 latencies, times and bounds), and
 the LZ layer at full width (``lz_path``: P-tables at their default sizes,
 one of them over a 1,000,001-sample profile, and the sweep with a shot
-bounce through each estimator and scenario).
+bounce through each estimator and scenario).  Then the sweep's
+robustness on the main grid through K1 (``robust_path``: resume, a torn
+chunk file, a transient fault, a poison point bisected into quarantine,
+a NaN point, the chunk store cold and warm) and the emulator
+(``emulator_path``: the bench's 4-D box built through K1 and checked
+against the plain engine, saved and reloaded, 65,536 queries timed on
+the card against the CPU, a spot check against exact K1 points, a warm
+rebuild through one store, and the seam-split bundle).
 
 Every phase prints one JSON line; the card's name and power limit as
 ``nvidia-smi`` reports them and a ``kernels`` line come before the last
 line, which is ``{"ok": true, "device": {...}}``.  Any failed check ends
 the script with a non-zero exit and no ``ok`` line; so does a machine
 without a CUDA device, or a directory without the port.  Imports nothing
-of JAX or of the JAX package.
+of JAX or of the JAX package.  ``--only robust_path,emulator_path`` runs
+just those phases (after the build) and prints no ``ok`` line.
 """
 from __future__ import annotations
 
@@ -909,7 +917,306 @@ def phase_lz_path(dev, sol, kernel_pps: float) -> None:
           "sweeps": sweeps, "plain_P_kernel_tier_points_per_sec": kernel_pps})
 
 
-def main() -> int:
+def _bitwise(a: dict, b: dict, keep=None) -> bool:
+    """Every output field bit for bit (optionally on the points ``keep``)."""
+    return all(np.array_equal(a[f] if keep is None else a[f][keep],
+                              b[f] if keep is None else b[f][keep], equal_nan=True)
+               for f in b)
+
+
+def _events(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+POISON_POINT, NAN_POINT = 12345, 777  # global grid indices of the injected faults
+
+
+def phase_robust_path(dev) -> None:
+    """The main grid at full width through K1 into a sweep directory with
+    an event log: a clean run and its resume; a torn chunk file and its
+    resume; a transient step fault; a poison point bisected into
+    quarantine; a NaN point; a chunk store run cold, then warm."""
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.faults import FaultPlan
+    from bdlz_tpu_torch.parallel.sweep import heal_budget, run_sweep
+    from bdlz_tpu_torch.provenance import Store
+    from bdlz_tpu_torch.utils.logging import EventLog
+    from bdlz_tpu_torch.utils.retry import resolve_engine_retry
+
+    t0 = time.perf_counter()
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    kw = dict(impl="kernel", chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev)
+    n_total = int(np.prod([len(v) for v in MAIN_AXES.values()]))
+    n_chunks = -(-n_total // N_POINTS)
+    work = tempfile.mkdtemp(prefix="bdlz_robust_")
+    wall, out = {}, {}
+
+    def run(name, **extra):
+        t1 = time.perf_counter()
+        res, counts = _launches_around(lambda: run_sweep(base, MAIN_AXES, static, **kw, **extra))
+        wall[name] = time.perf_counter() - t1
+        return res, counts["reduce"]
+
+    try:
+        d = os.path.join(work, "sweep")
+        clean, k1 = run("clean", out_dir=d,
+                        event_log=EventLog(path=os.path.join(work, "clean.jsonl")))
+        check(clean.n_points == n_total and clean.chunks == n_chunks == 4 and k1 == 4,
+              f"clean: {n_total} points in 4 chunks, 4 K1 launches, got {k1}")
+        check(clean.n_failed == 0 and clean.n_quarantined == 0 and clean.n_retries == 0,
+              "clean: no failure, quarantine or retry")
+        ev = [e["event"] for e in _events(os.path.join(work, "clean.jsonl"))]
+        check(ev == ["sweep_start"] + ["chunk_done"] * 4, f"clean events {ev}")
+        resumed, k1 = run("resume", out_dir=d)
+        check(resumed.resumed_chunks == 4 and k1 == 0, f"resume: 4 chunks, 0 K1, got {k1}")
+        check(_bitwise(resumed.outputs, clean.outputs), "resume: bitwise the clean run")
+        out["resume"] = {"resumed_chunks": resumed.resumed_chunks, "k1_launches": k1}
+
+        # a torn chunk file, then a resume under the same (spent) plan
+        torn = FaultPlan.from_obj([{"site": "chunk_write", "kind": "torn", "key": 2}])
+        d2 = os.path.join(work, "torn")
+        run("torn_write", out_dir=d2, fault_plan=torn)
+        try:
+            np.load(os.path.join(d2, "chunk_00002.npz"))["DM_over_B"]
+            was_torn = False
+        except Exception:  # noqa: BLE001 — a torn zip fails to load
+            was_torn = True
+        check(was_torn, "chunk 2's file is torn")
+        healed, k1 = run("torn_resume", out_dir=d2, fault_plan=torn)
+        check(healed.resumed_chunks == 3 and k1 == 1,
+              f"torn resume: 3 chunks resumed, chunk 2 recomputed (1 K1), got {k1}")
+        check(_bitwise(healed.outputs, clean.outputs), "torn resume: bitwise the clean run")
+        out["torn"] = {"resumed_chunks": healed.resumed_chunks, "k1_launches": k1}
+
+        # a transient step fault on chunk 1, twice
+        ev_path = os.path.join(work, "transient.jsonl")
+        tr, k1 = run("transient", event_log=EventLog(path=ev_path), fault_plan=FaultPlan.from_obj(
+            [{"site": "step", "kind": "transient", "key": 1, "times": 2}]))
+        retries = [e for e in _events(ev_path) if e["event"] == "chunk_retry"]
+        check(tr.n_retries == 2 and len(retries) == 2 and all(e["chunk"] == 1 for e in retries),
+              f"transient: 2 retries of chunk 1, got {tr.n_retries} / {len(retries)} events")
+        check(tr.n_quarantined == 0 and _bitwise(tr.outputs, clean.outputs),
+              "transient: bitwise the clean run")
+        out["transient"] = {"n_retries": tr.n_retries, "k1_launches": k1}
+
+        # a poison point, bisected down to itself
+        ev_path = os.path.join(work, "poison.jsonl")
+        po, k1 = run("poison", event_log=EventLog(path=ev_path), fault_plan=FaultPlan.from_obj(
+            [{"site": "step", "kind": "poison", "point": POISON_POINT}]))
+        attempts = resolve_engine_retry(None, base, static).max_attempts
+        want = np.zeros(n_total, dtype=bool)
+        want[POISON_POINT] = True
+        q_ev = [e for e in _events(ev_path) if e["event"] == "chunk_quarantine"]
+        check(po.n_quarantined == 1 and np.array_equal(po.quarantined_mask, want)
+              and np.array_equal(po.failed_mask, want),
+              f"poison: only point {POISON_POINT} quarantined")
+        check(_bitwise(po.outputs, clean.outputs, keep=~want), "poison: the rest bitwise clean")
+        check(po.n_retries <= heal_budget(N_POINTS, attempts),
+              f"poison: {po.n_retries} retries <= heal budget {heal_budget(N_POINTS, attempts)}")
+        check(len(q_ev) == 1 and (q_ev[0]["lo"], q_ev[0]["hi"]) == (POISON_POINT, POISON_POINT + 1),
+              f"poison: one chunk_quarantine event at {POISON_POINT}, got {q_ev}")
+        out["poison"] = {"n_retries": po.n_retries, "heal_budget": heal_budget(N_POINTS, attempts),
+                         "k1_launches": k1}
+
+        # a NaN point: an ordinary failure, not a quarantine
+        nan, k1 = run("nan", fault_plan=FaultPlan.from_obj(
+            [{"site": "step", "kind": "nan", "point": NAN_POINT}]))
+        want = np.zeros(n_total, dtype=bool)
+        want[NAN_POINT] = True
+        check(np.array_equal(nan.failed_mask, want) and nan.n_quarantined == 0,
+              f"nan: point {NAN_POINT} failed, nothing quarantined")
+        check(_bitwise(nan.outputs, clean.outputs, keep=~want), "nan: the rest bitwise clean")
+
+        # the chunk store, cold then warm
+        root = os.path.join(work, "store")
+        cold, k1_cold = run("cache_cold", cache=Store(root))
+        warm, k1 = run("cache_warm", cache=Store(root))
+        check(cold.cache_misses == 4 and cold.cache_hits == 0 and k1_cold == 4,
+              f"cold: 4 misses, got {cold.cache_hits}/{cold.cache_misses}")
+        check(warm.cache_hits == 4 and warm.cache_misses == 0 and k1 == 0,
+              f"warm: 4 hits, 0 K1, got {warm.cache_hits}/{warm.cache_misses}, {k1}")
+        check(_bitwise(warm.outputs, cold.outputs) and _bitwise(cold.outputs, clean.outputs),
+              "warm == cold == clean bitwise")
+        out["cache"] = {"cold": [cold.cache_hits, cold.cache_misses],
+                        "warm": [warm.cache_hits, warm.cache_misses], "k1_warm": k1}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "robust_path", "seconds": time.perf_counter() - t0, "points": n_total,
+          "wall_seconds": wall, "clean_sweep_seconds": clean.seconds,
+          "clean_points_per_sec": clean.points_per_sec, "checks": out})
+
+
+EMU_SPEC = {  # the bench's emulator box (bench.py:1149-1160)
+    "m_chi_GeV": (0.1, 10.0, 3, "log"),
+    "T_p_GeV": (30.0, 300.0, 5, "log"),
+    "source_shape_sigma_y": (3.0, 18.0, 5, "lin"),
+    "beta_over_H": (50.0, 500.0, 5, "log"),
+}
+CACHE_SPEC = {"m_chi_GeV": (0.3, 3.0, 4, "log"), "T_p_GeV": (60.0, 200.0, 4, "log")}
+SEAM_SPEC = {"m_chi_GeV": (20.0, 600.0, 3, "log"), "T_p_GeV": (95.0, 105.0, 2, "log")}
+N_QUERIES, N_SPOT = 65536, 2048
+EMU_TABLE_RTOL, QUERY_RTOL, BAND_ATOL = 1e-10, 1e-14, 1e-12
+
+
+def phase_emulator_path(dev) -> None:
+    """The emulator: the bench's 4-D box built through K1, 512 of its
+    nodes against the plain tabulated engine on the CPU, save and reload,
+    65,536 queries on the card (timed, against the CPU query), a spot
+    check against an exact K1 sweep, the warm rebuild of the sweep-cache
+    box through one store, and the seam-split bundle."""
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.emulator import (
+        FIELDS,
+        AxisSpec,
+        build_emulator,
+        load_any_artifact,
+        load_artifact,
+        make_domain_fn,
+        make_exact_evaluator,
+        make_query_fn,
+        save_artifact,
+        seam_band_for_box,
+    )
+    from bdlz_tpu_torch.provenance import Store
+    from bdlz_tpu_torch.validation import relative_errors
+
+    t0 = time.perf_counter()
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    spec = {k: AxisSpec(*v) for k, v in EMU_SPEC.items()}
+    t1 = time.perf_counter()
+    (art, rep), counts = _launches_around(lambda: build_emulator(
+        base, spec, static, rtol=1e-4, n_probe=48, max_rounds=25, n_y=N_Y,
+        chunk_size=N_POINTS, seed=0, impl="kernel", device=dev))
+    build_s = time.perf_counter() - t1
+    build_k1 = counts["reduce"]
+    check(build_k1 > 0, f"the build launched K1, got {counts}")
+    shape = tuple(len(n) for n in art.axis_nodes)
+    check(all(bool(np.all(np.isfinite(art.values[f]))) for f in FIELDS), "finite table")
+
+    # 512 table nodes against the plain tabulated engine on the CPU
+    rng = np.random.default_rng(11)
+    sel = rng.choice(art.n_points, size=min(512, art.n_points), replace=False)
+    idx = np.unravel_index(sel, shape)
+    cols = {name: np.asarray(art.axis_nodes[k])[idx[k]] for k, name in enumerate(art.axis_names)}
+    ref = make_exact_evaluator(base, static._replace(quad_panel_gl=False), n_y=N_Y,
+                               impl="tabulated", chunk_size=len(sel), device="cpu")(cols)
+    table_rel = max(_max_rel(art.values[f][idx], ref[f]) for f in FIELDS)
+    check(table_rel <= EMU_TABLE_RTOL, f"table vs CPU tabulated {table_rel:.3e}")
+
+    # save, reload (hash verified), reload onto the CPU
+    work = tempfile.mkdtemp(prefix="bdlz_emu_")
+    try:
+        save_artifact(os.path.join(work, "art"), art)
+        loaded = load_artifact(os.path.join(work, "art"))
+        check(loaded.content_hash == art.content_hash, "reload: content hash verified")
+        rng = np.random.default_rng(7)
+        thetas = np.stack([
+            10 ** rng.uniform(-1.0, 1.0, N_QUERIES),
+            10 ** rng.uniform(np.log10(30.0), np.log10(300.0), N_QUERIES),
+            rng.uniform(3.0, 18.0, N_QUERIES),
+            10 ** rng.uniform(np.log10(50.0), np.log10(500.0), N_QUERIES),
+        ], axis=1)
+        query = make_query_fn(loaded, device=dev)
+        th_dev = torch.as_tensor(thetas, dtype=torch.float64, device=dev)
+        samples = _cuda_ms(lambda: query(th_dev), 1)
+        q_ms = float(np.median(samples))
+        card = query(th_dev).cpu().numpy()
+        cpu = make_query_fn(load_artifact(os.path.join(work, "art")), device="cpu")(thetas).numpy()
+        q_rel = _max_rel(card, cpu)
+        check(q_rel <= QUERY_RTOL, f"card queries vs CPU {q_rel:.3e} <= {QUERY_RTOL:g}")
+        check(bool(make_domain_fn(loaded, device=dev)(th_dev).all()), "every query in the box")
+
+        # the exact path the queries replace, through K1
+        spot = {name: thetas[:N_SPOT, k] for k, name in enumerate(art.axis_names)}
+        evaluate = make_exact_evaluator(base, static, n_y=N_Y, impl="kernel",
+                                        chunk_size=N_SPOT, device=dev)
+        _, counts = _launches_around(lambda: evaluate(spot))  # builds the engine
+        check(counts["reduce"] == 1, f"one K1 launch for the spot check, got {counts}")
+        exact_samples = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            exact = evaluate(spot)["DM_over_B"]
+            exact_samples.append(time.perf_counter() - t1)
+        exact_s = float(np.median(exact_samples))
+        spot_rel = float(np.max(relative_errors(card[:N_SPOT], exact)))
+
+        # the sweep-cache box, cold then warm through one store root
+        cspec = {k: AxisSpec(*v) for k, v in CACHE_SPEC.items()}
+        ckw = dict(rtol=1e-3, n_probe=16, max_rounds=2, n_y=N_Y, impl="kernel",
+                   chunk_size=64, seed=5, device=dev)
+        root = os.path.join(work, "store")
+        cold_store, warm_store = Store(root), Store(root)
+        t1 = time.perf_counter()
+        cold, _ = build_emulator(base, cspec, static, cache=cold_store, **ckw)
+        cold_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        (warm, _), counts = _launches_around(lambda: build_emulator(
+            base, cspec, static, cache=warm_store, **ckw))
+        warm_s = time.perf_counter() - t1
+        probed = warm_store.stats.hits + warm_store.stats.misses
+        hit_rate = warm_store.stats.hits / max(probed, 1)
+        check(all(np.array_equal(cold.values[f], warm.values[f]) for f in FIELDS)
+              and all(np.array_equal(a, b) for a, b in zip(cold.axis_nodes, warm.axis_nodes)),
+              "warm rebuild bitwise the cold one")
+        check(hit_rate == 1.0 and counts["reduce"] == 0,
+              f"warm: hit rate {hit_rate}, K1 launches {counts['reduce']}")
+
+        # the seam-split bundle, default engine, on the card
+        sbase = config_from_dict(dict(ARCHIVED, source_shape_sigma_y=1.5))
+        sspec = {k: AxisSpec(*v) for k, v in SEAM_SPEC.items()}
+        t1 = time.perf_counter()
+        bundle, srep = build_emulator(
+            sbase, sspec, rtol=1e-3, n_probe=6, n_holdout=24, max_rounds=6,
+            max_nodes_per_axis=96, n_y=200, chunk_size=64, seed=0, device=dev,
+            out_dir=os.path.join(work, "seam"))
+        seam_s = time.perf_counter() - t1
+        band_cpu = seam_band_for_box(sbase, sspec, rtol=1e-3, safety=2.0, device="cpu")
+        check(len(getattr(bundle, "domains", ())) == 2, "the seam box splits in two domains")
+        band_err = max(abs(bundle.seam_band[k] - band_cpu[k]) for k in ("lo", "hi"))
+        check(band_err <= BAND_ATOL and bundle.seam_band["axis"] == band_cpu["axis"],
+              f"band {bundle.seam_band} vs CPU {band_cpu}")
+        reloaded = load_any_artifact(os.path.join(work, "seam"))
+        check(reloaded.content_hash == bundle.content_hash, "bundle reload verified")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "emulator_path", "seconds": time.perf_counter() - t0,
+          "build": {"seconds": build_s, "rounds": len(rep.rounds),
+                    "n_exact_evals": rep.n_exact_evals, "grid_shape": list(shape),
+                    "grid_points": art.n_points, "converged": bool(rep.converged),
+                    "max_rel_err": rep.max_rel_err, "k1_launches": build_k1},
+          "table_vs_cpu_tabulated_512_max_rel": table_rel,
+          "query": {"n": N_QUERIES, "ms_per_batch": q_ms, "ms_samples": samples,
+                    "queries_per_sec": N_QUERIES / (q_ms * 1e-3),
+                    "card_vs_cpu_max_rel": q_rel},
+          "spot": {"n": N_SPOT, "max_rel_err": spot_rel, "exact_seconds": exact_s,
+                   "exact_seconds_samples": exact_samples,
+                   "exact_points_per_sec": N_SPOT / exact_s},
+          "warm_rebuild": {"cold_seconds": cold_s, "warm_seconds": warm_s,
+                           "hits": warm_store.stats.hits, "misses": warm_store.stats.misses,
+                           "hit_rate": hit_rate, "grid_points": cold.n_points},
+          "seam": {"seconds": seam_s, "domains": len(bundle.domains), "band": bundle.seam_band,
+                   "band_vs_cpu_abs": band_err, "converged": bool(srep.converged),
+                   "max_rel_err": srep.max_rel_err, "n_exact_evals": srep.n_exact_evals}})
+
+
+#: Phases that can run on their own (``--only``); such a run prints no
+#: kernels line and no ok line.
+STANDALONE = {"robust_path": phase_robust_path, "emulator_path": phase_emulator_path}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU")
+    ap.add_argument("--only", default=None,
+                    help=f"comma list of phases to run alone, of {sorted(STANDALONE)}")
+    only = ap.parse_args(argv).only
+    only = only.split(",") if only else None
+    if only and not set(only) <= set(STANDALONE):
+        ap.error(f"--only takes {sorted(STANDALONE)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -920,6 +1227,11 @@ def main() -> int:
     dev_info = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    if only:
+        for name in only:
+            STANDALONE[name](dev)
+        emit({"phase": "done", "seconds": time.perf_counter() - t0, "only": only})
+        return 0
     streams, table, errs = phase_parity(dev)
     launches = phase_main_path(dev)
     timing, sweep_pps = phase_timing(dev, streams, table)
@@ -930,6 +1242,8 @@ def main() -> int:
     phase_cli(dev)
     bounce = phase_bounce_path(dev)
     phase_lz_path(dev, bounce.pop("solution"), sweep_pps)
+    phase_robust_path(dev)
+    phase_emulator_path(dev)
     from bdlz_tpu_torch.ops import bounce_kernel as bk
 
     emit({"kernels": [{

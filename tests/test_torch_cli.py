@@ -187,11 +187,65 @@ def test_sweep_cli_runs_the_stiff_engine(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("key", ["retry_enabled", "cache_enabled", "fault_injection"])
-def test_sweep_cli_refuses_unported_config_planes(tmp_path, key):
+def test_sweep_cli_refuses_unported_config_planes(tmp_path, capsys, monkeypatch, key):
+    """The three planes are ported now: set to true, each is accepted and
+    acts as in the JAX CLI (fault injection needs its plan)."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+    over = {key: True}
+    if key == "fault_injection":
+        over["fault_plan"] = json.dumps([{"site": "step", "kind": "nan", "point": 1}])
     path = tmp_path / "cfg.json"
-    path.write_text(json.dumps(dict(ARCHIVED, **{key: True})))
-    with pytest.raises(SystemExit, match="ROADMAP D2"):
-        t_sweep_main(["--config", str(path), "--axis", "m_chi_GeV=1.0", "--device", "cpu"])
+    path.write_text(json.dumps(dict(ARCHIVED, **over)))
+    argv = ["--config", str(path), "--axis", "m_chi_GeV=geom:0.5:2:4", "--chunk", "2",
+            "--n-y", "2000", "--device", "cpu"]
+    t_sweep_main(argv)
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["n_points"] == 4
+    assert summary["n_failed"] == (1 if key == "fault_injection" else 0)
+    if key == "cache_enabled":
+        assert (tmp_path / "xdg" / "bdlz_store" / "sweep_chunk").is_dir()
+        t_sweep_main(argv)
+        assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["n_failed"] == 0
+
+
+def _sweep_cli_argv(path, out, events, impl_flags):
+    return ["--config", str(path), "--axis", "m_chi_GeV=geom:0.3:3:8",
+            "--axis", "T_p_GeV=geom:50:200:4", "--chunk", "8", "--n-y", "2000",
+            "--out", str(out), "--events", str(events), *impl_flags]
+
+
+def test_sweep_cli_out_resumes_and_events_match_the_jax_cli(tmp_path, capsys):
+    """``--out`` and ``--events`` through both CLIs on the same sweep: the
+    same summary, the same events apart from ``ts`` and ``seconds``; a
+    rerun of the port's CLI resumes every chunk, and so does the JAX CLI
+    on the port's directory."""
+    from bdlz_tpu.sweep_cli import main as j_sweep_main
+
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(ARCHIVED))
+    flags = ["--impl", "tabulated", "--quad", "off"]
+    j_sweep_main(_sweep_cli_argv(path, tmp_path / "j", tmp_path / "j.jsonl", flags))
+    j_sum = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    t_sweep_main(_sweep_cli_argv(path, tmp_path / "t", tmp_path / "t.jsonl",
+                                 flags + ["--device", "cpu"]))
+    t_sum = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    def events(name):
+        return [{k: v for k, v in json.loads(line).items() if k not in ("ts", "seconds")}
+                for line in (tmp_path / name).read_text().splitlines()]
+
+    assert events("t.jsonl") == events("j.jsonl")
+    assert [e["event"] for e in events("t.jsonl")] == ["sweep_start"] + ["chunk_done"] * 4
+    for k in ("n_points", "n_failed", "n_quarantined", "n_retries", "resumed_chunks",
+              "quad_impl", "n_quad_nodes"):
+        assert t_sum[k] == j_sum[k], k
+    assert t_sum["out_dir"] == str(tmp_path / "t")
+    assert t_sum["closest_to_planck"]["index"] == j_sum["closest_to_planck"]["index"]
+    t_sweep_main(_sweep_cli_argv(path, tmp_path / "t", tmp_path / "t2.jsonl",
+                                 flags + ["--device", "cpu"]))
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["resumed_chunks"] == 4
+    j_sweep_main(_sweep_cli_argv(path, tmp_path / "t", tmp_path / "j2.jsonl", flags))
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["resumed_chunks"] == 4
 
 
 @pytest.mark.parametrize("over", [{}, {"n_y": 4000, "ode_rtol": 1e-9},

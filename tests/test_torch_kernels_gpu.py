@@ -304,3 +304,64 @@ def test_lz_table_on_the_card_matches_the_cpu(cuda):
         assert ((a.values.cpu() - b.values).abs() / b.values).max().item() <= 1e-10
     t2 = make_P_of_vw_gamma_table(prof, 0.05, 0.95, 0.0, 0.1, n_v=32, n_g=8, device=cuda)
     assert t2.values.shape == (32, 8) and torch.isfinite(t2.values).all()
+
+
+# ---- sweep robustness and the emulator on the card --------------------------
+
+def test_sweep_resume_on_the_card_is_bitwise(cuda, tmp_path):
+    """A K1 sweep into a directory, then its resume: every chunk read back,
+    no K1 launch, the outputs bit for bit; a warm store run likewise."""
+    from bdlz_tpu_torch.provenance import Store
+
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 16), "T_p_GeV": np.geomspace(30.0, 300.0, 4)}
+    kw = dict(chunk_size=16, n_y=2000, device=cuda)
+    kk.reset_launches()
+    first = run_sweep(base, axes, static, out_dir=str(tmp_path / "d"),
+                      cache=Store(str(tmp_path / "s")), **kw)
+    assert kk.LAUNCHES["reduce"] == 4 and first.cache_misses == 4
+    kk.reset_launches()
+    again = run_sweep(base, axes, static, out_dir=str(tmp_path / "d"), **kw)
+    warm = run_sweep(base, axes, static, cache=Store(str(tmp_path / "s")), **kw)
+    assert kk.LAUNCHES["reduce"] == 0
+    assert again.resumed_chunks == 4 and warm.cache_hits == 4
+    for f, v in first.outputs.items():
+        assert np.array_equal(again.outputs[f], v) and np.array_equal(warm.outputs[f], v), f
+
+
+def test_emulator_query_on_the_card_matches_the_cpu(cuda):
+    """Values ≤1e-14 rel, domain and predicted error equal, on a smooth
+    positive 3-D table (a power law with a mild wiggle, as a yield surface
+    is) over non-uniform nodes.  The card's log10 of a query may differ
+    from the CPU's by an ulp; its effect scales with the table's log-slope
+    across a cell, which a random table would make arbitrarily large."""
+    from bdlz_tpu_torch.emulator import (
+        EmulatorArtifact,
+        make_domain_fn,
+        make_error_fn,
+        make_query_fn,
+    )
+
+    rng = np.random.default_rng(5)
+    nodes = (np.geomspace(0.1, 10.0, 7), np.sort(rng.uniform(30.0, 300.0, 9)),
+             np.linspace(0.05, 0.95, 5))
+    shape = tuple(len(n) for n in nodes)
+    m, t, v = np.meshgrid(*nodes, indexing="ij")
+    log_ratio = (0.75 + 0.3 * np.log10(m) - 1.2 * np.log10(t / 100.0) + 0.5 * v
+                 + 0.01 * np.sin(7.0 * v) * np.log10(m))
+    art = EmulatorArtifact(
+        axis_names=("m_chi_GeV", "T_p_GeV", "v_w"), axis_nodes=nodes,
+        axis_scales=("log", "log", "lin"),
+        values={"DM_over_B": 10 ** log_ratio}, identity={},
+        manifest={"converged": True},
+        predicted_error=rng.uniform(0.0, 1e-4, tuple(n - 1 for n in shape)))
+    th = np.stack([10 ** rng.uniform(-1.2, 1.2, 4096), rng.uniform(20.0, 320.0, 4096),
+                   rng.uniform(0.0, 1.0, 4096)], axis=1)
+    got = make_query_fn(art, device=cuda)(th)
+    assert got.device.type == "cuda"
+    ref = make_query_fn(art, device="cpu")(th).numpy()
+    assert np.max(np.abs(got.cpu().numpy() / ref - 1.0)) <= 1e-14
+    for fn in (make_domain_fn, make_error_fn):
+        assert np.array_equal(fn(art, device=cuda)(th).cpu().numpy(),
+                              fn(art, device="cpu")(th).numpy())

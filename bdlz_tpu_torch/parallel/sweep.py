@@ -129,7 +129,7 @@ class SweepResult:
     quad_impl: Optional[str]
     n_quad_nodes: Optional[int]
     #: The engine that ran, after routing.
-    impl: str = "kernel"
+    impl: str = "tabulated"
     outputs: Optional[Dict[str, np.ndarray]] = field(default=None, repr=False)
     #: Per-point failure mask (True = non-finite output, quarantined points
     #: included), full grid order.
@@ -358,7 +358,7 @@ def _pad_chunk(pp: PointParams, lo: int, hi: int, chunk: int) -> PointParams:
 def make_sweep_step(
     static: StaticChoices,
     n_y: int = 8000,
-    impl: str = "kernel",
+    impl: str = "tabulated",
     fuse_exp: bool = False,
     reduce: bool = REDUCE_DEFAULT,
     esdirk_knobs: Optional[Dict[str, bool]] = None,
@@ -532,7 +532,7 @@ def run_sweep(
     keep_outputs: bool = True,
     table_nodes: int = 16384,
     event_log=None,
-    impl: str = "kernel",
+    impl: str = "tabulated",
     fuse_exp: bool = False,
     reduce: bool = REDUCE_DEFAULT,
     device=None,
@@ -560,7 +560,11 @@ def run_sweep(
     ``static.quad_panel_gl`` is the tri-state of the JAX sweep: None runs
     the population audit over the full grid (tabulated engine only) and
     turns the panel rule on only when it passes, loudly either way.
-    Chunks never hold more points than the grid has.
+    ``impl`` defaults to ``"tabulated"``, the JAX sweep's default, so a
+    default call reports the same scheme and ``grid_hash`` there and here.
+    The manifest records the requested ``chunk_size`` (after the memory
+    clamp), as the JAX engine does; a chunk is padded to no more points
+    than the grid has.
 
     **Resume.** With ``out_dir`` every chunk lands in ``chunk_{ci:05d}.npz``
     (atomically) and ``manifest.json`` records it under the sweep's
@@ -619,8 +623,10 @@ def run_sweep(
     esdirk_knobs = _engine_knobs(static, pp_all) if impl == "esdirk" else None
     stats: List[Any] = []
 
-    chunk_size = min(int(chunk_size), n_total)
-    chunk_size = _clamp_chunk_to_memory(chunk_size, n_y, dev, impl, quad_nodes)
+    chunk_size = _clamp_chunk_to_memory(int(chunk_size), n_y, dev, impl, quad_nodes)
+    # the manifest and the events keep the requested size (JAX's); a chunk
+    # is padded only up to the grid
+    pad_size = min(chunk_size, n_total)
     n_chunks = (n_total + chunk_size - 1) // chunk_size
     fields = YieldsResult._fields
 
@@ -715,7 +721,7 @@ def run_sweep(
     heal_on = retry_policy is not None
 
     def _compute(lo_r, hi_r):
-        ppc = point_params_from_numpy(_pad_chunk(pp_all, lo_r, hi_r, chunk_size), dev)
+        ppc = point_params_from_numpy(_pad_chunk(pp_all, lo_r, hi_r, pad_size), dev)
         res = engine[0](ppc, engine[1])
         return {f: getattr(res, f)[: hi_r - lo_r].cpu().numpy() for f in fields}
 

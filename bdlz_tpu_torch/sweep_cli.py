@@ -68,12 +68,14 @@ def main(argv=None) -> None:
                     help="Write JSON-lines sweep events to this file")
     ap.add_argument("--chunk", type=int, default=8192)
     ap.add_argument("--n-y", type=int, default=8000, dest="n_y")
-    ap.add_argument("--impl", default="kernel",
+    ap.add_argument("--impl", default="tabulated",
                     choices=("kernel", "tabulated", "direct", "esdirk",
                              "esdirk_lockstep"),
-                    help="Per-point engine: kernel (hand-written CUDA "
-                         "interpolate-and-reduce kernels), tabulated (the "
-                         "same quadrature in plain PyTorch), direct (the "
+                    help="Per-point engine: tabulated (default, as in the "
+                         "JAX CLI: the quadrature in plain PyTorch, on the "
+                         "audited panel rule per --quad), kernel (the "
+                         "hand-written CUDA interpolate-and-reduce kernels, "
+                         "trapezoid only), direct (the "
                          "exact (n_y x n_z) integrand; forced when I_p is "
                          "swept), esdirk (the lane-repacking stiff Boltzmann "
                          "engine; forced when sigma_v, washout or depletion "

@@ -442,7 +442,7 @@ def phase_stiff_path(dev) -> None:
     static = static_choices_from_config(base)
     n_points = int(np.prod([len(v) for v in STIFF_AXES.values()]))
     res, counts = _launches_around(lambda: run_sweep(
-        base, STIFF_AXES, static, chunk_size=n_points, device=dev))
+        base, STIFF_AXES, static, chunk_size=n_points, impl="kernel", device=dev))
     n_m, n_g = (len(v) for v in STIFF_AXES.values())
     check(res.impl == "esdirk" and res.n_points == n_points,
           f"{n_points} points routed to esdirk, got {res.n_points} to {res.impl}")
@@ -490,7 +490,8 @@ def phase_stiff_path(dev) -> None:
     # host loop that is being measured and take minutes to aggregate
     t1 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        res_p = run_sweep(base, STIFF_AXES, static, chunk_size=n_points, device=dev)
+        res_p = run_sweep(base, STIFF_AXES, static, chunk_size=n_points, impl="kernel",
+                          device=dev)
     device_ms = _device_ms(prof)
     part_s["profiled_sweep"] = time.perf_counter() - t1
     busy_ms = sum(device_ms.values())

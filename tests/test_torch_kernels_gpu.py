@@ -122,7 +122,7 @@ def test_kernel_sweep_matches_tabulated_sweep(setup, cuda):
     axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 8),
             "T_p_GeV": np.geomspace(30.0, 300.0, 4)}
     kk.reset_launches()
-    got = run_sweep(base, axes, static, chunk_size=16, n_y=2000, device=cuda)
+    got = run_sweep(base, axes, static, chunk_size=16, n_y=2000, impl="kernel", device=cuda)
     assert kk.LAUNCHES["reduce"] == 2
     ref = run_sweep(base, axes, static, chunk_size=16, n_y=2000,
                     impl="tabulated", device=cuda)
@@ -160,8 +160,8 @@ def test_stiff_sweep_on_the_card_matches_the_cpu(cuda):
     CPU: ≤1e-6 rel (only libm-level differences feed the adaptive steps)."""
     base = config_from_dict(STIFF)
     static = static_choices_from_config(base)
-    a = run_sweep(base, STIFF_AXES, static, chunk_size=8, device=cuda)
-    b = run_sweep(base, STIFF_AXES, static, chunk_size=8, device="cpu")
+    a = run_sweep(base, STIFF_AXES, static, chunk_size=8, impl="kernel", device=cuda)
+    b = run_sweep(base, STIFF_AXES, static, chunk_size=8, impl="kernel", device="cpu")
     assert a.impl == "esdirk" and a.n_failed == 0
     for f, r in b.outputs.items():
         assert np.max(np.abs(a.outputs[f] / r - 1.0)) <= 1e-6, f
@@ -316,7 +316,7 @@ def test_sweep_resume_on_the_card_is_bitwise(cuda, tmp_path):
     base = config_from_dict(ARCHIVED)
     static = static_choices_from_config(base)
     axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 16), "T_p_GeV": np.geomspace(30.0, 300.0, 4)}
-    kw = dict(chunk_size=16, n_y=2000, device=cuda)
+    kw = dict(chunk_size=16, n_y=2000, impl="kernel", device=cuda)
     kk.reset_launches()
     first = run_sweep(base, axes, static, out_dir=str(tmp_path / "d"),
                       cache=Store(str(tmp_path / "s")), **kw)

@@ -370,3 +370,54 @@ def test_grid_hash_of_a_shared_engine_equals_jax():
         ref = js.grid_hash(jc.config_from_dict(ARCHIVED), AXES, 400, impl,
                            extra=js.engine_identity_extra(j_static, impl) or None)
         assert got == ref
+
+
+# ---- the defaults and the chunk size the two packages share -----------------
+
+# 32 points, fewer than one chunk of 4096
+SMALL_AXES = {"m_chi_GeV": np.geomspace(0.3, 3.0, 8), "T_p_GeV": np.geomspace(60.0, 200.0, 4)}
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_a_chunk_larger_than_the_grid_resumes_in_the_other_package(writer, tmp_path):
+    """Chunk 4096 over 32 points: both manifests record 4096 (the requested
+    size), so the reader resumes the writer's one chunk.  The panel rule
+    keeps JAX's 4096-point padded chunk small."""
+    j_static, t_static = (s._replace(quad_panel_gl=True) for s in _statics())
+    jb, tb = jc.config_from_dict(ARCHIVED), tc.config_from_dict(ARCHIVED)
+    kw = dict(chunk_size=4096, n_y=400, impl="tabulated")
+    out = str(tmp_path / "sweep")
+    if writer == "jax":
+        wrote = js.run_sweep(jb, SMALL_AXES, j_static, **kw, out_dir=out)
+        read = ts.run_sweep(tb, SMALL_AXES, t_static, **kw, device="cpu", out_dir=out)
+    else:
+        wrote = ts.run_sweep(tb, SMALL_AXES, t_static, **kw, device="cpu", out_dir=out)
+        read = js.run_sweep(jb, SMALL_AXES, j_static, **kw, out_dir=out)
+    manifest = json.loads((tmp_path / "sweep" / "manifest.json").read_text())
+    assert manifest["chunk_size"] == 4096 and manifest["n_total"] == 32
+    assert wrote.chunks == read.chunks == 1 and read.resumed_chunks == 1
+    for f in wrote.outputs:
+        np.testing.assert_array_equal(read.outputs[f], wrote.outputs[f])
+
+
+def test_default_sweeps_of_the_two_packages_agree(tmp_path):
+    """No ``impl`` given: both packages run the tabulated engine, resolve
+    the audited panel rule on this grid, and write the same ``grid_hash``,
+    so the port's default directory resumes in JAX."""
+    jb, tb = jc.config_from_dict(ARCHIVED), tc.config_from_dict(ARCHIVED)
+    j_static, t_static = jc.static_choices_from_config(jb), tc.static_choices_from_config(tb)
+    assert j_static.quad_panel_gl is None and t_static.quad_panel_gl is None
+    jres = js.run_sweep(jb, SMALL_AXES, j_static, chunk_size=16, out_dir=str(tmp_path / "j"))
+    tres = ts.run_sweep(tb, SMALL_AXES, t_static, chunk_size=16, device="cpu",
+                        out_dir=str(tmp_path / "t"))
+    assert tres.impl == "tabulated"
+    assert (tres.quad_impl, tres.n_quad_nodes) == (jres.quad_impl, jres.n_quad_nodes) == (
+        "panel_gl", 560)
+    j_man = json.loads((tmp_path / "j" / "manifest.json").read_text())
+    t_man = json.loads((tmp_path / "t" / "manifest.json").read_text())
+    assert t_man["hash"] == j_man["hash"] and t_man["impl"] == j_man["impl"]
+    rel = _max_rel(tres.outputs["DM_over_B"], jres.outputs["DM_over_B"])
+    print(f"RESIDUAL robustness default sweep DM_over_B max_rel={rel:.3e}")
+    assert rel <= OUT_RTOL
+    again = js.run_sweep(jb, SMALL_AXES, j_static, chunk_size=16, out_dir=str(tmp_path / "t"))
+    assert again.resumed_chunks == 2

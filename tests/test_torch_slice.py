@@ -98,7 +98,7 @@ def test_tabulated_sweep_matches_kernel_sweep(base):
 
 def test_chunk_size_does_not_change_bits(base):
     static = static_choices_from_config(base)
-    kw = dict(n_y=2000, device="cpu")
+    kw = dict(n_y=2000, impl="kernel", device="cpu")
     a = run_sweep(base, AXES, static, chunk_size=7, **kw)
     b = run_sweep(base, AXES, static, chunk_size=64, **kw)
     assert (a.chunks, b.chunks) == (5, 1)
@@ -108,7 +108,8 @@ def test_chunk_size_does_not_change_bits(base):
 
 def test_failed_points_are_masked_not_fatal(base):
     res = run_sweep(base, {"m_chi_GeV": [0.95, 1e300, 2.0]},
-                    static_choices_from_config(base), n_y=2000, device="cpu")
+                    static_choices_from_config(base), n_y=2000, impl="kernel",
+                    device="cpu")
     assert res.n_failed == 1 and res.failed_mask.tolist() == [False, True, False]
 
 

@@ -16,15 +16,19 @@ the build fills a tensor grid of the box through the sweep engine
 
 until the whole pool is clean and no estimate is over the target, or
 ``max_rounds`` is spent; a larger held-out draw (seed + 10000) gives the
-recorded ``max_rel_err``.  Every exact evaluation goes through the
+recorded ``max_rel_err``.  ``posterior_weight="planck"`` multiplies the
+probe scores and the interval estimates by the Planck likelihood weight
+of the current surface (floored at 1e-3), so refinement follows the
+posterior mass; ``refine_signal="fisher"`` attributes a failing probe's
+error to the axis whose exact-pipeline gradient (``sampling.grad``) the
+interpolant misses most, instead of the curvature stencil.  Every exact evaluation goes through the
 port's ``run_sweep`` (the grid) or :func:`make_exact_evaluator` (the
 probes) with the build's fault plan, retry policy and store, and on the
 card with ``impl="kernel"`` through the K1 kernel.
 
 Options the port does not have yet raise :class:`EmulatorBuildError`
-naming their ROADMAP item: ``posterior_weight="planck"`` and
-``refine_signal="fisher"`` (they need the samplers, D5), traffic-weighted
-refinement and ``elastic=`` (serving and the elastic sweep, D7).
+naming their ROADMAP item: traffic-weighted refinement and ``elastic=``
+(serving and the elastic sweep, D7).
 """
 from __future__ import annotations
 
@@ -50,7 +54,9 @@ _MIN_REL_GAP = 1e-9
 
 _LN10 = float(np.log(10.0))
 
-_D5 = "ROADMAP D5, sampling"
+#: The fields whose exact gradient the Fisher signal compares.
+_GRAD_FIELDS = ["rho_B_kg_m3", "rho_DM_kg_m3"]
+
 _D7 = "ROADMAP D7, serving and elastic sweeps"
 
 
@@ -71,8 +77,7 @@ class AxisSpec(NamedTuple):
 
 class BuildReport(NamedTuple):
     """Provenance of one build, mirrored into the artifact manifest (the
-    JAX package's fields; the weighted and gradient ones stay at their
-    unweighted values here)."""
+    JAX package's fields)."""
 
     rounds: List[Dict[str, Any]]
     converged: bool
@@ -325,22 +330,105 @@ def _curvature_scores(log_values: Dict[str, np.ndarray], axis_nodes: List[np.nda
 
 
 def _axis_interval_estimates(log_values: Dict[str, np.ndarray], nodes: List[np.ndarray],
-                             scales: List[str], k: int) -> "np.ndarray | None":
+                             scales: List[str], k: int,
+                             weights: "np.ndarray | None" = None) -> "np.ndarray | None":
     """Per-interval estimate ``|f''|·h²/8·ln10`` along axis ``k``, maxed
-    over fields and over the rest of the grid; None for a 2-node axis."""
+    over fields and over the rest of the grid; None for a 2-node axis.
+    ``weights`` (node-level, see :func:`_posterior_node_weights`) multiply
+    the curvature before the max over the rest of the grid."""
     u = np.asarray(axis_coord(np.asarray(nodes[k]), scales[k]))
     n_k = len(u)
     if n_k < 3:
         return None
     du = np.diff(u)
     c = np.zeros(n_k - 2)
+    w_flat = None if weights is None else np.moveaxis(weights, k, 0).reshape(n_k, -1)
     for logv in log_values.values():
         f = np.moveaxis(logv, k, 0).reshape(n_k, -1)
         d1 = np.diff(f, axis=0) / du[:, None]
         d2 = np.abs(2.0 * np.diff(d1, axis=0) / (du[:-1] + du[1:])[:, None])
+        if w_flat is not None:
+            d2 = d2 * w_flat[1:-1]
         c = np.maximum(c, np.max(d2, axis=1))
     c_node = np.concatenate([c[:1], c, c[-1:]])
     return np.maximum(c_node[:-1], c_node[1:]) * du * du / 8.0 * _LN10
+
+
+def _interp_grad_at(log_values: Dict[str, np.ndarray], axis_nodes: List[np.ndarray],
+                    axis_scales: List[str], probe: np.ndarray) -> np.ndarray:
+    """Gradient of the interpolant at one probe, (n_fields, d), in each
+    axis's scale coordinate: the difference of the surface on the two
+    faces of the probe's cell (the query's own interpolation, probe
+    coordinate k pinned to its bracketing nodes) over Δu_k."""
+    import torch
+
+    table = host_table(axis_nodes, axis_scales, log_values)
+    d = len(axis_nodes)
+    fields = list(log_values)
+    out = np.zeros((len(fields), d))
+    for k in range(d):
+        nodes = axis_nodes[k]
+        i = int(np.clip(np.searchsorted(nodes, probe[k], side="right") - 1,
+                        0, len(nodes) - 2))
+        u = axis_coord(np.asarray(nodes[[i, i + 1]]), axis_scales[k])
+        du = float(u[1] - u[0])
+        faces = np.stack([probe, probe])
+        faces[0, k], faces[1, k] = nodes[i], nodes[i + 1]
+        vals = interp_log_fields(torch.from_numpy(np.ascontiguousarray(faces)), table)
+        for f_i, f in enumerate(fields):
+            out[f_i, k] = (float(vals[f][1]) - float(vals[f][0])) / du
+    return out
+
+
+def _fisher_axis_scores(jac_exact: np.ndarray, log_values: Dict[str, np.ndarray],
+                        axis_nodes: List[np.ndarray], axis_scales: List[str],
+                        probe: np.ndarray, fields: List[str]) -> np.ndarray:
+    """Per-axis error attribution at one failing probe:
+    ``|∂log10f/∂u_k (exact) − ∂log10f/∂u_k (interpolant)| · h_k`` maxed
+    over fields, ``h_k`` the probe's bracketing gap in the axis's scale
+    coordinate.  An axis along which the surface is log-linear scores ~0,
+    a 2-node axis included."""
+    d = len(axis_nodes)
+    g_emu = _interp_grad_at(log_values, axis_nodes, axis_scales, probe)
+    order = {f: i for i, f in enumerate(log_values)}
+    scores = np.zeros(d)
+    for k in range(d):
+        nodes = axis_nodes[k]
+        i = int(np.clip(np.searchsorted(nodes, probe[k], side="right") - 1,
+                        0, len(nodes) - 2))
+        u = axis_coord(np.asarray(nodes[[i, i + 1]]), axis_scales[k])
+        h = float(u[1] - u[0])
+        for f_i, f in enumerate(fields):
+            mismatch = abs(float(jac_exact[f_i, k]) - g_emu[order[f], k])
+            scores[k] = max(scores[k], mismatch * h)
+    return scores
+
+
+def _posterior_node_weights(log_values: Dict[str, np.ndarray], floor: float = 1e-3
+                            ) -> Tuple[np.ndarray, float]:
+    """Planck-likelihood weight of every grid node from the surface
+    itself, ``clip(exp(logp − max logp), floor, 1)``; returns (weights,
+    max logp)."""
+    from bdlz_tpu_torch.constants import RHO_CRIT_OVER_H2_KG_M3
+    from bdlz_tpu_torch.sampling.likelihoods import planck_gaussian_logp
+
+    ob = 10.0 ** log_values["rho_B_kg_m3"] / RHO_CRIT_OVER_H2_KG_M3
+    od = 10.0 ** log_values["rho_DM_kg_m3"] / RHO_CRIT_OVER_H2_KG_M3
+    lp = np.asarray(planck_gaussian_logp(ob, od))
+    lp_max = float(lp.max())
+    return np.clip(np.exp(lp - lp_max), floor, 1.0), lp_max
+
+
+def _posterior_probe_weights(exact: Dict[str, np.ndarray], lp_max: float,
+                             floor: float = 1e-3) -> np.ndarray:
+    """The same weight at probe points, from their exact values,
+    normalised by the node grid's max logp."""
+    from bdlz_tpu_torch.constants import RHO_CRIT_OVER_H2_KG_M3
+    from bdlz_tpu_torch.sampling.likelihoods import planck_gaussian_logp
+
+    lp = np.asarray(planck_gaussian_logp(exact["rho_B_kg_m3"] / RHO_CRIT_OVER_H2_KG_M3,
+                                         exact["rho_DM_kg_m3"] / RHO_CRIT_OVER_H2_KG_M3))
+    return np.clip(np.exp(lp - lp_max), floor, 1.0)
 
 
 def _node_to_cell_max(arr: np.ndarray) -> np.ndarray:
@@ -380,9 +468,11 @@ def cell_error_estimates(log_values: Dict[str, np.ndarray], nodes: List[np.ndarr
     return total
 
 
-def _refuse_unported(base, spec, posterior_weight, refine_signal, traffic, elastic):
-    """The JAX package's validation of the weighting knobs, then a loud
-    refusal of the options this package does not have yet."""
+def _resolve_weighting(base, posterior_weight, refine_signal, traffic, elastic):
+    """The JAX package's validation of the weighting knobs (explicit
+    argument, else the config's), then a loud refusal of the options this
+    package does not have yet; returns the resolved (posterior_weight,
+    refine_signal)."""
     from bdlz_tpu_torch.config import VALID_POSTERIOR_WEIGHTS, VALID_REFINE_SIGNALS
 
     pw = posterior_weight if posterior_weight is not None else getattr(
@@ -394,21 +484,14 @@ def _refuse_unported(base, spec, posterior_weight, refine_signal, traffic, elast
     if rs is not None and rs not in VALID_REFINE_SIGNALS:
         raise EmulatorBuildError(
             f"refine_signal={rs!r} is not one of {VALID_REFINE_SIGNALS} (or None = curvature)")
-    if pw is not None:
-        raise EmulatorBuildError(
-            f"posterior_weight={pw!r} needs the Planck likelihood "
-            f"(sampling.likelihoods), not ported to bdlz_tpu_torch yet ({_D5})")
-    if rs == "fisher":
-        raise EmulatorBuildError(
-            "refine_signal='fisher' needs the pipeline's gradient (sampling.grad), "
-            f"not ported to bdlz_tpu_torch yet ({_D5})")
-    if rs is not None or traffic is not None:
+    if rs in ("traffic", "traffic*planck") or traffic is not None:
         raise EmulatorBuildError(
             f"traffic-weighted refinement (refine_signal={rs!r}, traffic=...) needs "
             f"the refine plane, not ported to bdlz_tpu_torch yet ({_D7})")
     if elastic:
         raise EmulatorBuildError(
             f"elastic=... needs the elastic scheduler, not ported to bdlz_tpu_torch yet ({_D7})")
+    return pw, rs
 
 
 def build_emulator(
@@ -459,7 +542,10 @@ def build_emulator(
     as the JAX build resolves it, with ``"kernel"`` (the CUDA kernels) in
     place of ``"pallas"``; ``device`` is the card unless the caller asks
     for the CPU.  ``posterior_weight``, ``refine_signal``, ``traffic`` and
-    ``elastic`` are refused (see the module docstring).
+    ``elastic`` are refused (see the module docstring);
+    ``posterior_weight`` ("planck", or ``Config.posterior_weight``) and
+    ``refine_signal`` ("fisher", or ``Config.refine_signal``) steer the
+    refinement as in the JAX build, and join the artifact identity.
     """
     from bdlz_tpu_torch.backend import resolve_device
     from bdlz_tpu_torch.config import needs_ode_path, static_choices_from_config, validate
@@ -486,7 +572,7 @@ def build_emulator(
     unknown = sorted(set(spec) - set(AXIS_MAP))
     if unknown:
         raise EmulatorBuildError(f"unknown emulator axes {unknown}; valid: {sorted(AXIS_MAP)}")
-    _refuse_unported(base, spec, posterior_weight, refine_signal, traffic, elastic)
+    pw, rs = _resolve_weighting(base, posterior_weight, refine_signal, traffic, elastic)
 
     lz_mode = getattr(static, "lz_mode", "two_channel")
     bounce_fp = None
@@ -536,6 +622,7 @@ def build_emulator(
             max_rounds=max_rounds, max_nodes_per_axis=max_nodes_per_axis, seed=seed,
             n_y=n_y, impl=impl, chunk_size=chunk_size, require_converged=require_converged,
             fault_plan=fault_plan, retry=retry, cache=cache,
+            posterior_weight=pw, refine_signal=rs,
             # sub-builds re-derive the profile from the spec
             lz_profile=None if bounce_fp is not None else lz_profile, bounce=bounce,
             device=dev,
@@ -563,6 +650,27 @@ def build_emulator(
         audit_grid = build_grid(base, {k: a for k, a in zip(axis_names, nodes)}, product=True)
     quad_on, _ = resolve_quad_panel_gl(audit_grid, static, impl, n_y, label="emulator")
     static = static._replace(quad_panel_gl=quad_on)
+
+    # the Fisher-aware signal differentiates the tabulated fast path
+    field_jac = None
+    n_grad_evals = 0
+    if rs == "fisher":
+        if lz_mode != "two_channel":
+            raise EmulatorBuildError(
+                f"refine_signal='fisher' needs the differentiable "
+                f"two-channel path; lz_mode={lz_mode!r} derives P "
+                "host-side per point (no in-graph gradient — a silent "
+                "zero would mis-steer every split)")
+        if impl != "tabulated":
+            raise EmulatorBuildError(
+                f"refine_signal='fisher' differentiates the tabulated "
+                f"fast path; the resolved engine is impl={impl!r} "
+                "(I_p axes and stiff configs keep the curvature signal)")
+        from bdlz_tpu_torch.ops.kjma_table import make_f_table
+        from bdlz_tpu_torch.sampling.grad import make_field_log10_jacobian
+
+        field_jac = make_field_log10_jacobian(base, static, make_f_table(float(base.I_p)),
+                                              axis_names, scales, n_y=n_y, device=dev)
     sweep_kw = dict(chunk_size=chunk_size, n_y=n_y, impl=impl, device=dev,
                     fault_plan=faults, retry=retry_policy, cache=store, lz_profile=lz_profile)
 
@@ -613,10 +721,16 @@ def build_emulator(
         pool_probes = np.concatenate([pool_probes, probes])
         for f in FIELDS:
             pool_exact[f] = np.concatenate([pool_exact[f], exact[f]])
+        # the posterior weights of the current surface, recomputed each round
+        w_nodes, lp_max = (_posterior_node_weights(log_values) if pw is not None
+                           else (None, 0.0))
         if pool_probes.shape[0]:
             errs = _probe_errors(_emulated_fields(nodes, scales, log_values, pool_probes),
                                  pool_exact)
-            failing = np.flatnonzero(errs > refine_tol)
+            score = errs
+            if pw is not None:
+                score = score * _posterior_probe_weights(pool_exact, lp_max)
+            failing = np.flatnonzero(score > refine_tol)
         else:
             errs = np.zeros(0)
             failing = np.zeros(0, dtype=np.int64)
@@ -624,7 +738,7 @@ def build_emulator(
         # estimate-driven split candidates: every interval over the target
         curv: Dict[int, List[Tuple[float, float]]] = {}
         for k in range(len(axis_names)):
-            est = _axis_interval_estimates(log_values, nodes, scales, k)
+            est = _axis_interval_estimates(log_values, nodes, scales, k, weights=w_nodes)
             if est is None:
                 continue
             ax = nodes[k]
@@ -657,8 +771,17 @@ def build_emulator(
         # probe-driven inserts: one midpoint per failing pool probe, on
         # its best-scoring axis with room left
         inserts: Dict[int, set] = {}
-        for p in failing:
-            scores = _curvature_scores(log_values, nodes, scales, pool_probes[p])
+        fail_jacs = None
+        if field_jac is not None and len(failing):
+            # one batched Jacobian per round, failing probes only
+            fail_jacs = field_jac(pool_probes[np.asarray(failing)]).cpu().numpy()
+            n_grad_evals += int(len(failing))
+        for j_f, p in enumerate(failing):
+            if fail_jacs is not None:
+                scores = _fisher_axis_scores(fail_jacs[j_f], log_values, nodes, scales,
+                                             pool_probes[p], _GRAD_FIELDS)
+            else:
+                scores = _curvature_scores(log_values, nodes, scales, pool_probes[p])
             for k in np.argsort(-scores):
                 k = int(k)
                 ax = nodes[k]
@@ -721,9 +844,16 @@ def build_emulator(
                 "environment and rebuild")
     held_errs = _probe_errors(_emulated_fields(nodes, scales, log_values, held), exact)
     max_rel_err = float(held_errs.max())
+    weighted_max_rel_err = None
+    if pw is not None:
+        _w, lp_max_final = _posterior_node_weights(log_values)
+        weighted_max_rel_err = float(
+            (held_errs * _posterior_probe_weights(exact, lp_max_final)).max())
     if not converged:
         msg = (f"emulator refinement exhausted {max_rounds} rounds with "
                f"held-out max rel err {max_rel_err:.3e} vs target {rtol:.1e}")
+        if weighted_max_rel_err is not None:
+            msg += f" (weighted: {weighted_max_rel_err:.3e})"
         if require_converged:
             raise EmulatorBuildError(msg)
         print(f"[emulator] WARNING: {msg}", file=sys.stderr)
@@ -739,6 +869,10 @@ def build_emulator(
         build_seconds=round(seconds, 3),
         axis_nodes={k: len(a) for k, a in zip(axis_names, nodes)},
         quarantined_probes=int(n_quarantined_probes),
+        posterior_weight=pw,
+        weighted_max_rel_err=weighted_max_rel_err,
+        refine_signal=rs,
+        n_grad_evals=int(n_grad_evals),
     )
     manifest = {
         "rtol_target": float(rtol),
@@ -752,13 +886,19 @@ def build_emulator(
         "axis_scales": {k: spec[k].scale for k in axis_names},
         "domain": {k: [float(a[0]), float(a[-1])] for k, a in zip(axis_names, nodes)},
     }
+    if pw is not None:
+        manifest["posterior_weight"] = pw
+        manifest["weighted_max_rel_err"] = weighted_max_rel_err
+    if rs is not None:
+        manifest["refine_signal"] = rs
+        manifest["n_grad_evals"] = int(n_grad_evals)
     artifact = EmulatorArtifact(
         axis_names=tuple(axis_names),
         axis_nodes=tuple(nodes),
         axis_scales=tuple(scales),
         values=values,
-        identity=build_identity(base, static, n_y, impl, lz_profile_fp=lz_fp,
-                                bounce_fp=bounce_fp),
+        identity=build_identity(base, static, n_y, impl, posterior_weight=pw,
+                                lz_profile_fp=lz_fp, refine_signal=rs, bounce_fp=bounce_fp),
         manifest=manifest,
         predicted_error=predicted,
     )

@@ -14,10 +14,12 @@ verifies in the other.  The rules:
 * an armed fault plan does (through the sweep's ``extra`` blocks), so a
   chaos result never collides with a clean one.
 
-The ``kind`` tag is not hashed.  The JAX package's other identities
-(the accuracy-gate reference cache, MCMC segments, bench legs, traffic
+The ``kind`` tag is not hashed.  The MCMC segment identity carries one
+key of the port's own, the random stream, so that a chain directory of one
+package is never resumed by the other.  The JAX package's other
+identities (the accuracy-gate reference cache, bench legs, traffic
 snapshots, source fingerprints) come with the planes that use them
-(ROADMAP D5–D7).
+(ROADMAP D6–D7).
 """
 from __future__ import annotations
 
@@ -173,3 +175,46 @@ def sweep_chunk_identity(
     parts: list = [("json", dict(core))]
     parts.extend(array_part(a) for a in pp_slice_arrays)
     return Identity("sweep_chunk", tuple(parts))
+
+
+#: The random stream of the port's samplers: every draw comes from a CPU
+#: ``torch.Generator`` (Mersenne Twister), whatever device the chain runs on.
+MCMC_RNG_STREAM = "torch-cpu-mt19937"
+
+
+def mcmc_segment_identity(
+    init_walkers,
+    seed: int,
+    n_steps: int,
+    checkpoint_every: int,
+    a: float,
+    thin: int,
+    identity,
+    static=None,
+    sampler=None,
+    rng: Optional[str] = None,
+) -> Identity:
+    """The checkpointed chain's run identity: JAX's payload (the init
+    walkers' SHA-256, seed, lengths, move and thinning, the posterior's
+    ``identity``; with ``static`` the resolved StaticChoices and
+    ``schema: 2``; with ``sampler`` the NUTS spec), and with ``rng`` one
+    key more naming the random stream.  JAX's threefry draws cannot be
+    reproduced in torch, so the port's checkpoints pass
+    :data:`MCMC_RNG_STREAM` and neither package resumes the other's chain."""
+    payload: Dict[str, Any] = {
+        "init": hashlib.sha256(np.ascontiguousarray(init_walkers).tobytes()).hexdigest(),
+        "seed": int(seed),
+        "n_steps": int(n_steps),
+        "checkpoint_every": int(checkpoint_every),
+        "a": float(a),
+        "thin": int(thin),
+        "identity": identity,
+    }
+    if static is not None:
+        payload["schema"] = 2
+        payload["static"] = static_payload(static)
+    if sampler is not None:
+        payload["sampler"] = sampler
+    if rng is not None:
+        payload["rng"] = str(rng)
+    return Identity("mcmc_segment", (("json", payload),))

@@ -11,6 +11,9 @@
   rounds, exact-evaluation count and identity, values ≤1e-12 rel
   (measured ≤4.5e-16); JAX loads what the port saved.
 * The exact evaluator quarantines a dead probe chunk as JAX's does.
+* The Planck-weighted and the Fisher-steered builds of the same box
+  match JAX's: nodes, rounds, gradient evaluations and identity equal,
+  values ≤1e-12 rel.
 * Options the port does not have yet name their ROADMAP item; without a
   card nothing runs unless the CPU is asked for.
 
@@ -176,6 +179,40 @@ def test_port_build_matches_jax_build_and_jax_loads_it(tmp_path, jit_warmup):
         np.testing.assert_array_equal(loaded.values[f], t_art.values[f])
 
 
+@pytest.mark.parametrize("knob,value", [("posterior_weight", "planck"),
+                                        ("refine_signal", "fisher")])
+def test_weighted_and_fisher_builds_match_jax(knob, value, jit_warmup):
+    """The tiny box with the Planck weighting or the Fisher signal, built
+    by both packages after the JAX warm-up: the same nodes, rounds,
+    failing counts, gradient evaluations and identity; values ≤1e-12."""
+    j_spec = {k: je.AxisSpec(*v) for k, v in TINY.items()}
+    t_spec = {k: te.AxisSpec(*v) for k, v in TINY.items()}
+    jbase, tbase = jc.config_from_dict(ARCHIVED), tc.config_from_dict(ARCHIVED)
+    kw = dict(TINY_KW, require_converged=False, **{knob: value})
+    jit_warmup(je.build_emulator, jbase, j_spec, rtol=1e-1, n_probe=2, n_holdout=4,
+               max_rounds=0, n_y=400, chunk_size=64)
+    j_art, j_rep = je.build_emulator(jbase, j_spec, **kw)
+    t_art, t_rep = te.build_emulator(tbase, t_spec, device="cpu", **kw)
+    for a, b in zip(t_art.axis_nodes, j_art.axis_nodes):
+        np.testing.assert_array_equal(a, b)
+    assert [r["n_failing"] for r in t_rep.rounds] == [r["n_failing"] for r in j_rep.rounds]
+    assert (t_rep.n_exact_evals, t_rep.n_grad_evals, t_rep.converged) == (
+        j_rep.n_exact_evals, j_rep.n_grad_evals, j_rep.converged)
+    assert (t_rep.posterior_weight, t_rep.refine_signal) == (
+        j_rep.posterior_weight, j_rep.refine_signal)
+    assert t_art.identity == j_art.identity and t_art.identity[knob] == value
+    assert t_art.manifest[knob] == j_art.manifest[knob] == value
+    rel = max(float(np.max(np.abs(t_art.values[f] / j_art.values[f] - 1.0)))
+              for f in j_art.values)
+    w_err = (None if j_rep.weighted_max_rel_err is None
+             else abs(t_rep.weighted_max_rel_err - j_rep.weighted_max_rel_err))
+    print(f"RESIDUAL emulator {knob}={value} build values max_rel={rel:.3e} "
+          f"rounds={len(t_rep.rounds)} grad_evals={t_rep.n_grad_evals} "
+          f"weighted held-out abs diff={w_err}")
+    assert rel <= BUILD_RTOL
+    assert w_err is None or w_err <= 1e-10
+
+
 def test_exact_evaluator_quarantines_a_dead_probe_chunk_like_jax():
     jbase, tbase = jc.config_from_dict(ARCHIVED), tc.config_from_dict(ARCHIVED)
     jst = jc.static_choices_from_config(jbase)._replace(quad_panel_gl=False)
@@ -201,10 +238,13 @@ def test_exact_evaluator_quarantines_a_dead_probe_chunk_like_jax():
         assert np.max(np.abs(got[f][ok] / ref[f][ok] - 1.0)) <= BUILD_RTOL
 
 
+# the Planck weighting and the Fisher signal build now (see
+# test_weighted_and_fisher_builds_match_jax); beside a D7 option they
+# still name D7
 REFUSED = [
-    ({"posterior_weight": "planck"}, {}, "ROADMAP D5"),
-    ({}, {"posterior_weight": "planck"}, "ROADMAP D5"),
-    ({"refine_signal": "fisher"}, {}, "ROADMAP D5"),
+    ({"posterior_weight": "planck", "elastic": 2}, {}, "ROADMAP D7"),
+    ({"traffic": object()}, {"posterior_weight": "planck"}, "ROADMAP D7"),
+    ({"refine_signal": "traffic"}, {"refine_signal": "fisher"}, "ROADMAP D7"),
     ({"refine_signal": "traffic"}, {}, "ROADMAP D7"),
     ({}, {"refine_signal": "traffic*planck"}, "ROADMAP D7"),
     ({"traffic": object()}, {}, "ROADMAP D7"),

@@ -360,7 +360,6 @@ def main(argv=None) -> None:
                     if args.lz_profile else {}
                 ),
             },
-            device=dev,
         )
         full_chain, full_logp = run.chain, run.logp_chain
         acceptance = run.acceptance

@@ -80,13 +80,6 @@ def _run_hash(init_walkers, seed: int, n_steps: int, checkpoint_every: int, a: f
     ).digest(16)
 
 
-def segment_generator(seed: int, segment: int) -> torch.Generator:
-    """The generator of segment ``segment`` of the chain seeded ``seed``."""
-    from bdlz_tpu_torch.sampling.ensemble import make_generator
-
-    return make_generator(seed, segment)
-
-
 def run_ensemble_checkpointed(
     seed: int,
     logp_fn: Callable,
@@ -102,7 +95,6 @@ def run_ensemble_checkpointed(
     static=None,
     sampler: str = "stretch",
     sampler_opts=None,
-    device=None,
 ) -> CheckpointedRun:
     """Run (or resume) a checkpointed chain in ``out_dir``.
 
@@ -115,9 +107,9 @@ def run_ensemble_checkpointed(
     spec joins the identity too: changing any of them invalidates resume
     loudly.  NUTS warms up inside segment 0 and persists the adapted
     (ε, mass) in every segment file; later segments are continuations.
-    ``device`` defaults to the logp's.
+    The chain runs on the logp's ``.device`` (the CPU without one).
     """
-    from bdlz_tpu_torch.sampling.ensemble import run_ensemble
+    from bdlz_tpu_torch.sampling.ensemble import _device_of, make_generator, run_ensemble
     from bdlz_tpu_torch.utils.io import atomic_savez, atomic_write_json
 
     if mesh is not None:
@@ -147,8 +139,7 @@ def run_ensemble_checkpointed(
                 "move's only knob is 'a')"
             )
         sampler_payload = None
-    if device is None:
-        device = getattr(logp_fn, "device", None) or "cpu"
+    device = _device_of(logp_fn, None)
 
     init_walkers = np.asarray(init_walkers, dtype=np.float64)
     W, D = init_walkers.shape
@@ -233,7 +224,7 @@ def run_ensemble_checkpointed(
         keep_hi = min((k + 1) * seg_keep, n_keep_total)
         steps_k = (keep_hi - keep_lo) * thin
         kept_k = keep_hi - keep_lo
-        gen = segment_generator(seed, k)
+        gen = make_generator(seed, k)
         nuts_extra = {}
         if sampler == "nuts":
             from bdlz_tpu_torch.sampling.nuts import make_nuts_draw, run_nuts
@@ -247,7 +238,7 @@ def run_ensemble_checkpointed(
                 target_accept=float(nuts_opts["target_accept"]),
                 mass_matrix=str(nuts_opts["mass_matrix"]),
                 max_tree_depth=int(nuts_opts["max_tree_depth"]),
-                thin=thin, generator=gen, device=device, _step=nuts_step,
+                thin=thin, generator=gen, _step=nuts_step,
             )
             if nuts_state is None:
                 # segment 0 owns the warmup
@@ -280,7 +271,7 @@ def run_ensemble_checkpointed(
             seg_chain, seg_logp = run.chain, run.logp_chain
         else:
             run = run_ensemble(logp_fn, walkers, steps_k, generator=gen, a=a, thin=thin,
-                               init_logp=logp0, device=device)
+                               init_logp=logp0)
             walkers, logp0 = run.final.walkers, run.final.logp
             seg_accept = int(run.final.n_accept)
             n_accept += seg_accept

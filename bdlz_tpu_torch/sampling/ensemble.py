@@ -71,6 +71,15 @@ def draw_stretch(generator: torch.Generator, W: int, device) -> "tuple[HalfDraws
                  for h in range(2))
 
 
+def _device_of(logp_fn, init) -> torch.device:
+    """Where a sampler runs: the logp's ``.device``, else the init
+    tensor's device, else the CPU."""
+    device = getattr(logp_fn, "device", None)
+    if device is None:
+        device = init.device if isinstance(init, torch.Tensor) else "cpu"
+    return torch.device(device)
+
+
 def _half_update(active, active_logp, other, logp_fn, a: float, d: HalfDraws):
     """Stretch-move update of ``active`` (W/2, D) against ``other``."""
     D = active.shape[1]
@@ -111,13 +120,12 @@ def run_ensemble(
     thin: int = 1,
     init_logp=None,
     draws: Optional[Callable[[int], "Sequence[HalfDraws]"]] = None,
-    device=None,
 ) -> EnsembleRun:
     """Run the ensemble for ``n_steps``, keeping every ``thin``-th state.
 
     ``logp_fn`` is batched, (n, D) → (n,).  ``W`` must be even and
-    ≥ 2D+2.  The walkers live on ``device`` (default: the logp's
-    ``.device``, else the init tensor's).  Draws come from ``generator``
+    ≥ 2D+2.  The walkers live on the logp's ``.device``, else on the
+    init tensor's device (the CPU for an array).  Draws come from ``generator``
     (a seeded CPU ``torch.Generator``), or from ``draws(step) ->
     (half_1, half_2)`` when given.  ``init_logp`` carries a resumed
     chain's (W,) log-probabilities instead of re-evaluating them.  No
@@ -125,10 +133,7 @@ def run_ensemble(
     """
     if (generator is None) == (draws is None):
         raise ValueError("pass exactly one of generator= and draws=")
-    if device is None:
-        device = getattr(logp_fn, "device", None)
-    if device is None:
-        device = init_walkers.device if isinstance(init_walkers, torch.Tensor) else "cpu"
+    device = _device_of(logp_fn, init_walkers)
     walkers = torch.as_tensor(init_walkers, dtype=F64, device=device)
     W, D = walkers.shape
     if W % 2:

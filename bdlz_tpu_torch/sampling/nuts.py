@@ -405,12 +405,12 @@ def run_nuts(
     step_size: Optional[float] = None,
     inv_mass=None,
     thin: int = 1,
-    device=None,
     _step: Optional[Callable] = None,
 ) -> NUTSRun:
     """Run multinomial NUTS from ``init`` (C, D) for ``n_steps`` draws.
 
-    ``logp_fn`` is batched, (C, D) → (C,), and differentiable in torch.
+    ``logp_fn`` is batched, (C, D) → (C,), and differentiable in torch;
+    the chains run on its ``.device`` (else the init tensor's).
     Randomness comes from ``generator`` (a seeded CPU
     ``torch.Generator``) or a ``draws`` source (:class:`TorchNutsDraws`'s
     interface).  With ``step_size=None`` the run warms up first
@@ -432,11 +432,9 @@ def run_nuts(
         raise ValueError("pass exactly one of generator= and draws=")
     if draws is None:
         draws = TorchNutsDraws(generator)
-    if device is None:
-        device = getattr(logp_fn, "device", None)
-    if device is None:
-        device = init.device if isinstance(init, torch.Tensor) else "cpu"
-    init = torch.as_tensor(init, dtype=F64, device=device)
+    from bdlz_tpu_torch.sampling.ensemble import _device_of
+
+    init = torch.as_tensor(init, dtype=F64, device=_device_of(logp_fn, init))
     if init.ndim != 2:
         raise ValueError(f"init must be (n_chains, D), got {tuple(init.shape)}")
     C, D = init.shape

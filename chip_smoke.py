@@ -26,15 +26,21 @@ a NaN point, the chunk store cold and warm) and the emulator
 (``emulator_path``: the bench's 4-D box built through K1 and checked
 against the plain engine, saved and reloaded, 65,536 queries timed on
 the card against the CPU, a spot check against exact K1 points, a warm
-rebuild through one store, and the seam-split bundle).
+rebuild through one store, and the seam-split bundle).  Last the sampling
+layer (``sampling_path``, no hand kernel on it): the stretch sampler at the
+MCMC CLI's defaults over (m_chi, P) of the archived config, NUTS from its
+walkers, a stretch run backed by the emulator_path artifact against its
+exact twin, the card's logp, gradient and chain against the CPU's,
+finite-difference parity, a checkpointed NUTS chain cut and resumed, and
+``python -m bdlz_tpu_torch.mcmc_cli`` in a subprocess.
 
 Every phase prints one JSON line; the card's name and power limit as
 ``nvidia-smi`` reports them and a ``kernels`` line come before the last
 line, which is ``{"ok": true, "device": {...}}``.  Any failed check ends
 the script with a non-zero exit and no ``ok`` line; so does a machine
 without a CUDA device, or a directory without the port.  Imports nothing
-of JAX or of the JAX package.  ``--only robust_path,emulator_path`` runs
-just those phases (after the build) and prints no ``ok`` line.
+of JAX or of the JAX package.  ``--only robust_path,emulator_path,sampling_path``
+runs just those phases (after the build) and prints no ``ok`` line.
 """
 from __future__ import annotations
 
@@ -1061,12 +1067,13 @@ N_QUERIES, N_SPOT = 65536, 2048
 EMU_TABLE_RTOL, QUERY_RTOL, BAND_ATOL = 1e-10, 1e-14, 1e-12
 
 
-def phase_emulator_path(dev) -> None:
+def phase_emulator_path(dev):
     """The emulator: the bench's 4-D box built through K1, 512 of its
     nodes against the plain tabulated engine on the CPU, save and reload,
     65,536 queries on the card (timed, against the CPU query), a spot
     check against an exact K1 sweep, the warm rebuild of the sweep-cache
-    box through one store, and the seam-split bundle."""
+    box through one store, and the seam-split bundle.  Returns the 4-D
+    artifact."""
     from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
     from bdlz_tpu_torch.emulator import (
         FIELDS,
@@ -1201,11 +1208,242 @@ def phase_emulator_path(dev) -> None:
           "seam": {"seconds": seam_s, "domains": len(bundle.domains), "band": bundle.seam_band,
                    "band_vs_cpu_abs": band_err, "converged": bool(srep.converged),
                    "max_rel_err": srep.max_rel_err, "n_exact_evals": srep.n_exact_evals}})
+    return art
+
+
+# The sampling cell: the archived config with (m_chi, P) sampled over the
+# MCMC CLI docstring's box, at the CLI's defaults (64 walkers, 500 steps,
+# burn 100, n_y 2000, a 16384-entry table); NUTS with 16 chains at depth 8,
+# started from the stretch run's walkers.  NUTS is host-bound on the card
+# (~28 ms per batched leaf, PERF.md): to keep the phase near two minutes its
+# draws are cut from 300 warmup + 200 to 150 + 100; no width is cut.
+SAMPLE_BOUNDS = {"m_chi_GeV": (0.05, 20.0), "P_chi_to_B": (1e-4, 1.0)}
+EMU_SAMPLE_BOUNDS = {"m_chi_GeV": (0.1, 10.0), "source_shape_sigma_y": (3.0, 18.0)}
+WALKERS, STEPS, BURN = 64, 500, 100
+NUTS_CHAINS, NUTS_WARMUP, NUTS_DRAWS, NUTS_DEPTH = 16, 150, 100, 8
+SAMPLE_CARD_CPU_RTOL, SAMPLE_CHAIN_ATOL, FD_PARITY_TOL = 1e-12, 1e-10, 1e-5
+
+
+def _kernel_count(prof) -> tuple:
+    """(kernels, copies) launched on the device under a profiler run."""
+    from torch.autograd import DeviceType
+
+    kernels = copies = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += e.count
+        else:
+            kernels += e.count
+    return kernels, copies
+
+
+def phase_sampling_path(dev, artifact=None) -> None:
+    """The sampling layer on the card (see ``SAMPLE_BOUNDS``); ``artifact``
+    is emulator_path's 4-D surface (built here when run alone).  No hand
+    kernel is on this path: the launch counts read around each run are 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.mcmc_cli import initial_walkers
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table
+    from bdlz_tpu_torch.sampling import (
+        bulk_ess,
+        gradient_parity,
+        integrated_autocorr_time,
+        make_logp_value_and_grad,
+        make_pipeline_logprob,
+        run_ensemble,
+        run_ensemble_checkpointed,
+        run_nuts,
+        split_rhat,
+    )
+    from bdlz_tpu_torch.sampling.ensemble import make_generator
+    from bdlz_tpu_torch.sampling.nuts import TorchNutsDraws, make_nuts_draw
+
+    t0 = time.perf_counter()
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    table = make_f_table(base.I_p, n=TABLE_N)
+
+    def logp_on(device, bounds=SAMPLE_BOUNDS, **kw):
+        return make_pipeline_logprob(base, static, table, param_keys=tuple(bounds),
+                                     bounds=bounds, n_y=2000, device=device, **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, counts = _launches_around(fn)
+        torch.cuda.synchronize()
+        check(not any(counts.values()), f"no hand kernel on the sampling path, got {counts}")
+        return out, time.perf_counter() - t1
+
+    # ---- the stretch sampler at the CLI's defaults -----------------------
+    logp = logp_on(dev)
+    init = initial_walkers(SAMPLE_BOUNDS, WALKERS, 0)
+    run, stretch_s = timed(lambda: run_ensemble(logp, init, STEPS, generator=make_generator(1)))
+    chain = run.chain.cpu().numpy()
+    lpc = run.logp_chain.cpu().numpy()
+    check(bool(np.isfinite(chain).all()), "stretch chain finite")
+    post = chain[BURN:]
+    map_logp = float(lpc[BURN:].max())
+    check(0.05 < run.acceptance < 0.95 and map_logp > -5.0,
+          f"stretch acceptance {run.acceptance:.3f}, MAP logp {map_logp:.3f}")
+    stretch = {"walkers": WALKERS, "steps": STEPS, "seconds": stretch_s,
+               "steps_per_sec": STEPS / stretch_s,
+               "pipeline_evals_per_sec": WALKERS * (STEPS + 1) / stretch_s,
+               "acceptance": run.acceptance, "map_logp": map_logp,
+               "posterior_mean": post.reshape(-1, 2).mean(axis=0).tolist(),
+               "posterior_std": post.reshape(-1, 2).std(axis=0).tolist(),
+               "tau_int": integrated_autocorr_time(post).tolist(),
+               "split_rhat": split_rhat(post).tolist(),
+               "bulk_ess": bulk_ess(post).tolist()}
+    stretch["bulk_ess_per_eval"] = min(stretch["bulk_ess"]) / (WALKERS * (STEPS + 1))
+
+    # ---- NUTS from the stretch walkers -----------------------------------
+    start = run.final.walkers[:NUTS_CHAINS]
+    nuts, nuts_s = timed(lambda: run_nuts(logp, start, NUTS_DRAWS, generator=make_generator(2),
+                                          n_warmup=NUTS_WARMUP, max_tree_depth=NUTS_DEPTH))
+    check(bool(np.isfinite(nuts.chain).all()), "NUTS chain finite")
+    nuts_ess = bulk_ess(nuts.chain)
+    # eager kernels per leaf: one adapted transition under the profiler
+    step = make_nuts_draw(logp, "diag", NUTS_DEPTH)
+    z = torch.as_tensor(nuts.chain[-1], dtype=torch.float64, device=dev)
+    lp0, g0 = step.value_and_grad(z)
+    im = np.asarray(nuts.inv_mass)
+    draws = TorchNutsDraws(make_generator(3))
+    torch.cuda.synchronize()
+    n_leaf = 0
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in range(1):
+            z, lp0, g0, st = step(z, lp0, g0, nuts.step_size, im, 1.0 / np.sqrt(im),
+                                  draws.transition("sample", t, NUTS_CHAINS, 2, NUTS_DEPTH, dev))
+            n_leaf += int(st[2].max())   # leaves the batch evaluated
+        torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t1
+    kernels, copies = _kernel_count(prof)
+    nuts_out = {"chains": NUTS_CHAINS, "n_warmup": NUTS_WARMUP, "draws": NUTS_DRAWS,
+                "max_tree_depth": NUTS_DEPTH, "seconds": nuts_s,
+                "n_leapfrog": nuts.n_leapfrog, "n_logp_evals": nuts.n_logp_evals,
+                "leapfrogs_per_sec": nuts.n_leapfrog / nuts_s,
+                "mean_tree_depth": nuts.mean_tree_depth, "step_size": nuts.step_size,
+                "inv_mass": im.tolist(), "acceptance": nuts.acceptance,
+                "n_divergent": nuts.n_divergent, "bulk_ess": nuts_ess.tolist(),
+                "bulk_ess_per_eval": float(nuts_ess.min()) / nuts.n_logp_evals,
+                "posterior_mean": nuts.chain.reshape(-1, 2).mean(axis=0).tolist(),
+                "posterior_std": nuts.chain.reshape(-1, 2).std(axis=0).tolist(),
+                "profiled": {"transitions": 1, "batched_leaves": n_leaf,
+                             "device_kernels": kernels, "copies": copies,
+                             "kernels_per_leaf": kernels / max(n_leaf, 1),
+                             "host_seconds": prof_s,
+                             "device_busy_ms": sum(_device_ms(prof).values()),
+                             "ms_per_leaf": 1e3 * prof_s / max(n_leaf, 1)}}
+
+    # ---- the emulator-backed stretch run against its exact twin -------------
+    if artifact is None:
+        from bdlz_tpu_torch.emulator import AxisSpec, build_emulator
+
+        artifact, _ = build_emulator(base, {k: AxisSpec(*v) for k, v in EMU_SPEC.items()},
+                                     static, rtol=1e-4, n_probe=48, max_rounds=25, n_y=N_Y,
+                                     chunk_size=N_POINTS, seed=0, impl="kernel", device=dev)
+    emu_init = initial_walkers(EMU_SAMPLE_BOUNDS, WALKERS, 0)
+    emu_logp = logp_on(dev, EMU_SAMPLE_BOUNDS, emulator=artifact)
+    twin_logp = logp_on(dev, EMU_SAMPLE_BOUNDS)
+    emu_run, emu_s = timed(lambda: run_ensemble(emu_logp, emu_init, STEPS,
+                                                generator=make_generator(1)))
+    check(bool(torch.isfinite(emu_run.chain).all()), "emulator-backed chain finite")
+    twin_run, twin_s = timed(lambda: run_ensemble(twin_logp, emu_init, STEPS,
+                                                  generator=make_generator(1)))
+    fin = emu_run.final.walkers
+    emulator = {"params": list(EMU_SAMPLE_BOUNDS), "seconds": emu_s,
+                "steps_per_sec": STEPS / emu_s, "exact_twin_seconds": twin_s,
+                "exact_twin_steps_per_sec": STEPS / twin_s, "speedup": twin_s / emu_s,
+                "acceptance": emu_run.acceptance, "twin_acceptance": twin_run.acceptance,
+                "final_walkers_logp_gap_max_abs":
+                    float((emu_logp(fin) - twin_logp(fin)).abs().max()),
+                "artifact_grid": [len(n) for n in artifact.axis_nodes]}
+
+    # ---- the card against the CPU, and finite differences on the card -------
+    cpu_logp = logp_on("cpu")
+    lp_c, g_c = make_logp_value_and_grad(logp)(init)
+    lp_h, g_h = make_logp_value_and_grad(cpu_logp)(init)
+    lp_rel, g_rel = _max_rel(lp_c.cpu(), lp_h), _max_rel(g_c.cpu(), g_h)
+    check(lp_rel <= SAMPLE_CARD_CPU_RTOL and g_rel <= SAMPLE_CARD_CPU_RTOL,
+          f"card vs CPU logp {lp_rel:.3e}, gradient {g_rel:.3e} <= {SAMPLE_CARD_CPU_RTOL:g}")
+    n_cmp = 50
+    cpu_run = run_ensemble(cpu_logp, init, n_cmp, generator=make_generator(1))
+    card_run = run_ensemble(logp, init, n_cmp, generator=make_generator(1))
+    chain_abs = float(np.max(np.abs(card_run.chain.cpu().numpy() - cpu_run.chain.numpy())))
+    same_accepts = int(card_run.final.n_accept) == int(cpu_run.final.n_accept)
+    check(chain_abs <= SAMPLE_CHAIN_ATOL and same_accepts,
+          f"card vs CPU stretch chain {chain_abs:.3e} <= {SAMPLE_CHAIN_ATOL:g}, same accepts")
+    fd = gradient_parity(logp, np.array([0.97, 0.15]))
+    check(fd["max_rel_err"] <= FD_PARITY_TOL, f"FD parity on the card {fd['max_rel_err']:.3e}")
+
+    # ---- a checkpointed NUTS chain cut after segment 1, then resumed --------
+    work = tempfile.mkdtemp(prefix="bdlz_mcmc_")
+    try:
+        ckw = dict(n_steps=16, checkpoint_every=8, identity={"cell": "sampling_path"},
+                   sampler="nuts", sampler_opts={"n_warmup": 20})
+        start_np = start.cpu().numpy()
+        t1 = time.perf_counter()
+        full = run_ensemble_checkpointed(7, logp, start_np, out_dir=os.path.join(work, "a"),
+                                         **ckw)
+        ck_s = time.perf_counter() - t1
+        shutil.copytree(os.path.join(work, "a"), os.path.join(work, "b"))
+        os.remove(os.path.join(work, "b", "seg_00001.npz"))
+        with open(os.path.join(work, "b", "manifest.json")) as f:
+            manifest = json.load(f)
+        manifest["done"] = [0]
+        with open(os.path.join(work, "b", "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        resumed = run_ensemble_checkpointed(7, logp, start_np, out_dir=os.path.join(work, "b"),
+                                            **ckw)
+        bitwise = (resumed.resumed_segments == 1 and np.array_equal(resumed.chain, full.chain)
+                   and resumed.step_size == full.step_size
+                   and resumed.n_logp_evals == full.n_logp_evals)
+        check(bitwise, "resumed NUTS chain bitwise the uninterrupted one")
+
+        # ---- the CLI in a subprocess: the in-process chain, bit for bit ----
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        with open(os.path.join(work, "cfg.json"), "w") as f:
+            json.dump(ARCHIVED, f)
+        argv = [sys.executable, "-m", "bdlz_tpu_torch.mcmc_cli", "--config", "cfg.json",
+                "--param", "m_chi_GeV=0.05:20", "--param", "P_chi_to_B=1e-4:1",
+                "--out", "chain.npz"]
+        t1 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=work, env=env, capture_output=True, text=True,
+                              timeout=300)
+        cli_s = time.perf_counter() - t1
+        check(proc.returncode == 0, f"mcmc_cli exit {proc.returncode}: {proc.stderr[-2000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        with np.load(os.path.join(work, "chain.npz")) as data:
+            cli_same = bool(np.array_equal(data["chain"], chain))
+        check(cli_same and summary["walkers"] == WALKERS,
+              "mcmc_cli chain bit for bit the in-process run's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "sampling_path", "seconds": time.perf_counter() - t0,
+          "kernel_launches": 0, "bounds": SAMPLE_BOUNDS, "n_y": 2000, "table_n": TABLE_N,
+          "stretch": stretch, "nuts": nuts_out, "emulator": emulator,
+          "card_vs_cpu": {"walkers": WALKERS, "logp_max_rel": lp_rel, "grad_max_rel": g_rel,
+                          "stretch_steps": n_cmp, "chain_max_abs": chain_abs,
+                          "same_accepts": same_accepts},
+          "fd_parity": {"point": [0.97, 0.15], "max_rel_err": fd["max_rel_err"]},
+          "checkpoint": {"segments": full.segments, "resumed_segments": resumed.resumed_segments,
+                         "bitwise": bitwise, "seconds": ck_s},
+          "cli": {"wall_seconds": cli_s, "acceptance": summary["acceptance"],
+                  "map_logp": summary["map_logp"], "chain_equals_in_process": cli_same}})
 
 
 #: Phases that can run on their own (``--only``); such a run prints no
 #: kernels line and no ok line.
-STANDALONE = {"robust_path": phase_robust_path, "emulator_path": phase_emulator_path}
+STANDALONE = {"robust_path": phase_robust_path, "emulator_path": phase_emulator_path,
+              "sampling_path": phase_sampling_path}
 
 
 def main(argv=None) -> int:
@@ -1244,7 +1482,8 @@ def main(argv=None) -> int:
     bounce = phase_bounce_path(dev)
     phase_lz_path(dev, bounce.pop("solution"), sweep_pps)
     phase_robust_path(dev)
-    phase_emulator_path(dev)
+    artifact = phase_emulator_path(dev)
+    phase_sampling_path(dev, artifact)
     from bdlz_tpu_torch.ops import bounce_kernel as bk
 
     emit({"kernels": [{

@@ -333,7 +333,7 @@ def test_checkpointed_nuts_resumes_bitwise(tmp_path):
 
     init = 1.0 + 0.1 * np.random.default_rng(3).normal(size=(3, 2))
     kw = dict(n_steps=20, checkpoint_every=10, identity={"c": 1}, sampler="nuts",
-              sampler_opts={"n_warmup": 24}, device="cpu")
+              sampler_opts={"n_warmup": 24})
     full = run_ensemble_checkpointed(5, logp, init, out_dir=str(tmp_path / "full"), **kw)
     assert full.sampler == "nuts" and full.chain.shape == (20, 3, 2)
     assert full.segments == 2 and full.resumed_segments == 0

@@ -407,7 +407,7 @@ def test_checkpointed_stretch_chain_resumes_bitwise(tmp_path, capsys):
 
     _, logp = _gauss_logps()
     init = 1.0 + 0.1 * np.random.default_rng(2).normal(size=(8, 2))
-    kw = dict(n_steps=30, checkpoint_every=10, identity={"c": 1}, device=CPU)
+    kw = dict(n_steps=30, checkpoint_every=10, identity={"c": 1})
     full = ts.run_ensemble_checkpointed(5, logp, init, out_dir=str(tmp_path / "full"), **kw)
     assert full.segments == 3 and full.resumed_segments == 0 and full.chain.shape == (30, 8, 2)
     again = ts.run_ensemble_checkpointed(5, logp, init, out_dir=str(tmp_path / "full"), **kw)
@@ -433,7 +433,7 @@ def test_the_other_packages_chain_directory_is_refused(writer, tmp_path, capsys)
     out = str(tmp_path / "chain")
     writers = {"jax": lambda: js.run_ensemble_checkpointed(5, j_logp, init, out_dir=out, **kw),
                "port": lambda: ts.run_ensemble_checkpointed(5, t_logp, init, out_dir=out,
-                                                            device=CPU, **kw)}
+                                                            **kw)}
     writers[writer]()
     capsys.readouterr()
     read = writers["port" if writer == "jax" else "jax"]()

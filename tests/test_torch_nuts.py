@@ -17,6 +17,8 @@ chains.  Fed the same draws, the two transitions agree:
 
 ``pytest -s`` prints the ``RESIDUAL`` lines.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -40,8 +42,10 @@ SIGMA = np.array([0.7, 1.3, 0.1])
 COV = np.array([[1.0, 0.6, 0.1], [0.6, 2.0, 0.3], [0.1, 0.3, 0.5]])
 
 
+@functools.lru_cache(maxsize=None)
 def _chain_draws_fn(md, D):
-    """jit(vmap(chain key -> the draws of one transition)), JAX's key tree."""
+    """jit(vmap(chain key -> the draws of one transition)), JAX's key tree;
+    one compile per (depth, dimension) for the whole file."""
     L = 1 << (md - 1)
 
     def one(key):

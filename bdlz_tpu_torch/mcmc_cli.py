@@ -339,7 +339,7 @@ def main(argv=None) -> None:
         run = run_ensemble_checkpointed(
             args.seed + 1, logp, init, n_steps=args.steps,
             out_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
-            static=static_resolved, sampler=sampler,
+            static=static_resolved, sampler=sampler, device=dev,
             sampler_opts=(
                 {"mass_matrix": mass_matrix, "target_accept": float(target_accept),
                  "max_tree_depth": int(max_tree_depth), "n_warmup": int(nuts_warmup)}
@@ -375,7 +375,7 @@ def main(argv=None) -> None:
         run = run_nuts(
             logp, init, args.steps, generator=make_generator(args.seed + 1),
             n_warmup=int(nuts_warmup), target_accept=float(target_accept),
-            mass_matrix=mass_matrix, max_tree_depth=int(max_tree_depth),
+            mass_matrix=mass_matrix, max_tree_depth=int(max_tree_depth), device=dev,
         )
         full_chain, full_logp = run.chain, run.logp_chain
         acceptance = float(run.acceptance)
@@ -386,7 +386,8 @@ def main(argv=None) -> None:
             "mean_tree_depth": round(float(run.mean_tree_depth), 3),
         }
     else:
-        run = run_ensemble(logp, init, args.steps, generator=make_generator(args.seed + 1))
+        run = run_ensemble(logp, init, args.steps, generator=make_generator(args.seed + 1),
+                           device=dev)
         full_chain = run.chain.cpu().numpy()
         full_logp = run.logp_chain.cpu().numpy()
         acceptance = float(run.acceptance)

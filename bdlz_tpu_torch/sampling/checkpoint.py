@@ -95,6 +95,7 @@ def run_ensemble_checkpointed(
     static=None,
     sampler: str = "stretch",
     sampler_opts=None,
+    device=None,
 ) -> CheckpointedRun:
     """Run (or resume) a checkpointed chain in ``out_dir``.
 
@@ -107,9 +108,10 @@ def run_ensemble_checkpointed(
     spec joins the identity too: changing any of them invalidates resume
     loudly.  NUTS warms up inside segment 0 and persists the adapted
     (ε, mass) in every segment file; later segments are continuations.
-    The chain runs on the logp's ``.device`` (the CPU without one).
+    The chain runs on ``device``, else on the logp's ``.device``, else on
+    the card (no card raises; pass ``device="cpu"`` for the CPU).
     """
-    from bdlz_tpu_torch.sampling.ensemble import _device_of, make_generator, run_ensemble
+    from bdlz_tpu_torch.sampling.ensemble import _sampler_device, make_generator, run_ensemble
     from bdlz_tpu_torch.utils.io import atomic_savez, atomic_write_json
 
     if mesh is not None:
@@ -139,7 +141,7 @@ def run_ensemble_checkpointed(
                 "move's only knob is 'a')"
             )
         sampler_payload = None
-    device = _device_of(logp_fn, None)
+    device = _sampler_device(logp_fn, device)
 
     init_walkers = np.asarray(init_walkers, dtype=np.float64)
     W, D = init_walkers.shape
@@ -201,7 +203,6 @@ def run_ensemble_checkpointed(
     manifest.setdefault("hash", h)
     manifest.setdefault("n_segments", n_segs)
 
-    nuts_step = None
     nuts_state = None
     if state is None:
         walkers = torch.as_tensor(init_walkers, dtype=F64, device=device)
@@ -227,18 +228,13 @@ def run_ensemble_checkpointed(
         gen = make_generator(seed, k)
         nuts_extra = {}
         if sampler == "nuts":
-            from bdlz_tpu_torch.sampling.nuts import make_nuts_draw, run_nuts
+            from bdlz_tpu_torch.sampling.nuts import run_nuts
 
-            if nuts_step is None:
-                # one transition for every segment (ε and the mass are its
-                # arguments)
-                nuts_step = make_nuts_draw(logp_fn, str(nuts_opts["mass_matrix"]),
-                                           int(nuts_opts["max_tree_depth"]))
             common = dict(
                 target_accept=float(nuts_opts["target_accept"]),
                 mass_matrix=str(nuts_opts["mass_matrix"]),
                 max_tree_depth=int(nuts_opts["max_tree_depth"]),
-                thin=thin, generator=gen, _step=nuts_step,
+                thin=thin, generator=gen, device=device,
             )
             if nuts_state is None:
                 # segment 0 owns the warmup
@@ -271,7 +267,7 @@ def run_ensemble_checkpointed(
             seg_chain, seg_logp = run.chain, run.logp_chain
         else:
             run = run_ensemble(logp_fn, walkers, steps_k, generator=gen, a=a, thin=thin,
-                               init_logp=logp0)
+                               init_logp=logp0, device=device)
             walkers, logp0 = run.final.walkers, run.final.logp
             seg_accept = int(run.final.n_accept)
             n_accept += seg_accept

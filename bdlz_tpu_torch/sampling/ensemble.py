@@ -25,7 +25,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from bdlz_tpu_torch.backend import F64
+from bdlz_tpu_torch.backend import F64, resolve_device
 
 
 class EnsembleState(NamedTuple):
@@ -71,13 +71,16 @@ def draw_stretch(generator: torch.Generator, W: int, device) -> "tuple[HalfDraws
                  for h in range(2))
 
 
-def _device_of(logp_fn, init) -> torch.device:
-    """Where a sampler runs: the logp's ``.device``, else the init
-    tensor's device, else the CPU."""
-    device = getattr(logp_fn, "device", None)
+def _sampler_device(logp_fn, device=None) -> torch.device:
+    """Where a sampler runs: ``device`` when given, else the logp's
+    ``.device``, else the card (raising without one).  The CPU only when
+    the caller or the logp asks for it."""
+    own = getattr(logp_fn, "device", None)
     if device is None:
-        device = init.device if isinstance(init, torch.Tensor) else "cpu"
-    return torch.device(device)
+        return resolve_device(own)
+    if own is not None and torch.device(own).type != torch.device(device).type:
+        raise ValueError(f"device={str(device)!r} but the logp runs on {str(own)!r}")
+    return resolve_device(device)
 
 
 def _half_update(active, active_logp, other, logp_fn, a: float, d: HalfDraws):
@@ -120,12 +123,14 @@ def run_ensemble(
     thin: int = 1,
     init_logp=None,
     draws: Optional[Callable[[int], "Sequence[HalfDraws]"]] = None,
+    device=None,
 ) -> EnsembleRun:
     """Run the ensemble for ``n_steps``, keeping every ``thin``-th state.
 
     ``logp_fn`` is batched, (n, D) → (n,).  ``W`` must be even and
-    ≥ 2D+2.  The walkers live on the logp's ``.device``, else on the
-    init tensor's device (the CPU for an array).  Draws come from ``generator``
+    ≥ 2D+2.  The walkers live on ``device``, else on the logp's
+    ``.device``, else on the card (no card raises; pass ``device="cpu"``
+    for the CPU).  Draws come from ``generator``
     (a seeded CPU ``torch.Generator``), or from ``draws(step) ->
     (half_1, half_2)`` when given.  ``init_logp`` carries a resumed
     chain's (W,) log-probabilities instead of re-evaluating them.  No
@@ -133,7 +138,7 @@ def run_ensemble(
     """
     if (generator is None) == (draws is None):
         raise ValueError("pass exactly one of generator= and draws=")
-    device = _device_of(logp_fn, init_walkers)
+    device = _sampler_device(logp_fn, device)
     walkers = torch.as_tensor(init_walkers, dtype=F64, device=device)
     W, D = walkers.shape
     if W % 2:

@@ -35,12 +35,13 @@ from bdlz_tpu_torch.constants import PLANCK_OMEGA_B_H2_SIGMA, PLANCK_OMEGA_DM_H2
 
 
 def _leaf(theta, fn) -> torch.Tensor:
-    """A fresh (W, D) float64 leaf on ``fn``'s device that requires grad."""
+    """A fresh (W, D) float64 leaf that requires grad: a tensor stays on
+    its device, an array goes to ``fn``'s ``.device``, else to the card."""
     if isinstance(theta, torch.Tensor):
         t = theta.detach().to(F64).clone()
     else:
         t = torch.as_tensor(np.asarray(theta, dtype=np.float64), dtype=F64,
-                            device=getattr(fn, "device", "cpu"))
+                            device=resolve_device(getattr(fn, "device", None)))
     if t.ndim != 2:
         raise ValueError(f"theta must be a (W, D) batch, got shape {tuple(t.shape)}")
     return t.requires_grad_(True)

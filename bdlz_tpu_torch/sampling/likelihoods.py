@@ -153,8 +153,10 @@ def _check_param_spec(param_keys: Sequence[str], lz_lambda1, lz_P_table, lz_P_ta
 
 
 def bounds_arrays(param_keys: Sequence[str], bounds: Mapping[str, Tuple[float, float]],
-                  device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """(lo, hi) prior-bound vectors over ``param_keys`` (±inf = unbounded)."""
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) prior-bound vectors over ``param_keys`` (±inf = unbounded),
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     lo = torch.tensor([bounds[k][0] if k in bounds else -torch.inf for k in param_keys],
                       dtype=F64, device=device)
     hi = torch.tensor([bounds[k][1] if k in bounds else torch.inf for k in param_keys],
@@ -177,11 +179,12 @@ def _device_values(table, device):
 
 def _make_theta_binder(pp0: PointParams, param_keys: Sequence[str], log_params: Sequence[str],
                        lz_lambda1=None, lz_P_table=None, lz_P_table2d=None,
-                       device="cpu") -> Callable:
+                       device=None) -> Callable:
     """``θ (W, D) -> PointParams`` of (W,) tensors, shared by the exact
     logp and the gradient layer: log10 entries through ``10**v``, the
     baryon mass GeV → kg, and P rebound by the λ₁ law or the cubic P
     tables, all differentiable in θ."""
+    device = resolve_device(device)
     if lz_P_table is not None:
         lz_P_table = _device_values(lz_P_table, device)
     if lz_P_table2d is not None:

@@ -53,6 +53,8 @@ class NUTSRun(NamedTuple):
     n_divergent: int          # divergent draws in the kept phase
     mean_tree_depth: float
     final: Tuple[Any, Any]    # (positions (C, D), logp (C,)) at the end
+    n_batched_leaves: int = 0  # leaves the transitions ran, warmup incl.: one
+                               # (C, D) value-and-grad each, one host sync
 
 
 class NutsDraws(NamedTuple):
@@ -135,10 +137,11 @@ def make_nuts_draw(logp_fn: Callable, mass_matrix: str, max_tree_depth: int = 8)
     Returns ``step(z (C,D), logp (C,), grad (C,D), eps, inv_mass,
     chol_mass, draws) -> (z', logp', grad', stats)`` with ``stats =
     (accept_prob, depth, n_leapfrog, divergent)``, each (C,).  ε and the
-    mass tensors are arguments, so warmup windows, the sampling phase and
-    every checkpoint segment share one transition; ``logp``/``grad``
+    mass tensors are arguments, so the warmup windows and the sampling
+    phase share one transition; ``logp``/``grad``
     carry the previous draw's evaluation, so a step costs exactly its
-    leapfrog count of evaluations.
+    leapfrog count of evaluations.  ``step.n_leaves`` counts the batched
+    leaves (one (C, D) value-and-grad each) over every call.
     """
     from bdlz_tpu_torch.sampling.grad import make_logp_value_and_grad
 
@@ -195,6 +198,7 @@ def make_nuts_draw(logp_fn: Callable, mass_matrix: str, max_tree_depth: int = 8)
                 live = active & ~(s_turn | s_div)
                 if not bool(live.any()):
                     break
+                step.n_leaves += 1
                 # leapfrog
                 r_half = sr + (0.5 * step_eps)[:, None] * sg
                 z_new = sz + step_eps[:, None] * vel(r_half)
@@ -257,6 +261,7 @@ def make_nuts_draw(logp_fn: Callable, mass_matrix: str, max_tree_depth: int = 8)
         return z_prop, lp_prop, g_prop, (accept_prob, depth, n_leap, diverging)
 
     step.value_and_grad = value_and_grad
+    step.n_leaves = 0
     return step
 
 
@@ -405,12 +410,13 @@ def run_nuts(
     step_size: Optional[float] = None,
     inv_mass=None,
     thin: int = 1,
-    _step: Optional[Callable] = None,
+    device=None,
 ) -> NUTSRun:
     """Run multinomial NUTS from ``init`` (C, D) for ``n_steps`` draws.
 
     ``logp_fn`` is batched, (C, D) → (C,), and differentiable in torch;
-    the chains run on its ``.device`` (else the init tensor's).
+    the chains run on ``device``, else on the logp's ``.device``, else on
+    the card (no card raises; pass ``device="cpu"`` for the CPU).
     Randomness comes from ``generator`` (a seeded CPU
     ``torch.Generator``) or a ``draws`` source (:class:`TorchNutsDraws`'s
     interface).  With ``step_size=None`` the run warms up first
@@ -419,8 +425,7 @@ def run_nuts(
     than 40 warmup draws adapt ε only, on the unit metric.  Warmup draws
     are not returned; their evaluations are counted.  With explicit
     ``step_size`` and ``inv_mass`` the run is a pure continuation (the
-    checkpoint layer resumes segments so).  ``_step`` shares one
-    transition between the segments of a checkpointed run.
+    checkpoint layer resumes segments so).
     """
     if mass_matrix not in VALID_MASS_MATRIX:
         raise ValueError(f"mass_matrix={mass_matrix!r} is not one of {VALID_MASS_MATRIX}")
@@ -432,9 +437,9 @@ def run_nuts(
         raise ValueError("pass exactly one of generator= and draws=")
     if draws is None:
         draws = TorchNutsDraws(generator)
-    from bdlz_tpu_torch.sampling.ensemble import _device_of
+    from bdlz_tpu_torch.sampling.ensemble import _sampler_device
 
-    init = torch.as_tensor(init, dtype=F64, device=_device_of(logp_fn, init))
+    init = torch.as_tensor(init, dtype=F64, device=_sampler_device(logp_fn, device))
     if init.ndim != 2:
         raise ValueError(f"init must be (n_chains, D), got {tuple(init.shape)}")
     C, D = init.shape
@@ -451,7 +456,7 @@ def run_nuts(
         )
     n_warmup = 300 if (n_warmup is None and not resume) else int(n_warmup or 0)
     md = int(max_tree_depth)
-    step = _step if _step is not None else make_nuts_draw(logp_fn, mass_matrix, md)
+    step = make_nuts_draw(logp_fn, mass_matrix, md)
     value_and_grad = step.value_and_grad
     # the initial evaluation happens here even on a resumed segment, so a
     # segmented run recomputes exactly as the uninterrupted one
@@ -531,4 +536,5 @@ def run_nuts(
         n_divergent=int(stats.n_divergent),
         mean_tree_depth=float(stats.depth_mean),
         final=(z, logp),
+        n_batched_leaves=int(step.n_leaves),
     )

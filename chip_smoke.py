@@ -1307,39 +1307,37 @@ def phase_sampling_path(dev, artifact=None) -> None:
                                           n_warmup=NUTS_WARMUP, max_tree_depth=NUTS_DEPTH))
     check(bool(np.isfinite(nuts.chain).all()), "NUTS chain finite")
     nuts_ess = bulk_ess(nuts.chain)
-    # eager kernels per leaf: one adapted transition under the profiler
+    # device kernels and busy time per leaf: one adapted transition under
+    # the profiler (its host time is the profiler's, so not reported)
     step = make_nuts_draw(logp, "diag", NUTS_DEPTH)
     z = torch.as_tensor(nuts.chain[-1], dtype=torch.float64, device=dev)
     lp0, g0 = step.value_and_grad(z)
     im = np.asarray(nuts.inv_mass)
-    draws = TorchNutsDraws(make_generator(3))
+    draws = TorchNutsDraws(make_generator(3)).transition("sample", 0, NUTS_CHAINS, 2,
+                                                         NUTS_DEPTH, dev)
     torch.cuda.synchronize()
-    n_leaf = 0
-    t1 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for t in range(1):
-            z, lp0, g0, st = step(z, lp0, g0, nuts.step_size, im, 1.0 / np.sqrt(im),
-                                  draws.transition("sample", t, NUTS_CHAINS, 2, NUTS_DEPTH, dev))
-            n_leaf += int(st[2].max())   # leaves the batch evaluated
+        step(z, lp0, g0, nuts.step_size, im, 1.0 / np.sqrt(im), draws)
         torch.cuda.synchronize()
-    prof_s = time.perf_counter() - t1
     kernels, copies = _kernel_count(prof)
+    busy_ms = sum(_device_ms(prof).values())
     nuts_out = {"chains": NUTS_CHAINS, "n_warmup": NUTS_WARMUP, "draws": NUTS_DRAWS,
                 "max_tree_depth": NUTS_DEPTH, "seconds": nuts_s,
                 "n_leapfrog": nuts.n_leapfrog, "n_logp_evals": nuts.n_logp_evals,
                 "leapfrogs_per_sec": nuts.n_leapfrog / nuts_s,
+                "batched_leaves": nuts.n_batched_leaves,
+                "host_ms_per_leaf": 1e3 * nuts_s / nuts.n_batched_leaves,
                 "mean_tree_depth": nuts.mean_tree_depth, "step_size": nuts.step_size,
                 "inv_mass": im.tolist(), "acceptance": nuts.acceptance,
                 "n_divergent": nuts.n_divergent, "bulk_ess": nuts_ess.tolist(),
                 "bulk_ess_per_eval": float(nuts_ess.min()) / nuts.n_logp_evals,
                 "posterior_mean": nuts.chain.reshape(-1, 2).mean(axis=0).tolist(),
                 "posterior_std": nuts.chain.reshape(-1, 2).std(axis=0).tolist(),
-                "profiled": {"transitions": 1, "batched_leaves": n_leaf,
+                "profiled": {"transitions": 1, "batched_leaves": step.n_leaves,
                              "device_kernels": kernels, "copies": copies,
-                             "kernels_per_leaf": kernels / max(n_leaf, 1),
-                             "host_seconds": prof_s,
-                             "device_busy_ms": sum(_device_ms(prof).values()),
-                             "ms_per_leaf": 1e3 * prof_s / max(n_leaf, 1)}}
+                             "kernels_per_leaf": kernels / step.n_leaves,
+                             "device_busy_ms": busy_ms,
+                             "device_ms_per_leaf": busy_ms / step.n_leaves}}
 
     # ---- the emulator-backed stretch run against its exact twin -------------
     if artifact is None:

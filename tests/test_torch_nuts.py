@@ -255,9 +255,12 @@ def test_free_particle_never_uturns():
         return torch.zeros(th.shape[0], dtype=torch.float64) * th.sum(dim=-1)
 
     run = tn.run_nuts(logp, np.zeros((4, 2)), 32, generator=make_generator(7), n_warmup=0,
-                      step_size=0.1, inv_mass=np.ones(2), max_tree_depth=6)
+                      step_size=0.1, inv_mass=np.ones(2), max_tree_depth=6, device="cpu")
     assert run.mean_tree_depth == 6.0
     assert run.n_divergent == 0
+    # every transition runs the whole tree: 2**6 − 1 batched leaves of 4 chains
+    assert run.n_batched_leaves == 32 * 63
+    assert run.n_leapfrog == 4 * run.n_batched_leaves
 
 
 def test_dual_averaging_eps_search_and_mass_equal_jax():
@@ -309,17 +312,17 @@ def test_validation_messages_equal_jax():
              dict(step_size=0.1, inv_mass=np.ones(2), n_warmup=50)]
     for kw in cases:
         with pytest.raises(ValueError) as got:
-            tn.run_nuts(t_logp, init, 10, generator=g, **kw)
+            tn.run_nuts(t_logp, init, 10, generator=g, device="cpu", **kw)
         with pytest.raises(ValueError) as ref:
             jn.run_nuts(0, j_logp, init, 10, **kw)
         assert str(got.value) == str(ref.value)
     with pytest.raises(ValueError, match="thin"):
-        tn.run_nuts(t_logp, init, 11, generator=g, thin=2)
+        tn.run_nuts(t_logp, init, 11, generator=g, thin=2, device="cpu")
     with pytest.raises(ValueError, match="finite"):
         tn.run_nuts(lambda t: torch.full((t.shape[0],), -torch.inf, dtype=torch.float64),
-                    init, 10, generator=g)
+                    init, 10, generator=g, device="cpu")
     with pytest.raises(ValueError, match="exactly one"):
-        tn.run_nuts(t_logp, init, 10)
+        tn.run_nuts(t_logp, init, 10, device="cpu")
 
 
 def test_checkpointed_nuts_resumes_bitwise(tmp_path):
@@ -337,7 +340,7 @@ def test_checkpointed_nuts_resumes_bitwise(tmp_path):
 
     init = 1.0 + 0.1 * np.random.default_rng(3).normal(size=(3, 2))
     kw = dict(n_steps=20, checkpoint_every=10, identity={"c": 1}, sampler="nuts",
-              sampler_opts={"n_warmup": 24})
+              sampler_opts={"n_warmup": 24}, device="cpu")
     full = run_ensemble_checkpointed(5, logp, init, out_dir=str(tmp_path / "full"), **kw)
     assert full.sampler == "nuts" and full.chain.shape == (20, 3, 2)
     assert full.segments == 2 and full.resumed_segments == 0

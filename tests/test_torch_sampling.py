@@ -356,11 +356,11 @@ def test_stretch_walker_checks():
 
     g = make_generator(0)
     with pytest.raises(ValueError, match="even"):
-        ts.run_ensemble(logp, np.zeros((7, 2)), 4, generator=g)
+        ts.run_ensemble(logp, np.zeros((7, 2)), 4, generator=g, device="cpu")
     with pytest.raises(ValueError, match=">= 6 walkers"):
-        ts.run_ensemble(logp, np.zeros((4, 2)), 4, generator=g)
+        ts.run_ensemble(logp, np.zeros((4, 2)), 4, generator=g, device="cpu")
     with pytest.raises(ValueError, match="thin"):
-        ts.run_ensemble(logp, np.zeros((8, 2)), 5, generator=g, thin=2)
+        ts.run_ensemble(logp, np.zeros((8, 2)), 5, generator=g, thin=2, device="cpu")
 
 
 # ---- identity and checkpoints ----------------------------------------------
@@ -407,7 +407,7 @@ def test_checkpointed_stretch_chain_resumes_bitwise(tmp_path, capsys):
 
     _, logp = _gauss_logps()
     init = 1.0 + 0.1 * np.random.default_rng(2).normal(size=(8, 2))
-    kw = dict(n_steps=30, checkpoint_every=10, identity={"c": 1})
+    kw = dict(n_steps=30, checkpoint_every=10, identity={"c": 1}, device="cpu")
     full = ts.run_ensemble_checkpointed(5, logp, init, out_dir=str(tmp_path / "full"), **kw)
     assert full.segments == 3 and full.resumed_segments == 0 and full.chain.shape == (30, 8, 2)
     again = ts.run_ensemble_checkpointed(5, logp, init, out_dir=str(tmp_path / "full"), **kw)
@@ -418,7 +418,7 @@ def test_checkpointed_stretch_chain_resumes_bitwise(tmp_path, capsys):
     assert healed.resumed_segments == 1 and "unreadable" in capsys.readouterr().err
     np.testing.assert_array_equal(healed.chain, full.chain)
     assert healed.acceptance == full.acceptance
-    one = ts.run_ensemble(logp, init, 10, generator=make_generator(5, 0))
+    one = ts.run_ensemble(logp, init, 10, generator=make_generator(5, 0), device="cpu")
     np.testing.assert_array_equal(one.chain.numpy(), full.chain[:10])
 
 
@@ -433,7 +433,7 @@ def test_the_other_packages_chain_directory_is_refused(writer, tmp_path, capsys)
     out = str(tmp_path / "chain")
     writers = {"jax": lambda: js.run_ensemble_checkpointed(5, j_logp, init, out_dir=out, **kw),
                "port": lambda: ts.run_ensemble_checkpointed(5, t_logp, init, out_dir=out,
-                                                            **kw)}
+                                                            device="cpu", **kw)}
     writers[writer]()
     capsys.readouterr()
     read = writers["port" if writer == "jax" else "jax"]()
@@ -444,7 +444,7 @@ def test_the_other_packages_chain_directory_is_refused(writer, tmp_path, capsys)
 
 def test_checkpoint_refusals():
     _, logp = _gauss_logps()
-    kw = dict(n_steps=10, out_dir="unused", identity={"c": 1})
+    kw = dict(n_steps=10, out_dir="unused", identity={"c": 1}, device="cpu")
     with pytest.raises(ValueError, match="ROADMAP D9, multi-GPU"):
         ts.run_ensemble_checkpointed(0, logp, np.zeros((8, 2)), mesh=object(), **kw)
     with pytest.raises(ValueError, match="sampler_opts only apply"):
@@ -458,6 +458,36 @@ def test_checkpoint_refusals():
 def test_sampling_exposes_jax_all():
     assert ts.__all__ == js.__all__
     assert all(hasattr(ts, name) for name in ts.__all__)
+
+
+@pytest.mark.parametrize("sampler", ["stretch", "nuts", "checkpointed"])
+def test_samplers_run_on_the_card_unless_asked(sampler, monkeypatch, tmp_path):
+    """No ``device`` and a logp that names none: the sampler wants the
+    card, so without one it raises instead of running on the CPU;
+    ``device="cpu"`` runs; a ``device`` that contradicts the logp's is
+    refused."""
+    _, logp = _gauss_logps()
+    init = 1.0 + 0.1 * np.random.default_rng(2).normal(size=(8, 2))
+
+    def run(fn=logp, **kw):
+        if sampler == "stretch":
+            return ts.run_ensemble(fn, init, 2, generator=make_generator(0), **kw)
+        if sampler == "nuts":
+            return ts.run_nuts(fn, init, 2, generator=make_generator(0), n_warmup=0, **kw)
+        return ts.run_ensemble_checkpointed(0, fn, init, 2, str(tmp_path / sampler),
+                                            identity={"c": 1}, **kw)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    assert np.isfinite(np.asarray(run(device="cpu").chain)).all()
+
+    def on_card(th):
+        return logp(th)
+
+    on_card.device = torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="but the logp runs on"):
+        run(on_card, device="cpu")
 
 
 def test_without_a_card_the_default_device_raises(env, monkeypatch):

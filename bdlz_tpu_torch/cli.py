@@ -1,7 +1,7 @@
 """Single-point command line (framework layer L6):
 
     python -m bdlz_tpu_torch --config yields_config.json [--diagnostics]
-        [--planck] [--quad on|off] [--device cuda|cpu]
+        [--planck] [--quad on|off] [--sanitize] [--device cuda|cpu]
         [--maybe-compute-P-from-profile profile.csv [--lz-method M]
          [--lz-gamma-phi G] [--lz-momentum-average]]
     python -m bdlz_tpu_torch --write-template [--template-extensions]
@@ -49,9 +49,8 @@ from bdlz_tpu_torch.config import (
 )
 from bdlz_tpu_torch.utils.deferred import add_deferred_flags, refuse_deferred_flags
 
-#: Flags of the JAX CLI that the port does not have yet (ROADMAP D).
+#: Flags of the JAX CLI that the port replaces.
 DEFERRED_FLAGS = {
-    "--sanitize": (False, "ROADMAP D6, host planes"),
     "--backend": (True, "the port has one backend: use --device cuda|cpu"),
 }
 
@@ -284,6 +283,11 @@ def main(argv: Optional[list] = None) -> None:
                     help="Print the Planck comparison block: settling factor "
                          "f_settle and effective probability P_eff (paper "
                          "Eqs. 22-24).")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="Runtime sanitizer (framework addition): the "
+                         "op-level NaN check, finiteness asserts at every "
+                         "pipeline layer boundary, and a float64 dtype-drift "
+                         "check (ARCHITECTURE.md).")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
     add_deferred_flags(ap, DEFERRED_FLAGS)
@@ -319,6 +323,10 @@ def main(argv: Optional[list] = None) -> None:
             "sweep_cli for the chain/thermal scenarios, or drop the "
             "scenario keys"
         )
+    if args.sanitize:
+        from bdlz_tpu_torch import sanitize
+
+        sanitize.enable()
     P_used = resolve_P(
         cfg, args.profile_csv, momentum_average=args.lz_momentum_average,
         lz_method=args.lz_method, lz_gamma_phi=args.lz_gamma_phi,
@@ -326,6 +334,9 @@ def main(argv: Optional[list] = None) -> None:
     )
 
     result = run_point(cfg, P_used, args.device)
+    if args.sanitize:
+        # the output boundary: the quadrature and ESDIRK paths land here
+        sanitize.check_tree(sanitize.BOUNDARY_SOLVER, result)
     print_results(result)
     write_yields_out("yields_out.json", cfg, P_used, result)
     print("Wrote yields_out.json")

@@ -57,7 +57,7 @@ _LN10 = float(np.log(10.0))
 #: The fields whose exact gradient the Fisher signal compares.
 _GRAD_FIELDS = ["rho_B_kg_m3", "rho_DM_kg_m3"]
 
-_D7 = "ROADMAP D7, serving and elastic sweeps"
+_D7 = "ROADMAP D7b, serving and elastic sweeps"
 
 
 class EmulatorBuildError(RuntimeError):

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from bdlz_tpu_torch.backend import resolve_device
 from bdlz_tpu_torch.emulator.artifact import (
     EmulatorArtifact,
     EmulatorArtifactError,
@@ -190,7 +191,7 @@ def seam_band_for_box(
     band_tol: Optional[float] = None,
     axis: Optional[str] = None,
     n_scan: int = 4097,
-    device="cpu",
+    device=None,
 ) -> Optional[Dict[str, Any]]:
     """Locate the seam band inside an emulator box, or None.
 
@@ -209,13 +210,15 @@ def seam_band_for_box(
     Returns ``{"axis", "lo", "hi", "kind", "band_tol"}`` with [lo, hi]
     widened by one scan step on each side (the predicate is sampled),
     intersected with the box — or None when the box never touches the
-    band.  The window bounds and the seam are evaluated on ``device``.
+    band.  The window bounds and the seam are evaluated on ``device``
+    (the card unless the caller asks for the CPU).
     """
     from bdlz_tpu_torch.interop import point_params_from_numpy
     from bdlz_tpu_torch.parallel.sweep import AXIS_MAP, build_grid
     from bdlz_tpu_torch.solvers.panels import y_branch_seam
     from bdlz_tpu_torch.solvers.quadrature import quadrature_bounds
 
+    dev = resolve_device(device)
     if band_tol is None:
         band_tol = seam_band_tolerance(rtol, safety)
     if axis is None:
@@ -248,7 +251,7 @@ def seam_band_for_box(
         axes = {axis: scan}
         for (name, _vals), v in zip(other_extremes, combo):
             axes[name] = np.full(len(scan), v)
-        pp = point_params_from_numpy(build_grid(base, axes, product=False), device)
+        pp = point_params_from_numpy(build_grid(base, axes, product=False), dev)
         y_lo, y_hi = (t.cpu().numpy() for t in quadrature_bounds(pp))
         y_seam = y_branch_seam(pp).cpu().numpy()
         sigma = np.maximum(pp.sigma_y.cpu().numpy(), 1e-6)
@@ -272,7 +275,7 @@ def seam_band_for_box(
 
 def resolve_seam_split(
     base, spec, seam_split: Optional[bool], *,
-    rtol: float, safety: float, device="cpu",
+    rtol: float, safety: float, device=None,
 ) -> Optional[Dict[str, Any]]:
     """The tri-state resolution (ode_* pattern): explicit argument wins
     over ``Config.seam_split``; ``None`` means split iff the box crosses
@@ -373,7 +376,7 @@ def build_seam_split_emulator(
         static = static_choices_from_config(base)
     if band is None:
         band = seam_band_for_box(base, spec, rtol=rtol, safety=safety,
-                                 device=build_kw.get("device", "cpu"))
+                                 device=build_kw.get("device"))
         if band is None:
             raise MultiDomainBuildError(
                 "build_seam_split_emulator needs a box that crosses the "

@@ -1,4 +1,5 @@
-"""Deterministic fault injection for the sweep and the emulator build.
+"""Deterministic fault injection for the sweep, the emulator build and
+the serving plane.
 
 Counterpart of ``bdlz_tpu/faults.py``: the same plan format, sites,
 kinds, rejections and decisions, so one plan (from the config, the
@@ -24,12 +25,24 @@ The sites this package acts on:
 ``store_read``
     The provenance store's reads (``Store.arm_faults``); kinds ``torn``
     and ``corrupt`` damage the entry just before it is loaded.
+``serve_exact``
+    The serving plane's exact fallback; ``key`` = its logical call
+    counter (retries share it).
+``replica_dispatch``
+    A fleet replica's dispatch; ``key`` = replica index.  ``raise`` /
+    ``transient`` fail the launch, key-addressed ``nan`` poisons the
+    gathered values, ``slow`` adds its delay to the batch's seconds.
+``registry_fetch``
+    The artifact registry's fetch; ``key`` = the store's fetch counter;
+    ``torn`` / ``corrupt`` damage the entry before it is loaded.
+``clock``
+    The micro-batchers' dispatch clock; ``key`` = batch index; ``slow``
+    ages the queue through the clock, never by sleeping.
 
-The other sites (``serve_exact``, ``clock``, ``replica_dispatch``,
-``registry_fetch``, ``lease``, ``worker_crash``, ``pool_evict``,
+The other sites (``lease``, ``worker_crash``, ``pool_evict``,
 ``autoscale``, ``host_crash``, ``heartbeat_loss``, ``store_partition``)
-parse and validate here and belong to serving and the elastic sweep
-(ROADMAP D7).
+parse and validate here and belong to tenancy and the elastic sweep
+(ROADMAP D7b).
 
 Resolution is the tri-state pattern: ``Config.fault_injection`` None
 enables injection iff a plan is configured, False forces it off, True

@@ -34,7 +34,21 @@ class ProfileError(ValueError):
 
 
 def _read_csv(path: str):
-    """(column_names, data[rows, cols]) with NumPy."""
+    """(column_names, data[rows, cols]) — the native C++ parser
+    (``bdlz_tpu_torch.native``) when it builds here, NumPy otherwise;
+    both give the same bits."""
+    from bdlz_tpu_torch.native import NativeParseError, read_csv_native
+
+    try:
+        return read_csv_native(path)
+    except NativeParseError as e:
+        raise ProfileError(str(e)) from e  # uniform parse-failure contract
+    except OSError:
+        return read_csv_numpy(path)  # library unavailable
+
+
+def read_csv_numpy(path: str):
+    """(column_names, data[rows, cols]) with NumPy's ``genfromtxt``."""
     data = np.genfromtxt(path, delimiter=",", names=True, dtype=float)
     if data.dtype.names is None:
         raise ProfileError(f"{path}: expected a CSV header row")

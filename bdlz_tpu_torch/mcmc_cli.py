@@ -14,8 +14,10 @@ without a card; ``cpu`` runs the plain PyTorch path).  The initial walkers
 are drawn from ``--seed`` and the chain from ``--seed`` + 1, as in the JAX
 CLI, through CPU ``torch.Generator`` streams: a chain is reproducible per
 seed on the CPU and on the card, but it is not the JAX CLI's chain.
-``--multihost`` and ``--sanitize`` are refused with the ROADMAP item that
-brings them.
+``--sanitize`` arms the op-level NaN check over the whole run (the
+stand-in for ``jax_debug_nans`` under the JAX likelihood) and checks the
+chain at the output boundary; ``--multihost`` is refused with the ROADMAP
+item that brings it.
 """
 from __future__ import annotations
 
@@ -32,7 +34,6 @@ from bdlz_tpu_torch.utils.deferred import add_deferred_flags, refuse_deferred_fl
 #: Flags of the JAX CLI that the port does not have yet.
 DEFERRED_FLAGS = {
     "--multihost": (False, "ROADMAP D9, multi-GPU"),
-    "--sanitize": (False, "ROADMAP D6, host planes"),
 }
 
 
@@ -119,6 +120,9 @@ def main(argv=None) -> None:
     ap.add_argument("--max-tree-depth", type=int, default=None, dest="max_tree_depth",
                     help="NUTS trajectory doubling cap (2^depth leapfrog "
                          "steps max per draw; default 8)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="Runtime sanitizer: the op-level NaN check under the "
+                         "likelihood and a finite-f64 check of the chain")
     add_deferred_flags(ap, DEFERRED_FLAGS)
     args = ap.parse_args(argv)
     refuse_deferred_flags(ap, args, DEFERRED_FLAGS)
@@ -319,6 +323,14 @@ def main(argv=None) -> None:
     logp = make_pipeline_logprob(cfg, static, table, param_keys=tuple(params),
                                  bounds=params, device=dev, **lz_kwargs)
 
+    if args.sanitize:
+        from bdlz_tpu_torch.utils.profiling import enable_nan_debugging
+
+        # the likelihood is the JAX CLI's jitted program: its layer
+        # checkpoints see tracers there, so only the op-level check runs
+        # until the output boundary below
+        enable_nan_debugging(True)
+
     # one device: NUTS chains are not rounded, stretch walkers to even
     W = max(int(args.walkers), 1) if sampler == "nuts" else ((args.walkers + 1) // 2) * 2
     init = initial_walkers(params, W, args.seed)
@@ -392,6 +404,16 @@ def main(argv=None) -> None:
         full_logp = run.logp_chain.cpu().numpy()
         acceptance = float(run.acceptance)
         nuts_info = None
+
+    if args.sanitize:
+        from bdlz_tpu_torch import sanitize
+
+        sanitize.enable(nans=False)
+        # sampler -> output boundary: walker positions must stay finite
+        # f64 (logp may legitimately be -inf outside the prior box)
+        sanitize.checkpoint("L4:sampler -> output (mcmc)", chain=full_chain)
+        sanitize.check_tree("L4:sampler -> output (mcmc)", {"logp": full_logp},
+                            allow_nan=True)
 
     from bdlz_tpu_torch.sampling.diagnostics import integrated_autocorr_time, split_rhat
 

@@ -24,7 +24,9 @@ Four kernels, one per TPU kernel, each with a plain PyTorch version of the
 same function beside its wrapper.  A wrapper given CPU tensors runs the
 plain version (the CPU tests); given CUDA tensors it launches its kernel
 or raises — it never falls back.  ``LAUNCHES`` counts kernel launches per
-wrapper, so a run can show that it went through the kernels.
+wrapper, so a run can show that it went through the kernels.  Under
+``enable_nan_debugging`` a launch checks what it wrote, since the mode's
+op-level check cannot see inside a kernel.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from bdlz_tpu_torch.constants import PI
 from bdlz_tpu_torch.ops.kjma_table import Y_CLAMP, KJMATable, interp_taps
 from bdlz_tpu_torch.physics.thermo import relativistic_density_coeff
 from bdlz_tpu_torch.solvers.quadrature import linspace_rows, quadrature_bounds
+from bdlz_tpu_torch.utils.profiling import check_kernel_output
 
 #: Default tier: the in-kernel reduction (``kjma_pallas.REDUCE_DEFAULT``).
 REDUCE_DEFAULT = True
@@ -147,6 +150,7 @@ def _launch(name: str, reduce: bool, g, a, i1, sfrac, values) -> torch.Tensor:
             f"({lib.kjma_error_string(err).decode()})"
         )
     LAUNCHES[name] += 1
+    check_kernel_output(entry, out)
     return out
 
 

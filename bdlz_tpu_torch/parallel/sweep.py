@@ -543,6 +543,7 @@ def run_sweep(
     fault_plan=None,
     retry=None,
     cache=None,
+    trace_dir: Optional[str] = None,
 ) -> SweepResult:
     """Run a full sweep on one device: route the engine, resolve the
     quadrature, then evaluate chunk by chunk — resuming, healing and
@@ -593,7 +594,14 @@ def run_sweep(
     ``sweep_start``, ``chunk_done``, ``chunk_retry``,
     ``chunk_quarantine`` and ``esdirk_rounds`` with the JAX engine's
     fields.
+
+    **Debugging.** ``trace_dir`` writes one ``torch.profiler`` Chrome
+    trace per chunk step.  A ``FloatingPointError`` from
+    ``enable_nan_debugging`` aborts the sweep instead of being healed.
+    Sanitizer checkpoints inside the chunk step check nothing (the JAX
+    step is jitted); the CLI checks the outputs.
     """
+    from bdlz_tpu_torch import sanitize
     from bdlz_tpu_torch.faults import FaultPlan
     from bdlz_tpu_torch.interop import point_params_from_numpy
     from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
@@ -601,6 +609,7 @@ def run_sweep(
     from bdlz_tpu_torch.provenance import resolve_store
     from bdlz_tpu_torch.solvers.panels import N_PANELS_DEFAULT, NODES_PER_PANEL_DEFAULT
     from bdlz_tpu_torch.utils.io import atomic_savez, atomic_write_json
+    from bdlz_tpu_torch.utils.profiling import trace as profiler_trace
     from bdlz_tpu_torch.utils.retry import resolve_engine_retry
     from bdlz_tpu_torch.validation import resolve_quad_panel_gl
 
@@ -721,9 +730,12 @@ def run_sweep(
     heal_on = retry_policy is not None
 
     def _compute(lo_r, hi_r):
-        ppc = point_params_from_numpy(_pad_chunk(pp_all, lo_r, hi_r, pad_size), dev)
-        res = engine[0](ppc, engine[1])
-        return {f: getattr(res, f)[: hi_r - lo_r].cpu().numpy() for f in fields}
+        # the chunk step is the JAX engine's jitted program: no sanitizer
+        # checkpoint inside it, one profiler trace per call
+        with profiler_trace(trace_dir), sanitize.opaque():
+            ppc = point_params_from_numpy(_pad_chunk(pp_all, lo_r, hi_r, pad_size), dev)
+            res = engine[0](ppc, engine[1])
+            return {f: getattr(res, f)[: hi_r - lo_r].cpu().numpy() for f in fields}
 
     def _apply_nan_faults(host, lo_r, hi_r):
         pts = faults.nan_points("step", lo_r, hi_r) if faults is not None else []
@@ -741,6 +753,8 @@ def run_sweep(
                 faults.fire("step", ci)
                 faults.check_range("step", lo_r, hi_r)
             return 1, _apply_nan_faults(_compute(lo_r, hi_r), lo_r, hi_r), None
+        except FloatingPointError:
+            raise  # enable_nan_debugging aborts the sweep; never healed
         except Exception as exc:  # noqa: BLE001 — the healing path decides
             return 0, None, exc
 
@@ -833,7 +847,7 @@ def run_sweep(
                 faults.check_range("step", lo, hi)
             host = _compute(lo, hi)
         except Exception as exc:  # noqa: BLE001 — healed below
-            if not heal_on:
+            if not heal_on or isinstance(exc, FloatingPointError):
                 raise
             host, q = heal_range(
                 ci, lo, hi, exc, attempt=_attempt, quarantine=_quarantine,

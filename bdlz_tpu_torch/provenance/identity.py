@@ -218,3 +218,49 @@ def mcmc_segment_identity(
     if rng is not None:
         payload["rng"] = str(rng)
     return Identity("mcmc_segment", (("json", payload),))
+
+
+def code_fingerprint(modules: Sequence[Any]) -> str:
+    """Hash of the given modules' source text (16 hex chars)."""
+    import inspect
+
+    h = hashlib.sha256()
+    for mod in modules:
+        h.update(inspect.getsource(mod).encode())
+    return h.hexdigest()[:16]
+
+
+def reference_code_fingerprint() -> str:
+    """Hash of the source of every port module the reference loop of
+    ``validation.reference_ratios`` runs (the JAX package's module list,
+    the port's modules): a code change invalidates every cached truth."""
+    import bdlz_tpu_torch.constants
+    import bdlz_tpu_torch.models.yields_pipeline
+    import bdlz_tpu_torch.ops.kjma_table
+    import bdlz_tpu_torch.physics.percolation
+    import bdlz_tpu_torch.physics.source
+    import bdlz_tpu_torch.physics.thermo
+    import bdlz_tpu_torch.solvers.panels
+    import bdlz_tpu_torch.solvers.quadrature
+
+    return code_fingerprint((
+        bdlz_tpu_torch.constants, bdlz_tpu_torch.models.yields_pipeline,
+        bdlz_tpu_torch.ops.kjma_table, bdlz_tpu_torch.physics.percolation,
+        bdlz_tpu_torch.physics.source, bdlz_tpu_torch.physics.thermo,
+        bdlz_tpu_torch.solvers.panels, bdlz_tpu_torch.solvers.quadrature,
+    ))
+
+
+def refcache_identity(grid, static, n_y: "int | None",
+                      fingerprint: Optional[str] = None) -> Identity:
+    """The accuracy-gate reference-cache key: population bytes, the
+    robustness-stripped static tuple + n_y, and the reference source
+    fingerprint (:func:`reference_code_fingerprint` unless given).  The
+    parts are the JAX package's, so equal inputs and an equal fingerprint
+    give JAX's digest."""
+    ident = tuple(static_payload(static))
+    parts = [array_part(f) for f in grid]
+    parts.append(("text", repr((ident, n_y))))
+    parts.append(("text", reference_code_fingerprint() if fingerprint is None
+                  else fingerprint))
+    return Identity("refcache", tuple(parts))

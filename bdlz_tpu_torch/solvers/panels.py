@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from bdlz_tpu_torch import sanitize
 from bdlz_tpu_torch.backend import F64
 from bdlz_tpu_torch.config import PointParams
 
@@ -51,7 +52,7 @@ class PanelScheme(NamedTuple):
 
 
 def make_panel_scheme(
-    device="cpu",
+    device,
     n_panels: int = N_PANELS_DEFAULT,
     n_nodes: int = NODES_PER_PANEL_DEFAULT,
 ) -> PanelScheme:
@@ -159,4 +160,5 @@ def integrate_YB_panel_gl(
     else:
         integrand = yb_integrand_direct(ys, pp, chi_stats, aux)
     YB = (wts * integrand).sum(dim=-1)
+    sanitize.checkpoint(sanitize.BOUNDARY_SOLVER, Y_B=YB)
     return torch.where(y_hi > y_lo, YB, 0.0)

@@ -8,11 +8,14 @@ kernel's support, with the reference's scalar semantics
 floor, and exactly 0 for an empty window.
 
 ``pp`` is a PointParams of (P,) float64 tensors; y-grids are (P, n_y).
+The sanitizer's layer-boundary checkpoints sit where the JAX module has
+them (thermo, percolation, source, and Y_B).
 """
 from __future__ import annotations
 
 import torch
 
+from bdlz_tpu_torch import sanitize
 from bdlz_tpu_torch.backend import F64
 from bdlz_tpu_torch.config import PointParams
 from bdlz_tpu_torch.physics.percolation import (
@@ -74,7 +77,11 @@ def _integrand(ys, pp: PointParams, chi_stats: str, Av) -> torch.Tensor:
         * n_chi_equilibrium(Ts, pp.m_chi_GeV, pp.g_chi, chi_stats)
         * mean_speed_chi(Ts, pp.m_chi_GeV)
     )
-    SB = pp.P * Js * Av(ys) * source_window(ys, pp.sigma_y)
+    sanitize.checkpoint(sanitize.BOUNDARY_THERMO, T=Ts, H=Hs, s=ss, J_chi=Js)
+    Avs = Av(ys)
+    sanitize.checkpoint(sanitize.BOUNDARY_PERCOLATION, A_over_V=Avs)
+    SB = pp.P * Js * Avs * source_window(ys, pp.sigma_y)
+    sanitize.checkpoint(sanitize.BOUNDARY_SOURCE, S_B=SB)
     return SB / (ss * Hs * Ts) * torch.abs(dTdy)
 
 
@@ -101,6 +108,7 @@ def _integrate(pp: PointParams, n_y: int, integrand) -> torch.Tensor:
     y_lo, y_hi = quadrature_bounds(pp)
     ys = linspace_rows(y_lo, y_hi, n_y)
     YB = trapezoid(integrand(ys), ys)
+    sanitize.checkpoint(sanitize.BOUNDARY_SOLVER, Y_B=YB)
     return torch.where(y_hi > y_lo, YB, 0.0)
 
 

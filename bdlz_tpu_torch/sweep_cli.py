@@ -16,9 +16,12 @@ JAX sweep CLI's pairing errors.  ``--out`` writes the chunk files and the
 manifest (a rerun resumes; the JAX CLI resumes the same directory for the
 engines the two share) and ``--events`` the JSON-lines event log; the
 config's ``retry_enabled``, ``cache_enabled``/``cache_root`` and
-``fault_injection``/``fault_plan`` act as in the JAX CLI.  Its flags that
-the port does not have yet (the sanitizer, profiles, meshes and elastic
-fleets) are refused with the ROADMAP item that brings them.
+``fault_injection``/``fault_plan`` act as in the JAX CLI.  ``--sanitize``
+checks the outputs' float64 contract, ``--debug-nans`` aborts at the
+first torch op (or kernel) that makes a NaN, and ``--profile-dir`` writes
+one ``torch.profiler`` Chrome trace per chunk.  Its flags that the port
+does not have yet (meshes and elastic fleets) are refused with the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -30,13 +33,10 @@ import numpy as np
 
 from bdlz_tpu_torch.utils.deferred import add_deferred_flags, refuse_deferred_flags
 
-_D6 = "ROADMAP D6, host planes"
-_D7 = "ROADMAP D7, serving and elastic sweeps"
+_D7 = "ROADMAP D7b, serving and elastic sweeps"
 _D9 = "ROADMAP D9, multi-GPU"
 #: Flags of the JAX sweep CLI that the port does not have yet.
 DEFERRED_FLAGS = {
-    "--sanitize": (False, _D6), "--debug-nans": (False, _D6),
-    "--profile-dir": (True, _D6),
     "--elastic": (True, _D7), "--elastic-store": (True, _D7),
     "--elastic-workers": (True, _D7), "--worker-id": (True, _D7),
     "--lease-ttl": (True, _D7), "--quarantine-after": (True, _D7),
@@ -93,6 +93,15 @@ def main(argv=None) -> None:
                          "quad_panel_gl")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
+    ap.add_argument("--profile-dir", default=None,
+                    help="Write one torch.profiler Chrome trace per chunk here")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="Raise on the first torch op or kernel that makes a "
+                         "NaN (sanitizer mode; the sweep aborts, nothing is "
+                         "quarantined)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="Runtime sanitizer: float64 dtype-drift check on "
+                         "the sweep outputs (failed points stay in-band NaN)")
     from bdlz_tpu_torch.lz.options import (
         SWEEP_METHODS,
         add_bounce_flag,
@@ -131,6 +140,17 @@ def main(argv=None) -> None:
         ap.error(f"--lz-mode {args.lz_mode} derives P per point from a "
                  "bounce profile; pass --lz-profile or --bounce")
 
+    if args.sanitize:
+        from bdlz_tpu_torch import sanitize
+
+        # no op-level NaN check here: the sweep reports failed points as
+        # in-band NaN by design; that stricter mode is --debug-nans
+        sanitize.enable(nans=False)
+    if args.debug_nans:
+        from bdlz_tpu_torch.utils.profiling import enable_nan_debugging
+
+        enable_nan_debugging(True)
+
     from bdlz_tpu_torch.config import load_config, static_choices_from_config, validate
     from bdlz_tpu_torch.constants import PLANCK_DM_OVER_B
     from bdlz_tpu_torch.parallel.sweep import run_sweep
@@ -168,7 +188,12 @@ def main(argv=None) -> None:
         impl=args.impl, fuse_exp=args.fuse_exp,
         device=args.device, lz_profile=args.lz_profile, lz_method=args.lz_method,
         lz_gamma_phi=args.lz_gamma_phi, bounce=args.bounce,
+        trace_dir=args.profile_dir,
     )
+    if args.sanitize:
+        # the output boundary: dtype drift is a hard error; failed points
+        # are in-band NaN, counted by n_failed
+        sanitize.check_tree("L4:solver -> output (sweep)", res.outputs, allow_nan=True)
 
     ratios = res.outputs["DM_over_B"]
     finite = np.isfinite(ratios)

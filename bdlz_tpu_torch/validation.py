@@ -9,6 +9,10 @@ instead of in a per-point loop).  The LZ scenario and bounce gates
 (``chain_mode_audit``, ``thermal_mode_audit``, ``bounce_audit``,
 ``bdlz_tpu/validation.py:558-862``) score the same populations with the
 same tolerances; their kernels run on the ``device`` they are given.
+
+The engine gate's truth (``reference_ratios``, ``bdlz_tpu/validation.py:
+428-547``) is the port's own per-point CPU f64 loop over its direct
+pipeline, cached on disk under the JAX package's key layout.
 """
 from __future__ import annotations
 
@@ -345,6 +349,93 @@ def population_max_rel(run_chunk, chunk: int, ref: np.ndarray) -> float:
             file=sys.stderr, flush=True,
         )
     return float(np.max(errs[nz]))
+
+
+def engine_population_max_rel(
+    pop_grid, ref: np.ndarray, static, table, *, impl: str, n_y: int, device=None,
+) -> float:
+    """Run the sweep engine ``impl`` over the population grid in one
+    chunk on ``device`` (``table`` is its aux: the device F-table, or the
+    KJMA z-grid for ``direct``) and measure :func:`population_max_rel`."""
+    from bdlz_tpu_torch.backend import resolve_device
+    from bdlz_tpu_torch.interop import point_params_from_numpy
+    from bdlz_tpu_torch.parallel.sweep import make_sweep_step
+
+    dev = resolve_device(device)
+    step = make_sweep_step(static, n_y, impl)
+    n = int(ref.shape[0])
+
+    def run_chunk(lo, hi):
+        pp = type(pop_grid)(*(np.asarray(f)[lo:hi] for f in pop_grid))
+        return step(point_params_from_numpy(pp, dev), table).DM_over_B.cpu().numpy()
+
+    return population_max_rel(run_chunk, n, ref)
+
+
+def reference_ratios(grid, static, n_y: "int | None" = None) -> np.ndarray:
+    """DM_over_B per point on the port's reference path: the direct
+    pipeline (``point_yields``) on the CPU in f64, one point at a time.
+
+    ``n_y`` overrides the quadrature resolution so a gate compares at
+    equal discretization; with ``static.quad_panel_gl`` resolved True the
+    reference runs the same panel rule over the direct integrand."""
+    from bdlz_tpu_torch.interop import point_params_from_numpy
+    from bdlz_tpu_torch.models.yields_pipeline import point_yields
+    from bdlz_tpu_torch.physics.percolation import make_kjma_grid
+
+    if n_y is not None and int(n_y) != static.n_y:
+        static = static._replace(n_y=int(n_y))
+    kgrid = make_kjma_grid("cpu")
+    n = int(np.asarray(grid.m_chi_GeV).shape[0])
+    out = np.empty(n)
+    for i in range(n):
+        pp_i = type(grid)(*(np.asarray(f, dtype=np.float64)[i:i + 1] for f in grid))
+        out[i] = float(point_yields(point_params_from_numpy(pp_i, "cpu"), static,
+                                    kgrid).DM_over_B[0])
+    return out
+
+
+def reference_ratios_cached(
+    grid, static, n_y: "int | None" = None, cache_dir: "str | None" = None,
+    stats: "dict | None" = None,
+) -> np.ndarray:
+    """:func:`reference_ratios` with an on-disk cache in the hardened
+    provenance store, keyed by ``refcache_identity`` (population bytes,
+    the static choices, n_y and the reference source fingerprint), as
+    ``ref_<key>.npy``.  The default directory is
+    ``$XDG_CACHE_HOME``/``~/.cache`` + ``bdlz_torch_refcache``;
+    ``BDLZ_REF_CACHE_DIR=''`` disables it.  ``stats`` records
+    ``{"cache_hit": bool}``."""
+    import os
+
+    from bdlz_tpu_torch.provenance import Store, StoreUntrustedError
+    from bdlz_tpu_torch.provenance.identity import refcache_identity
+
+    if cache_dir is None:
+        cache_root = os.environ.get(
+            "XDG_CACHE_HOME", os.path.join(os.path.expanduser("~"), ".cache"))
+        cache_dir = os.environ.get(
+            "BDLZ_REF_CACHE_DIR", os.path.join(cache_root, "bdlz_torch_refcache"))
+    if stats is not None:
+        stats["cache_hit"] = False
+    if not cache_dir:
+        return reference_ratios(grid, static, n_y=n_y)
+    try:
+        store = Store(cache_dir)
+    except StoreUntrustedError as exc:
+        print(f"[refcache] {exc}; refusing to trust it (caching disabled)",
+              file=sys.stderr)
+        return reference_ratios(grid, static, n_y=n_y)
+    name = f"ref_{refcache_identity(grid, static, n_y).digest(24)}.npy"
+    n = int(np.asarray(grid.m_chi_GeV).shape[0])
+    out = store.get_array(name)
+    if out is not None and out.shape == (n,):
+        if stats is not None:
+            stats["cache_hit"] = True
+        return out
+    out = reference_ratios(grid, static, n_y=n_y)
+    store.put_array(name, out)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -32,15 +32,24 @@ MCMC CLI's defaults over (m_chi, P) of the archived config, NUTS from its
 walkers, a stretch run backed by the emulator_path artifact against its
 exact twin, the card's logp, gradient and chain against the CPU's,
 finite-difference parity, a checkpointed NUTS chain cut and resumed, and
-``python -m bdlz_tpu_torch.mcmc_cli`` in a subprocess.
+``python -m bdlz_tpu_torch.mcmc_cli`` in a subprocess.  Then the host
+planes (``host_planes``: the g++-built CSV parser against NumPy on a
+1,000,001-sample profile, the per-point CPU reference on 64 audit points
+against the card's K1 engine, ``sweep_cli --sanitize --profile-dir`` and
+``--debug-nans``) and the serving plane (``serving_path``: the emulator_path
+artifact served by the single service under 65,536 queries, mixed
+requests whose exact fallback runs K1, the 2-replica fleet with its fault
+drills, a rollout cutover under load, and ``python -m bdlz_tpu_torch.serve``
+in subprocesses).
 
 Every phase prints one JSON line; the card's name and power limit as
 ``nvidia-smi`` reports them and a ``kernels`` line come before the last
 line, which is ``{"ok": true, "device": {...}}``.  Any failed check ends
 the script with a non-zero exit and no ``ok`` line; so does a machine
 without a CUDA device, or a directory without the port.  Imports nothing
-of JAX or of the JAX package.  ``--only robust_path,emulator_path,sampling_path``
-runs just those phases (after the build) and prints no ``ok`` line.
+of JAX or of the JAX package.  ``--only host_planes,serving_path`` (or any
+of robust_path, emulator_path, sampling_path) runs just those phases
+(after the build) and prints no ``ok`` line.
 """
 from __future__ import annotations
 
@@ -825,6 +834,11 @@ def phase_bounce_path(dev) -> dict:
             **timing, "solution": sol}
 
 
+# The local-momentum pre-pass is a host loop over every (v_w, T_p, m_chi)
+# point (~44 s per 32768-point sweep, paid by the K1 run and by its
+# tabulated reference); its sweeps run every fourth m_chi, one 8192-point
+# chunk, to keep the whole script near ten minutes.
+LM_AXES = dict(MAIN_AXES, m_chi_GeV=MAIN_AXES["m_chi_GeV"][::4])
 LZ_METHODS = {  # sweep estimators and scenarios of the lz_path sweeps
     "local": ({}, {"lz_method": "local"}),
     "coherent": ({}, {"lz_method": "coherent"}),
@@ -903,17 +917,21 @@ def phase_lz_path(dev, sol, kernel_pps: float) -> None:
         static = static_choices_from_config(base)
         common = dict(chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev,
                       bounce=bounce, **kw)
-        res, counts = _launches_around(lambda: run_sweep(base, MAIN_AXES, static,
+        axes = LM_AXES if name == "local-momentum" else MAIN_AXES
+        n_points = int(np.prod([len(v) for v in axes.values()]))
+        res, counts = _launches_around(lambda: run_sweep(base, axes, static,
                                                          impl="kernel", **common))
-        check(res.n_points == 32768 and res.n_failed == 0, f"{name}: 32768 finite points")
-        check(counts["reduce"] == 4 and counts["bounce_shoot"] == 1,
-              f"{name}: K1 launched 4 times and the shoot once, got {counts}")
-        ref = run_sweep(base, MAIN_AXES, static._replace(quad_panel_gl=False),
+        check(res.n_points == n_points and res.n_failed == 0,
+              f"{name}: {n_points} finite points")
+        check(counts["reduce"] == n_points // N_POINTS and counts["bounce_shoot"] == 1,
+              f"{name}: K1 launched once per chunk and the shoot once, got {counts}")
+        ref = run_sweep(base, axes, static._replace(quad_panel_gl=False),
                         impl="tabulated", **common)
         rel = _max_rel(res.outputs["DM_over_B"], ref.outputs["DM_over_B"])
         check(rel <= LZ_SWEEP_RTOL, f"{name}: kernel vs tabulated {rel:.3e}")
         check("bounce" in res.lz_identity, f"{name}: the potential keys the sweep")
-        sweeps[name] = {"points_per_sec": res.points_per_sec, "sweep_seconds": res.seconds,
+        sweeps[name] = {"points": n_points, "points_per_sec": res.points_per_sec,
+                        "sweep_seconds": res.seconds,
                         "lz_prepass_seconds": res.lz_seconds, "launches": counts,
                         "max_rel_vs_tabulated": rel, "lz_identity": res.lz_identity}
     emit({"phase": "lz_path", "seconds": time.perf_counter() - t0, "tables": tables,
@@ -1067,6 +1085,21 @@ N_QUERIES, N_SPOT = 65536, 2048
 EMU_TABLE_RTOL, QUERY_RTOL, BAND_ATOL = 1e-10, 1e-14, 1e-12
 
 
+def _build_emu_box(dev):
+    """The bench's 4-D box built through K1: ((artifact, report), the
+    build's launch counts, seconds)."""
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.emulator import AxisSpec, build_emulator
+
+    base = config_from_dict(ARCHIVED)
+    spec = {k: AxisSpec(*v) for k, v in EMU_SPEC.items()}
+    t1 = time.perf_counter()
+    out, counts = _launches_around(lambda: build_emulator(
+        base, spec, static_choices_from_config(base), rtol=1e-4, n_probe=48, max_rounds=25,
+        n_y=N_Y, chunk_size=N_POINTS, seed=0, impl="kernel", device=dev))
+    return out, counts, time.perf_counter() - t1
+
+
 def phase_emulator_path(dev):
     """The emulator: the bench's 4-D box built through K1, 512 of its
     nodes against the plain tabulated engine on the CPU, save and reload,
@@ -1093,12 +1126,7 @@ def phase_emulator_path(dev):
     t0 = time.perf_counter()
     base = config_from_dict(ARCHIVED)
     static = static_choices_from_config(base)
-    spec = {k: AxisSpec(*v) for k, v in EMU_SPEC.items()}
-    t1 = time.perf_counter()
-    (art, rep), counts = _launches_around(lambda: build_emulator(
-        base, spec, static, rtol=1e-4, n_probe=48, max_rounds=25, n_y=N_Y,
-        chunk_size=N_POINTS, seed=0, impl="kernel", device=dev))
-    build_s = time.perf_counter() - t1
+    (art, rep), counts, build_s = _build_emu_box(dev)
     build_k1 = counts["reduce"]
     check(build_k1 > 0, f"the build launched K1, got {counts}")
     shape = tuple(len(n) for n in art.axis_nodes)
@@ -1438,10 +1466,362 @@ def phase_sampling_path(dev, artifact=None) -> None:
                   "map_logp": summary["map_logp"], "chain_equals_in_process": cli_same}})
 
 
+# The host planes: the native CSV parser on the lz_path profile size, the
+# engine gate's reference on 64 audit points against the card's K1 sweep,
+# and the sweep CLI's debugging flags in subprocesses.
+N_PROFILE, N_AUDIT, REF_RTOL = 1_000_001, 64, 1e-9
+
+
+def _subprocess_env() -> dict:
+    root = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def phase_host_planes(dev) -> None:
+    """The native parser against NumPy on a 1,000,001-sample profile
+    (bitwise, both timed; the card's machine must build and use it), the
+    per-point CPU reference on 64 audit points against the card's K1
+    sweep engine, ``sweep_cli --sanitize --profile-dir`` (a trace per
+    chunk, the summary unchanged) and ``--debug-nans`` on a NaN grid
+    (a non-zero exit naming the op)."""
+    from bdlz_tpu_torch import native
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.lz import profile as lzp
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table, table_to_device
+    from bdlz_tpu_torch.parallel.sweep import run_sweep
+    from bdlz_tpu_torch.validation import (
+        build_audit_population,
+        engine_population_max_rel,
+        reference_ratios,
+    )
+
+    t0 = time.perf_counter()
+    check(native.native_available(), "the native CSV parser built with g++ on this machine")
+    work = tempfile.mkdtemp(prefix="bdlz_host_")
+    try:
+        rng = np.random.default_rng(3)
+        xi = np.linspace(-50.0, 50.0, N_PROFILE)
+        prof = np.stack([xi, 1e-3 * np.tanh(xi) + rng.normal(0, 1e-9, N_PROFILE),
+                         np.full(N_PROFILE, 0.3)], axis=1)
+        csv = os.path.join(work, "profile.csv")
+        np.savetxt(csv, prof, delimiter=",", header="xi,delta,m_mix", comments="",
+                   fmt="%.17g")
+        t1 = time.perf_counter()
+        n_names, n_data = lzp._read_csv(csv)
+        native_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        p_names, p_data = lzp.read_csv_numpy(csv)
+        numpy_s = time.perf_counter() - t1
+        check(n_names == p_names and n_data.tobytes() == p_data.tobytes()
+              and n_data.tobytes() == prof.tobytes(), "native parse bitwise NumPy's")
+
+        # the engine gate: per-point CPU reference against K1 on the card
+        base = config_from_dict(ARCHIVED)
+        static = static_choices_from_config(base)._replace(quad_panel_gl=False, n_y=N_Y)
+        pop = build_audit_population(base, N_AUDIT)
+        t1 = time.perf_counter()
+        ref = reference_ratios(pop.grid, static)
+        ref_s = time.perf_counter() - t1
+        table = table_to_device(make_f_table(base.I_p, n=TABLE_N), dev)
+        ref_rel = engine_population_max_rel(pop.grid, ref, static, table, impl="kernel",
+                                            n_y=N_Y, device=dev)
+        check(ref_rel <= REF_RTOL, f"reference vs card K1 {ref_rel:.3e} <= {REF_RTOL:g}")
+
+        # the sweep CLI's debugging flags
+        cfg = os.path.join(work, "cfg.json")
+        with open(cfg, "w") as f:
+            json.dump(ARCHIVED, f)
+        env = _subprocess_env()
+        grid = ["--config", cfg, "--axis", "m_chi_GeV=geom:0.3:30:64", "--axis",
+                "T_p_GeV=geom:60:200:64", "--chunk", "2048", "--n-y", str(N_Y),
+                "--impl", "kernel"]
+
+        def sweep(*flags):
+            t1 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "bdlz_tpu_torch.sweep_cli", *grid,
+                                   *flags], env=env, capture_output=True, text=True,
+                                  timeout=300)
+            return proc, time.perf_counter() - t1
+
+        traces = os.path.join(work, "traces")
+        checked, checked_s = sweep("--sanitize", "--profile-dir", traces)
+        check(checked.returncode == 0, f"sweep_cli: {checked.stderr[-800:]}")
+        n_traces = len([f for f in os.listdir(traces) if f.endswith(".json")])
+        check(n_traces == 2, f"one trace per chunk: {n_traces} for 2 chunks")
+        # the same sweep in-process, without the flags
+        res = run_sweep(base, {"m_chi_GeV": np.geomspace(0.3, 30.0, 64),
+                               "T_p_GeV": np.geomspace(60.0, 200.0, 64)},
+                        static_choices_from_config(base), chunk_size=2048, n_y=N_Y,
+                        impl="kernel", device=dev)
+        got = json.loads(checked.stdout.splitlines()[-1])
+        best = got["closest_to_planck"]
+        same = ((got["n_points"], got["n_failed"], got["quad_impl"], got["n_quad_nodes"])
+                == (res.n_points, res.n_failed, res.quad_impl, res.n_quad_nodes)
+                and best["DM_over_B"] == float(res.outputs["DM_over_B"][best["index"]]))
+        check(same, f"--sanitize --profile-dir leave the summary unchanged: {got} vs "
+                    f"{(res.n_points, res.n_failed, res.quad_impl, res.n_quad_nodes)}")
+        grid[grid.index("T_p_GeV=geom:60:200:64")] = "P_chi_to_B=0.1,nan"
+        nan_run, nan_s = sweep("--debug-nans", "--quad", "off")
+        check(nan_run.returncode != 0 and "NaN produced by" in nan_run.stderr,
+              f"--debug-nans on a NaN grid: exit {nan_run.returncode}")
+        nan_op = nan_run.stderr.strip().splitlines()[-1]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "host_planes", "seconds": time.perf_counter() - t0,
+          "native": {"rows": N_PROFILE, "native_seconds": native_s, "numpy_seconds": numpy_s,
+                     "bitwise": True},
+          "reference": {"n": N_AUDIT, "n_y": N_Y, "cpu_seconds": ref_s,
+                        "k1_vs_reference_max_rel": ref_rel},
+          "sweep_cli": {"sanitize_profile_seconds": checked_s, "traces": n_traces,
+                        "summary_equals_in_process": same},
+          "debug_nans": {"exit": nan_run.returncode, "seconds": nan_s, "error": nan_op}})
+
+
+# The serving cells: the emulator_path artifact served at the serve CLI's
+# defaults (max-batch 256, max-wait 5 ms); 65,536 in-domain queries; 1,024
+# requests with 10% outside the box; 2 replicas on the one card.
+N_SERVE, N_MIXED, SERVE_BATCH, SERVE_WAIT_S = 65536, 1024, 256, 0.005
+FALLBACK_RTOL = 1e-10
+
+
+def _serve_stream(submit, thetas):
+    """Submit every query, stamp each future's resolution: (answers,
+    latencies in s, wall s)."""
+    done = [0.0] * len(thetas)
+
+    def stamp(i, t_sub):
+        def cb(_f):
+            done[i] = time.monotonic() - t_sub
+        return cb
+
+    t0 = time.monotonic()
+    futs = []
+    for i, th in enumerate(thetas):
+        fut = submit(th)
+        fut.add_done_callback(stamp(i, time.monotonic()))
+        futs.append(fut)
+    answers = [f.result() for f in futs]
+    return answers, np.asarray(done), time.monotonic() - t0
+
+
+def _mixed_queries(lo, hi, n, seed):
+    """``n`` queries in the box, 10% of them pushed 5% past one edge."""
+    rng = np.random.default_rng(seed)
+    th = lo + (hi - lo) * rng.uniform(size=(n, len(lo)))
+    out = rng.choice(n, n // 10, replace=False)
+    for i in out:
+        k = rng.integers(len(lo))
+        th[i, k] = hi[k] * 1.05 if rng.integers(2) else lo[k] - 0.05 * (hi[k] - lo[k])
+    return th
+
+
+def _pump_fleet(fleet, thetas):
+    futs = []
+    for th in thetas:
+        futs.append(fleet.submit(th))
+        fleet.run_once()
+        fleet.poll()
+    fleet.drain()
+    return [f.result(timeout=0) for f in futs]
+
+
+def phase_serving_path(dev, artifact=None):
+    """The serving plane on the emulator_path artifact (built here when
+    run alone): the single service under 65,536 in-domain queries (q/s,
+    p50/p99), the mixed requests whose exact fallback runs K1 (against
+    the plain tabulated engine on the CPU), the 2-replica fleet (bitwise
+    the 1-replica one, a replica fault re-answered, every breaker open
+    answered through K1), a rollout cutover under load, and the serve
+    CLI (``--bench``, ``--requests``) in subprocesses.  Returns the K1
+    launches of the serving run."""
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.emulator import load_artifact, make_exact_evaluator, save_artifact
+    from bdlz_tpu_torch.faults import FaultPlan
+    from bdlz_tpu_torch.serve import ArtifactRollout, FleetService, YieldService
+
+    t0 = time.perf_counter()
+    base = config_from_dict(ARCHIVED)
+    if artifact is None:
+        (artifact, _), _, _ = _build_emu_box(dev)
+    work = tempfile.mkdtemp(prefix="bdlz_serve_")
+    try:
+        art_dir = os.path.join(work, "art")
+        save_artifact(art_dir, artifact)
+        art = load_artifact(art_dir)
+        lo, hi = art.hull
+
+        def serving_run():
+            svc = YieldService(art, base, max_batch_size=SERVE_BATCH, device=dev)
+            check(svc.exact_engine == "kernel", f"exact fallback engine {svc.exact_engine}")
+            rng = np.random.default_rng(21)
+            inside = lo + (hi - lo) * rng.uniform(size=(N_SERVE, len(lo)))
+            mb = svc.make_batcher(max_wait_s=SERVE_WAIT_S)
+            mb.start()
+            try:
+                values, lat, wall = _serve_stream(mb.submit, inside)
+            finally:
+                mb.stop()
+            mixed = _mixed_queries(lo, hi, N_MIXED, 22)
+            res = [svc.process_batch(mixed[i:i + SERVE_BATCH])
+                   for i in range(0, N_MIXED, SERVE_BATCH)]
+            return svc, inside, np.asarray(values), lat, wall, mixed, res
+
+        (svc, inside, values, lat, wall, mixed, res), counts = _launches_around(serving_run)
+        k1 = counts["reduce"]
+        summary = svc.stats.summary()
+        check(bool(np.all(np.isfinite(values))) and summary["requests"] == N_SERVE,
+              "every in-domain query answered, finite")
+        mixed_vals = np.concatenate([np.asarray(r.values) for r in res])
+        reasons = sum((list(r.reasons) for r in res), [])
+        fb = np.array([r is not None for r in reasons])
+        n_ood = sum(r == "ood" for r in reasons)
+        check(n_ood == N_MIXED // 10 and k1 >= 1,
+              f"{n_ood} out-of-domain requests, {k1} K1 launches by the fallback")
+        static = static_choices_from_config(base)._replace(quad_panel_gl=False)
+        cols = {n: mixed[fb, k] for k, n in enumerate(art.axis_names)}
+        plain = make_exact_evaluator(base, static, n_y=N_Y, impl="tabulated",
+                                     chunk_size=int(fb.sum()), device="cpu")(cols)["DM_over_B"]
+        fb_rel = _max_rel(mixed_vals[fb], plain)
+        check(fb_rel <= FALLBACK_RTOL, f"fallback vs CPU tabulated {fb_rel:.3e}")
+
+        # the host cost of one in-domain batch: the single service's
+        # process_batch and one fleet replica's dispatch + gather
+        batch = inside[:SERVE_BATCH]
+        one_svc = FleetService(art, base, n_replicas=1)
+        rset = one_svc.replica_set
+        per_batch = {"service": lambda: svc.process_batch(batch),
+                     "fleet_dispatch": lambda: rset.dispatch(batch).gather()}
+        hot = {}
+        for name, fn in per_batch.items():
+            fn()
+            samples = []
+            for _ in range(50):
+                t1 = time.perf_counter()
+                fn()
+                samples.append((time.perf_counter() - t1) * 1e3)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+            kernels, copies = _kernel_count(prof)
+            hot[name] = {"host_ms_median": float(np.median(samples)),
+                         "host_ms_min": float(np.min(samples)),
+                         "kernels_per_batch": kernels / 10, "copies_per_batch": copies / 10,
+                         "device_ms_per_batch": sum(_device_ms(prof).values()) / 10}
+
+        # the fleet: 2 replicas on the one card against 1
+        fleet_th = mixed[:512]
+        one = _pump_fleet(one_svc, fleet_th)
+        t1 = time.perf_counter()
+        two_svc = FleetService(art, base, n_replicas=2, routing="round_robin")
+        two = _pump_fleet(two_svc, fleet_th)
+        fleet_s = time.perf_counter() - t1
+        bitwise = (np.array([r.value for r in two]).tobytes()
+                   == np.array([r.value for r in one]).tobytes())
+        check(bitwise and {r.replica for r in two} == {0, 1},
+              "2-replica answers bitwise the 1-replica ones, both replicas used")
+        faulty = FleetService(art, base, n_replicas=2, fault_plan=FaultPlan.from_obj(
+            [{"site": "replica_dispatch", "kind": "nan", "key": 0}]))
+        healed = _pump_fleet(faulty, fleet_th)
+        healed_ok = (np.array([r.value for r in healed]).tobytes()
+                     == np.array([r.value for r in one]).tobytes())
+        check(healed_ok and faulty.health.healed_batches >= 1,
+              f"replica fault re-answered bitwise ({faulty.health.summary()})")
+        dead = FleetService(art, base, n_replicas=2, fault_plan=FaultPlan.from_obj(
+            [{"site": "replica_dispatch", "kind": "raise"}]))
+        degraded, dcounts = _launches_around(lambda: _pump_fleet(dead, fleet_th[:256]))
+        deg_rel = _max_rel([r.value for r in degraded],
+                           make_exact_evaluator(base, static, n_y=N_Y, impl="tabulated",
+                                                chunk_size=256, device="cpu")(
+                               {n: fleet_th[:256, k] for k, n in enumerate(art.axis_names)}
+                           )["DM_over_B"])
+        check(all(r.degraded for r in degraded) and dcounts["reduce"] >= 1
+              and deg_rel <= FALLBACK_RTOL,
+              f"every breaker open: degraded through K1 ({dcounts['reduce']}), {deg_rel:.3e}")
+
+        # a rollout cutover under load
+        art2_dir = os.path.join(work, "art2")
+        manifest = {k: v for k, v in art.manifest.items() if k != "hash"}
+        save_artifact(art2_dir, art._replace(
+            values={k: np.asarray(v) * 1.001 for k, v in art.values.items()},
+            manifest=manifest))
+        ro = ArtifactRollout(two_svc)
+        futs, old_hash, n_roll = [], two_svc.artifact_hash, min(4096, len(inside))
+        for i, th in enumerate(inside[:n_roll]):
+            futs.append(two_svc.submit(th))
+            two_svc.run_once()
+            two_svc.poll()
+            if i == n_roll // 2:
+                new_hash = ro.stage(art2_dir)
+                ro.cutover()
+        two_svc.drain()
+        rolled = [f.result(timeout=0) for f in futs]
+        order = [r.artifact_hash for r in rolled]
+        n_old = order.count(old_hash)
+        check(len(rolled) == n_roll and 0 < n_old < n_roll
+              and order == [old_hash] * n_old + [new_hash] * (n_roll - n_old),
+              "cutover: every request answered, old artifact then new, never mixed")
+
+        # the serve CLI in subprocesses
+        cfg = os.path.join(work, "cfg.json")
+        with open(cfg, "w") as f:
+            json.dump(ARCHIVED, f)
+        req = os.path.join(work, "req.jsonl")
+        with open(req, "w") as f:
+            for i, th in enumerate(mixed):
+                f.write(json.dumps({"id": i, **dict(zip(art.axis_names, map(float, th)))})
+                        + "\n")
+        env = _subprocess_env()
+        cli = [sys.executable, "-m", "bdlz_tpu_torch.serve", "--config", cfg,
+               "--artifact", art_dir]
+        t1 = time.perf_counter()
+        bench = subprocess.run(cli + ["--bench", str(N_SERVE)], env=env,
+                               capture_output=True, text=True, timeout=300)
+        bench_s = time.perf_counter() - t1
+        check(bench.returncode == 0, f"serve --bench: {bench.stderr[-1500:]}")
+        brec = json.loads(bench.stdout.strip().splitlines()[-1])
+        check(brec["finite"] == brec["requests"] == N_SERVE,
+              f"serve --bench answers {brec['finite']} of {N_SERVE}")
+        reqs = subprocess.run(cli + ["--requests", req], env=env, capture_output=True,
+                              text=True, timeout=300)
+        check(reqs.returncode == 0, f"serve --requests: {reqs.stderr[-1500:]}")
+        recs = [json.loads(ln) for ln in reqs.stdout.strip().splitlines()]
+        cli_same = ([r["value"] for r in recs] == [float(v) for v in mixed_vals]
+                    and [r["fallback_reason"] for r in recs] == reasons)
+        check(cli_same, "serve --requests answers equal the in-process ones")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "serving_path", "seconds": time.perf_counter() - t0,
+          "exact_fallback_engine": svc.exact_engine,
+          "service": {"n": N_SERVE, "max_batch": SERVE_BATCH, "max_wait_ms": SERVE_WAIT_S * 1e3,
+                      "queries_per_sec": N_SERVE / wall, "wall_seconds": wall,
+                      "p50_latency_ms": float(np.percentile(lat, 50)) * 1e3,
+                      "p99_latency_ms": float(np.percentile(lat, 99)) * 1e3,
+                      "batches": summary["batches"], "mean_batch": summary["mean_batch"],
+                      "fallbacks": summary["fallbacks"], "gated": summary["gated_fallbacks"],
+                      "warmup_seconds": summary["warmup_seconds"]},
+          "mixed": {"n": N_MIXED, "ood": n_ood, "fallbacks": int(fb.sum()),
+                    "gated": int(sum(r.n_gated for r in res)), "k1_launches": k1,
+                    "fallback_vs_cpu_tabulated_max_rel": fb_rel},
+          "per_batch": hot,
+          "fleet": {"replicas": 2, "n": len(fleet_th), "seconds": fleet_s,
+                    "bitwise_vs_one_replica": bitwise, "fault_reanswered_bitwise": healed_ok,
+                    "health": faulty.health.summary(), "degraded_k1_launches": dcounts["reduce"],
+                    "degraded_vs_cpu_tabulated_max_rel": deg_rel},
+          "rollout": {"requests": len(rolled), "dropped": 0, "answered_by_old": n_old,
+                      "hashes": [old_hash, new_hash]},
+          "cli": {"bench_queries_per_sec": brec["value"], "bench_wall_seconds": bench_s,
+                  "bench_fallbacks": brec["fallbacks"],
+                  "requests_equal_in_process": cli_same}})
+    return k1
+
+
 #: Phases that can run on their own (``--only``); such a run prints no
 #: kernels line and no ok line.
 STANDALONE = {"robust_path": phase_robust_path, "emulator_path": phase_emulator_path,
-              "sampling_path": phase_sampling_path}
+              "sampling_path": phase_sampling_path, "host_planes": phase_host_planes,
+              "serving_path": phase_serving_path}
 
 
 def main(argv=None) -> int:
@@ -1482,6 +1862,9 @@ def main(argv=None) -> int:
     phase_robust_path(dev)
     artifact = phase_emulator_path(dev)
     phase_sampling_path(dev, artifact)
+    phase_host_planes(dev)
+    # K1's row counts the main path's launches and the serving run's
+    launches["reduce"] += phase_serving_path(dev, artifact)
     from bdlz_tpu_torch.ops import bounce_kernel as bk
 
     emit({"kernels": [{

@@ -5,7 +5,9 @@ import os
 import pathlib
 import subprocess
 import sys
+from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -91,3 +93,101 @@ def test_chip_smoke_fails_without_a_card_or_without_the_repo(tmp_path, alone):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+SEAM_BOX = {"m_chi_GeV": (20.0, 600.0, 3, "log"), "T_p_GeV": (95.0, 105.0, 2, "log")}
+
+
+def _seam_call(name, device):
+    from bdlz_tpu_torch.config import config_from_dict
+    from bdlz_tpu_torch.emulator import AxisSpec, multidomain
+
+    base = config_from_dict({"P_chi_to_B": 0.15, "source_shape_sigma_y": 1.5})
+    spec = {k: AxisSpec(*v) for k, v in SEAM_BOX.items()}
+    kw = {} if device is None else {"device": device}
+    if name == "seam_band_for_box":
+        return multidomain.seam_band_for_box(base, spec, rtol=1e-3, n_scan=65, **kw)
+    if name == "resolve_seam_split":
+        return multidomain.resolve_seam_split(base, spec, None, rtol=1e-3, safety=2.0, **kw)
+    return multidomain.build_seam_split_emulator(
+        base, spec, rtol=1e-3, n_probe=2, n_holdout=2, max_rounds=1, n_y=2000,
+        chunk_size=16, **kw)
+
+
+@pytest.mark.parametrize("name", ["seam_band_for_box", "resolve_seam_split",
+                                  "build_seam_split_emulator"])
+def test_the_seam_scan_without_a_card_raises_unless_asked_for_the_cpu(monkeypatch, name):
+    """C4: the seam scan used to default to the CPU while the build ran
+    on the card; every seam entry point now resolves its device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _seam_call(name, None)
+    if name != "build_seam_split_emulator":  # the build itself is tested elsewhere
+        assert _seam_call(name, "cpu") is not None
+
+
+def test_make_panel_scheme_takes_its_device_explicitly():
+    from bdlz_tpu_torch.solvers.panels import make_panel_scheme
+
+    with pytest.raises(TypeError):
+        make_panel_scheme()
+    assert make_panel_scheme("cpu").nodes.device.type == "cpu"
+
+
+def _tiny_artifact():
+    from bdlz_tpu_torch.emulator import EmulatorArtifact
+
+    nodes = (np.array([0.9, 1.1]), np.array([90.0, 110.0]))
+    return EmulatorArtifact(
+        axis_names=("m_chi_GeV", "T_p_GeV"), axis_nodes=nodes, axis_scales=("log", "log"),
+        values={"DM_over_B": np.full((2, 2), 5.0)}, identity={}, manifest={})
+
+
+@pytest.mark.parametrize("entry", ["YieldService", "FleetService", "ReplicaSet",
+                                   "ArtifactRollout.stage"])
+def test_serving_entry_points_without_a_card_raise(monkeypatch, entry):
+    from bdlz_tpu_torch import serve
+    from bdlz_tpu_torch.config import config_from_dict
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = config_from_dict({"P_chi_to_B": 0.15})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "YieldService":
+            serve.YieldService(_tiny_artifact(), base)
+        elif entry == "FleetService":
+            serve.FleetService(_tiny_artifact(), base)
+        elif entry == "ReplicaSet":
+            serve.ReplicaSet(_tiny_artifact())
+        else:
+            # a rollout stages on its service's devices: the card's
+            svc = SimpleNamespace(
+                expected_identity={}, stats=None,
+                replica_set=SimpleNamespace(
+                    field="DM_over_B", n_replicas=1, max_batch_size=4,
+                    routing="least_loaded", error_gate=True, _faults=None,
+                    replicas=[SimpleNamespace(device=torch.device("cuda", 0))]))
+            serve.ArtifactRollout(svc).stage(_tiny_artifact())
+
+
+@pytest.mark.parametrize("cli", ["serve", "sweep_cli", "mcmc_cli"])
+def test_clis_without_a_card_raise_unless_asked_for_the_cpu(monkeypatch, tmp_path, cli):
+    import json
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"P_chi_to_B": 0.15}))
+    if cli == "serve":
+        from bdlz_tpu_torch.serve.serve_cli import main
+
+        argv = ["--config", str(cfg), "--artifact", str(tmp_path), "--bench", "4"]
+    elif cli == "sweep_cli":
+        from bdlz_tpu_torch.sweep_cli import main
+
+        argv = ["--config", str(cfg), "--axis", "m_chi_GeV=1", "--sanitize"]
+    else:
+        from bdlz_tpu_torch.mcmc_cli import main
+
+        argv = ["--config", str(cfg), "--param", "m_chi_GeV=0.5:2", "--walkers", "4",
+                "--steps", "2", "--burn", "0", "--sanitize"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)

@@ -404,3 +404,30 @@ def test_stretch_chain_on_the_card_is_the_cpu_chain(cuda):
     b = run_ensemble(_sampling_logp("cpu"), init, 30, generator=make_generator(1))
     assert int(a.final.n_accept) == int(b.final.n_accept)
     assert float((a.chain.cpu() - b.chain).abs().max()) <= 1e-10
+
+
+# ---- the serving plane on the card ------------------------------------------
+
+def test_yield_service_on_the_card_launches_k1_and_matches_the_cpu(cuda, tmp_path):
+    """64 queries, 16 outside the box: the exact fallback of an artifact
+    built with impl="kernel" runs K1 on the card; ≤1e-10 from the CPU."""
+    from bdlz_tpu_torch.emulator import AxisSpec, build_emulator, load_artifact
+    from bdlz_tpu_torch.serve import YieldService
+
+    base = config_from_dict(ARCHIVED)
+    spec = {"m_chi_GeV": AxisSpec(0.9, 1.1, 3, "log"), "T_p_GeV": AxisSpec(90.0, 110.0, 3, "log")}
+    build_emulator(base, spec, rtol=1e-3, n_probe=4, n_holdout=8, max_rounds=2, n_y=2000,
+                   impl="kernel", device=cuda, out_dir=str(tmp_path / "art"))
+    art = load_artifact(str(tmp_path / "art"))
+    assert art.identity["impl"] == "kernel"
+    rng = np.random.default_rng(9)
+    th = np.stack([rng.uniform(0.9, 1.1, 64), rng.uniform(90.0, 110.0, 64)], axis=1)
+    th[::4, 0] = rng.uniform(1.2, 1.5, 16)
+    on_card = YieldService(art, base, max_batch_size=64, device=cuda)
+    assert on_card.exact_engine == "kernel"
+    kk.reset_launches()
+    got, n_fb = on_card.evaluate(th)
+    assert n_fb >= 16 and kk.LAUNCHES["reduce"] >= 1
+    ref, n_ref = YieldService(art, base, max_batch_size=64, device="cpu").evaluate(th)
+    assert n_ref == n_fb
+    assert np.max(np.abs(got / ref - 1.0)) <= 1e-10

@@ -43,7 +43,8 @@ BOXES = [
 def test_seam_band_equals_jax(spec, over, rtol):
     d = dict(ARCHIVED, **over)
     got = te.seam_band_for_box(tc.config_from_dict(d),
-                               {k: te.AxisSpec(*v) for k, v in spec.items()}, rtol=rtol)
+                               {k: te.AxisSpec(*v) for k, v in spec.items()}, rtol=rtol,
+                               device="cpu")
     ref = je.seam_band_for_box(jc.config_from_dict(d),
                                {k: je.AxisSpec(*v) for k, v in spec.items()}, rtol=rtol)
     assert got == ref
@@ -55,7 +56,7 @@ def test_seam_split_resolution_equals_jax():
     for spec, split in ((SEAM, None), (SEAM, False), (smooth, None)):
         got = tm.resolve_seam_split(
             base_t, {k: te.AxisSpec(*v) for k, v in spec.items()}, split, rtol=1e-3,
-            safety=2.0)
+            safety=2.0, device="cpu")
         ref = jm.resolve_seam_split(
             base_j, {k: je.AxisSpec(*v) for k, v in spec.items()}, split, rtol=1e-3,
             safety=2.0)
@@ -63,7 +64,7 @@ def test_seam_split_resolution_equals_jax():
     with pytest.raises(te.MultiDomainBuildError, match="never crosses"):
         tm.resolve_seam_split(
             base_t, {k: te.AxisSpec(*v) for k, v in smooth.items()}, True, rtol=1e-3,
-            safety=2.0)
+            safety=2.0, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -151,7 +151,7 @@ def build_identity(
 
     ``traffic_fp`` (the content fingerprint of the served-traffic
     snapshot a ``refine_signal="traffic"``/``"traffic*planck"`` build
-    was weighted by; such builds come with ROADMAP D7) joins as its own
+    was weighted by, ``bdlz_tpu_torch/refine/traffic.py``) joins as its own
     ``traffic`` key with the same wildcard rule: two snapshots place
     nodes differently and must never share a surface, while a consumer
     that states no snapshot (every pre-closed-loop caller) matches any.

@@ -21,14 +21,14 @@ probe scores and the interval estimates by the Planck likelihood weight
 of the current surface (floored at 1e-3), so refinement follows the
 posterior mass; ``refine_signal="fisher"`` attributes a failing probe's
 error to the axis whose exact-pipeline gradient (``sampling.grad``) the
-interpolant misses most, instead of the curvature stencil.  Every exact evaluation goes through the
-port's ``run_sweep`` (the grid) or :func:`make_exact_evaluator` (the
-probes) with the build's fault plan, retry policy and store, and on the
-card with ``impl="kernel"`` through the K1 kernel.
-
-Options the port does not have yet raise :class:`EmulatorBuildError`
-naming their ROADMAP item: traffic-weighted refinement and ``elastic=``
-(serving and the elastic sweep, D7).
+interpolant misses most, instead of the curvature stencil;
+``refine_signal="traffic"`` (or ``"traffic*planck"``) weights the same
+criterion by the served-query density of a ``traffic=`` snapshot
+(``bdlz_tpu_torch/refine``).  Every exact evaluation goes through the
+port's ``run_sweep`` (the grid; ``elastic=`` routes it through the
+elastic fleet instead) or :func:`make_exact_evaluator` (the probes) with
+the build's fault plan, retry policy and store, and on the card with
+``impl="kernel"`` through the K1 kernel.
 """
 from __future__ import annotations
 
@@ -57,13 +57,10 @@ _LN10 = float(np.log(10.0))
 #: The fields whose exact gradient the Fisher signal compares.
 _GRAD_FIELDS = ["rho_B_kg_m3", "rho_DM_kg_m3"]
 
-_D7 = "ROADMAP D7b, serving and elastic sweeps"
-
-
 class EmulatorBuildError(RuntimeError):
     """The build could not produce a trustworthy surface (failed exact
-    points inside the box, an invalid spec, a spent refinement budget
-    with ``require_converged=True``, or an option not ported yet)."""
+    points inside the box, an invalid spec or option pairing, or a spent
+    refinement budget with ``require_converged=True``)."""
 
 
 class AxisSpec(NamedTuple):
@@ -127,16 +124,51 @@ def _draw_probes(spec: Mapping[str, AxisSpec], n: int, rng: np.random.Generator
 
 def _exact_fields(base, axes: Mapping[str, np.ndarray], static, *, chunk_size: int,
                   n_y: int, impl: str, device, fault_plan=None, retry=None, cache=None,
-                  lz_profile=None) -> Tuple[Dict[str, np.ndarray], int]:
+                  lz_profile=None, elastic=None) -> Tuple[Dict[str, np.ndarray], int]:
     """The exact pipeline over a product grid through ``run_sweep``
     (chunk healing included).  A point that stays failed — non-finite or
     quarantined — is an :class:`EmulatorBuildError`: the table masks
-    nothing."""
+    nothing.
+
+    ``elastic`` (a worker count, or a dict of ``run_sweep_elastic``
+    arguments) runs the grid on the elastic fleet instead, folding each
+    chunk as its commit lands; its results are bitwise the serial
+    engine's, so both fill the same surface."""
     from bdlz_tpu_torch.parallel.sweep import run_sweep
 
-    res = run_sweep(base, dict(axes), static, chunk_size=chunk_size, n_y=n_y,
-                    out_dir=None, keep_outputs=True, impl=impl, device=device,
-                    fault_plan=fault_plan, retry=retry, cache=cache, lz_profile=lz_profile)
+    if elastic:
+        from bdlz_tpu_torch.parallel.scheduler import run_sweep_elastic
+
+        if lz_profile is not None:
+            raise EmulatorBuildError(
+                "elastic build cannot ship per-point bounce profiles; "
+                "drop elastic=... or lz_profile=...")
+        if cache is None:
+            raise EmulatorBuildError(
+                "elastic build needs a shared store for the lease/commit "
+                "plane; pass cache=... (a store root or Store)")
+        opts = dict(elastic) if isinstance(elastic, Mapping) else {"n_workers": int(elastic)}
+        n_total = int(np.prod([len(np.asarray(v)) for v in axes.values()]))
+        flat: Dict[str, np.ndarray] = {}
+
+        def _consume(ci, lo, hi, ent):
+            # the streaming fold: each chunk lands as its commit is seen
+            for f in ent:
+                if f in ("failed", "quarantined", "n_retries"):
+                    continue
+                if f not in flat:
+                    flat[f] = np.full(n_total, np.nan)
+                flat[f][lo:hi] = np.asarray(ent[f])
+
+        res = run_sweep_elastic(
+            base, dict(axes), static, store=cache, chunk_size=chunk_size, n_y=n_y,
+            impl=impl, device=device, fault_plan=fault_plan, retry=retry,
+            on_chunk=_consume, keep_outputs=False, **opts)
+    else:
+        res = run_sweep(base, dict(axes), static, chunk_size=chunk_size, n_y=n_y,
+                        out_dir=None, keep_outputs=True, impl=impl, device=device,
+                        fault_plan=fault_plan, retry=retry, cache=cache,
+                        lz_profile=lz_profile)
     if res.n_failed:
         bad = np.argwhere(np.asarray(res.failed_mask))[:, 0]
         quarantined = (f", {res.n_quarantined} of them infrastructure-quarantined"
@@ -146,7 +178,7 @@ def _exact_fields(base, axes: Mapping[str, np.ndarray], static, *, chunk_size: i
             f"(non-finite) inside the emulator box{quarantined} (first flat index "
             f"{int(bad[0])}); shrink the box or fix the configuration"
         )
-    return dict(res.outputs), res.n_points
+    return (flat if elastic else dict(res.outputs)), res.n_points
 
 
 def make_exact_evaluator(base, static, *, n_y: int, impl: str, chunk_size: int = 2048,
@@ -468,11 +500,49 @@ def cell_error_estimates(log_values: Dict[str, np.ndarray], nodes: List[np.ndarr
     return total
 
 
-def _resolve_weighting(base, posterior_weight, refine_signal, traffic, elastic):
-    """The JAX package's validation of the weighting knobs (explicit
-    argument, else the config's), then a loud refusal of the options this
-    package does not have yet; returns the resolved (posterior_weight,
-    refine_signal)."""
+def _traffic_node_weights(nodes: List[np.ndarray], locations: np.ndarray,
+                          floor: float = 1e-3) -> Tuple[np.ndarray, np.ndarray]:
+    """Traffic weight of every grid node from a served-query snapshot:
+    the locations are clipped into the box (out-of-box mass pulls
+    refinement to the nearest edge cell), binned per cell on the current
+    grid, normalised to ``clip(count / max count, floor, 1)``, then lifted
+    to the nodes by the max over adjacent cells.  Returns ``(node_weights,
+    cell_weights)``; the cell weights score probes."""
+    locs = np.atleast_2d(np.asarray(locations, dtype=np.float64))
+    for k, ax in enumerate(nodes):
+        locs[:, k] = np.clip(locs[:, k], float(ax[0]), float(ax[-1]))
+    counts, _ = np.histogramdd(locs, bins=[np.asarray(a) for a in nodes])
+    top = counts.max()
+    w_cell = (np.clip(counts / top, floor, 1.0) if top > 0
+              else np.full(counts.shape, floor))
+    # node i touches cells i-1 and i along each axis
+    w_node = w_cell
+    for k in range(w_node.ndim):
+        edge_lo = tuple(slice(0, 1) if j == k else slice(None) for j in range(w_node.ndim))
+        edge_hi = tuple(slice(-1, None) if j == k else slice(None) for j in range(w_node.ndim))
+        ext = np.concatenate([w_node[edge_lo], w_node, w_node[edge_hi]], axis=k)
+        lo = tuple(slice(None, -1) if j == k else slice(None) for j in range(ext.ndim))
+        hi = tuple(slice(1, None) if j == k else slice(None) for j in range(ext.ndim))
+        w_node = np.maximum(ext[lo], ext[hi])
+    return w_node, w_cell
+
+
+def _traffic_probe_weights(nodes: List[np.ndarray], probes: np.ndarray,
+                           w_cell: np.ndarray) -> np.ndarray:
+    """The traffic cell weight at each probe point."""
+    idx = tuple(
+        np.clip(np.searchsorted(nodes[k], probes[:, k], side="right") - 1,
+                0, len(nodes[k]) - 2)
+        for k in range(len(nodes)))
+    return w_cell[idx]
+
+
+def _resolve_weighting(base, posterior_weight, refine_signal, traffic, spec):
+    """The JAX build's validation of the weighting knobs (explicit
+    argument, else the config's) and of the traffic pairing: a traffic
+    signal needs a snapshot, and a snapshot needs a traffic signal.
+    Returns ``(posterior_weight, refine_signal, traffic_fp,
+    traffic_locations)``."""
     from bdlz_tpu_torch.config import VALID_POSTERIOR_WEIGHTS, VALID_REFINE_SIGNALS
 
     pw = posterior_weight if posterior_weight is not None else getattr(
@@ -484,14 +554,31 @@ def _resolve_weighting(base, posterior_weight, refine_signal, traffic, elastic):
     if rs is not None and rs not in VALID_REFINE_SIGNALS:
         raise EmulatorBuildError(
             f"refine_signal={rs!r} is not one of {VALID_REFINE_SIGNALS} (or None = curvature)")
-    if rs in ("traffic", "traffic*planck") or traffic is not None:
+    traffic_on = rs in ("traffic", "traffic*planck")
+    if traffic_on and traffic is None:
         raise EmulatorBuildError(
-            f"traffic-weighted refinement (refine_signal={rs!r}, traffic=...) needs "
-            f"the refine plane, not ported to bdlz_tpu_torch yet ({_D7})")
-    if elastic:
+            f"refine_signal={rs!r} weights refinement by served traffic; "
+            "pass traffic=<TrafficSnapshot> (bdlz_tpu_torch.refine) to "
+            "build_emulator")
+    if traffic is not None and not traffic_on:
         raise EmulatorBuildError(
-            f"elastic=... needs the elastic scheduler, not ported to bdlz_tpu_torch yet ({_D7})")
-    return pw, rs
+            f"traffic=<snapshot> requires refine_signal 'traffic' or "
+            f"'traffic*planck' (resolved: {rs!r}) — a snapshot the "
+            "refinement never consults would silently change nothing")
+    if traffic is None:
+        return pw, rs, None, None
+    t_axes = tuple(str(n) for n in traffic.axis_names)
+    if t_axes != tuple(spec):
+        raise EmulatorBuildError(
+            f"traffic snapshot axes {t_axes} do not match the emulator spec "
+            f"axes {tuple(spec)} (order included) — query locations would be "
+            "binned against the wrong coordinates")
+    locs = np.atleast_2d(np.asarray(traffic.locations, dtype=np.float64))
+    if locs.shape[0] == 0:
+        raise EmulatorBuildError(
+            "traffic snapshot carries zero query locations; nothing to weight "
+            "by — serve traffic first or drop the signal")
+    return pw, rs, str(traffic.fingerprint), locs
 
 
 def build_emulator(
@@ -541,11 +628,14 @@ def build_emulator(
     ``bounce`` feed a chain or thermal ``lz_mode``.  The engine resolves
     as the JAX build resolves it, with ``"kernel"`` (the CUDA kernels) in
     place of ``"pallas"``; ``device`` is the card unless the caller asks
-    for the CPU.  ``posterior_weight``, ``refine_signal``, ``traffic`` and
-    ``elastic`` are refused (see the module docstring);
-    ``posterior_weight`` ("planck", or ``Config.posterior_weight``) and
-    ``refine_signal`` ("fisher", or ``Config.refine_signal``) steer the
-    refinement as in the JAX build, and join the artifact identity.
+    for the CPU.  ``posterior_weight`` ("planck", or
+    ``Config.posterior_weight``) and ``refine_signal`` ("fisher",
+    "traffic", "traffic*planck", or ``Config.refine_signal``) steer the
+    refinement as in the JAX build and join the artifact identity; a
+    traffic signal takes its query locations from ``traffic`` (a
+    ``TrafficSnapshot``, whose fingerprint joins the identity).
+    ``elastic`` (a worker count or ``run_sweep_elastic`` arguments) fills
+    the grid through the elastic fleet over the store ``cache``.
     """
     from bdlz_tpu_torch.backend import resolve_device
     from bdlz_tpu_torch.config import needs_ode_path, static_choices_from_config, validate
@@ -572,7 +662,11 @@ def build_emulator(
     unknown = sorted(set(spec) - set(AXIS_MAP))
     if unknown:
         raise EmulatorBuildError(f"unknown emulator axes {unknown}; valid: {sorted(AXIS_MAP)}")
-    pw, rs = _resolve_weighting(base, posterior_weight, refine_signal, traffic, elastic)
+    pw, rs, traffic_fp, traffic_locs = _resolve_weighting(
+        base, posterior_weight, refine_signal, traffic, spec)
+    traffic_on = traffic_fp is not None
+    # "traffic*planck" composes both weights even with posterior_weight off
+    use_planck = pw is not None or rs == "traffic*planck"
 
     lz_mode = getattr(static, "lz_mode", "two_channel")
     bounce_fp = None
@@ -581,6 +675,10 @@ def build_emulator(
             raise EmulatorBuildError(
                 "pass either bounce or lz_profile, not both — the bounce "
                 "solver derives the profile the lz_profile seam would load")
+        if elastic:
+            raise EmulatorBuildError(
+                "elastic build cannot ship per-point bounce profiles; "
+                "drop elastic=... or bounce=...")
         if lz_mode == "two_channel":
             raise EmulatorBuildError(
                 "bounce requires a scenario lz_mode ('chain'/'thermal') "
@@ -616,6 +714,9 @@ def build_emulator(
     band = resolve_seam_split(base, spec, seam_split, rtol=float(rtol), safety=float(safety),
                               device=dev)
     if band is not None:
+        if elastic:
+            print("[emulator] seam-split builds run the serial sweep engine per "
+                  "sub-domain; ignoring elastic=...", file=sys.stderr)
         return build_seam_split_emulator(
             base, spec, static, band=band, out_dir=out_dir, event_log=event_log,
             rtol=rtol, safety=safety, n_probe=n_probe, n_holdout=n_holdout,
@@ -625,7 +726,7 @@ def build_emulator(
             posterior_weight=pw, refine_signal=rs,
             # sub-builds re-derive the profile from the spec
             lz_profile=None if bounce_fp is not None else lz_profile, bounce=bounce,
-            device=dev,
+            traffic=traffic, device=dev,
         )
     # engine resolution, once, so the grid, the probes and the identity
     # name the same engine
@@ -672,7 +773,8 @@ def build_emulator(
         field_jac = make_field_log10_jacobian(base, static, make_f_table(float(base.I_p)),
                                               axis_names, scales, n_y=n_y, device=dev)
     sweep_kw = dict(chunk_size=chunk_size, n_y=n_y, impl=impl, device=dev,
-                    fault_plan=faults, retry=retry_policy, cache=store, lz_profile=lz_profile)
+                    fault_plan=faults, retry=retry_policy, cache=store, lz_profile=lz_profile,
+                    elastic=elastic)
 
     def grid_shape() -> Tuple[int, ...]:
         return tuple(len(a) for a in nodes)
@@ -722,14 +824,21 @@ def build_emulator(
         for f in FIELDS:
             pool_exact[f] = np.concatenate([pool_exact[f], exact[f]])
         # the posterior weights of the current surface, recomputed each round
-        w_nodes, lp_max = (_posterior_node_weights(log_values) if pw is not None
+        w_nodes, lp_max = (_posterior_node_weights(log_values) if use_planck
                            else (None, 0.0))
+        # traffic weights too: the locations are fixed, the cells just grew
+        w_cell_traffic = None
+        if traffic_on:
+            w_traffic, w_cell_traffic = _traffic_node_weights(nodes, traffic_locs)
+            w_nodes = w_traffic if w_nodes is None else w_nodes * w_traffic
         if pool_probes.shape[0]:
             errs = _probe_errors(_emulated_fields(nodes, scales, log_values, pool_probes),
                                  pool_exact)
             score = errs
-            if pw is not None:
+            if use_planck:
                 score = score * _posterior_probe_weights(pool_exact, lp_max)
+            if w_cell_traffic is not None:
+                score = score * _traffic_probe_weights(nodes, pool_probes, w_cell_traffic)
             failing = np.flatnonzero(score > refine_tol)
         else:
             errs = np.zeros(0)
@@ -845,10 +954,15 @@ def build_emulator(
     held_errs = _probe_errors(_emulated_fields(nodes, scales, log_values, held), exact)
     max_rel_err = float(held_errs.max())
     weighted_max_rel_err = None
-    if pw is not None:
-        _w, lp_max_final = _posterior_node_weights(log_values)
-        weighted_max_rel_err = float(
-            (held_errs * _posterior_probe_weights(exact, lp_max_final)).max())
+    if use_planck or traffic_on:
+        w_held = np.ones_like(held_errs)
+        if use_planck:
+            _w, lp_max_final = _posterior_node_weights(log_values)
+            w_held = w_held * _posterior_probe_weights(exact, lp_max_final)
+        if traffic_on:
+            _, w_cell_final = _traffic_node_weights(nodes, traffic_locs)
+            w_held = w_held * _traffic_probe_weights(nodes, held, w_cell_final)
+        weighted_max_rel_err = float((held_errs * w_held).max())
     if not converged:
         msg = (f"emulator refinement exhausted {max_rounds} rounds with "
                f"held-out max rel err {max_rel_err:.3e} vs target {rtol:.1e}")
@@ -892,13 +1006,17 @@ def build_emulator(
     if rs is not None:
         manifest["refine_signal"] = rs
         manifest["n_grad_evals"] = int(n_grad_evals)
+    if traffic_fp is not None:
+        manifest["traffic_fingerprint"] = traffic_fp
+        manifest["traffic_queries"] = int(traffic_locs.shape[0])
     artifact = EmulatorArtifact(
         axis_names=tuple(axis_names),
         axis_nodes=tuple(nodes),
         axis_scales=tuple(scales),
         values=values,
         identity=build_identity(base, static, n_y, impl, posterior_weight=pw,
-                                lz_profile_fp=lz_fp, refine_signal=rs, bounce_fp=bounce_fp),
+                                lz_profile_fp=lz_fp, refine_signal=rs, bounce_fp=bounce_fp,
+                                traffic_fp=traffic_fp),
         manifest=manifest,
         predicted_error=predicted,
     )

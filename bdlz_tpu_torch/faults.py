@@ -39,10 +39,39 @@ The sites this package acts on:
     The micro-batchers' dispatch clock; ``key`` = batch index; ``slow``
     ages the queue through the clock, never by sleeping.
 
-The other sites (``lease``, ``worker_crash``, ``pool_evict``,
-``autoscale``, ``host_crash``, ``heartbeat_loss``, ``store_partition``)
-parse and validate here and belong to tenancy and the elastic sweep
-(ROADMAP D7b).
+``lease``
+    The elastic lease plane (``parallel/scheduler.py``); ``key`` = chunk
+    index.  ``raise`` / ``transient`` fail the claim (the chunk stays
+    claimable); ``torn`` truncates the lease record after a won claim,
+    forcing a double claim the commit protocol must resolve.
+``worker_crash``
+    The elastic worker's compute step (``parallel/worker.py``); ``key`` =
+    chunk index.  ``raise`` / ``transient`` kill the worker at compute
+    start; its lease dangles until TTL expiry requeues the chunk.
+``pool_evict``
+    The multi-tenant eviction pass (``serve/tenancy.py``); ``key`` =
+    eviction counter.  ``raise`` forces the next LRU candidate out
+    whatever the budget; its requests answer by the degraded exact path.
+``autoscale``
+    The multi-tenant autoscaler's pass; ``key`` = pass counter.
+    ``raise`` / ``transient`` skip the pass.
+``host_crash``
+    The fabric host's tick (``serve/fabric.py``); ``key`` = the host's
+    tick counter.  ``raise`` kills the host's serving plane: every queued
+    and in-flight request resolves with ``ServiceUnavailable``.
+``heartbeat_loss``
+    The fabric host's lease heartbeat; ``key`` = host index.  ``raise``
+    stops the extension while the host keeps answering (the router must
+    fence it); ``transient`` skips ``times`` heartbeats.
+``store_partition``
+    The fabric host's store access; ``key`` = per-host store call
+    counter.  ``raise`` / ``transient`` make the store unreachable: after
+    its bounded retry the host answers through the loud degraded exact
+    path (reason ``"store_partition"``) until a heartbeat lands.
+
+The churn sites (``lease``, ``worker_crash``, ``store_read`` on the
+elastic plane, and the fabric's) never join a result identity: churn
+must not change bits.
 
 Resolution is the tri-state pattern: ``Config.fault_injection`` None
 enables injection iff a plan is configured, False forces it off, True

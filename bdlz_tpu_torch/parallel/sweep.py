@@ -453,7 +453,7 @@ def _clamp_chunk_to_memory(
 
 
 def route_impl(base: Config, axes: Mapping[str, Sequence[float]], impl: str,
-               fuse_exp: bool = False) -> str:
+               fuse_exp: bool = False, label: str = "sweep") -> str:
     """The engine a sweep runs, as the JAX sweep routes it: the stiff
     regime goes to ``esdirk`` unless ``esdirk_lockstep`` was asked for; a
     swept I_p sends the table engines to ``direct``.  A forced change is
@@ -474,7 +474,7 @@ def route_impl(base: Config, axes: Mapping[str, Sequence[float]], impl: str,
         reason = "I_p swept: per-I_p table unavailable"
     if impl != requested:
         print(
-            f"[sweep] impl {requested!r} is invalid for this configuration; "
+            f"[{label}] impl {requested!r} is invalid for this configuration; "
             f"using {impl!r} ({reason})",
             file=sys.stderr,
         )
@@ -520,6 +520,186 @@ def build_chunk_engine(
     step = make_sweep_step(static, n_y, impl, fuse_exp, reduce,
                            esdirk_knobs=esdirk_knobs, esdirk_stats_sink=esdirk_stats_sink)
     return step, aux
+
+
+@dataclass
+class SweepPlan:
+    """The resolved spec of one sweep: the engine after routing, the
+    quadrature tri-state, the memory-clamped chunk size, the identity and
+    the content key of every chunk.  :func:`run_sweep` and the elastic
+    scheduler (``parallel/scheduler.py``) both take it from
+    :func:`plan_sweep`, so the two cannot drift apart: a drifted key would
+    read as a cache miss, not as an error."""
+
+    base: Config
+    axes: Dict[str, Any]
+    static: StaticChoices          # quadrature tri-state resolved
+    device: torch.device
+    faults: Any                    # the identity-joined FaultPlan, or None
+    retry_policy: Any
+    pp_all: PointParams            # the full flattened grid
+    lz_identity: Optional[Dict[str, Any]]
+    lz_seconds: float
+    impl: str
+    n_total: int
+    #: The requested chunk size after the memory clamp (the manifest's).
+    chunk_size: int
+    n_chunks: int
+    n_y: int
+    table_np: Any
+    table_nodes: int
+    quad_on: bool
+    quad_nodes: Optional[int]
+    esdirk_knobs: Optional[Dict[str, bool]]
+    fuse_exp: bool
+    reduce: bool
+    hash_extra: Dict[str, Any]
+    #: The resume identity (:func:`grid_hash`).
+    hash: str
+
+    @property
+    def pad_size(self) -> int:
+        """Every chunk is padded to this many points (no more than the grid)."""
+        return min(self.chunk_size, self.n_total)
+
+    @property
+    def fields(self):
+        from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
+
+        return YieldsResult._fields
+
+    @property
+    def platform(self) -> str:
+        return device_platform(self.device)
+
+    def chunk_bounds(self, ci: int):
+        lo = int(ci) * self.chunk_size
+        return lo, min(lo + self.chunk_size, self.n_total)
+
+    def chunk_key(self, ci: int) -> str:
+        """Chunk ``ci``'s content key in the store (:func:`chunk_cache_key`)."""
+        lo, hi = self.chunk_bounds(ci)
+        chunk_extra = {k: v for k, v in self.hash_extra.items()
+                       if k in ("quad", "esdirk", "kernel", "fault_plan")}
+        return chunk_cache_key(
+            self.base, self.static, self.pp_all, lo, hi, n_y=self.n_y, impl=self.impl,
+            platform=self.platform, table_nodes=self.table_nodes, extra=chunk_extra,
+            fault_ctx=("step", ci, lo, hi) if self.faults is not None else None)
+
+    def entry_name(self, ci: int) -> str:
+        """Chunk ``ci``'s store entry: the chunk cache's name, shared by
+        ``run_sweep`` and the elastic commit plane."""
+        return f"sweep_chunk/{self.chunk_key(ci)}.npz"
+
+    def quad_report(self):
+        """``(quad_impl, n_quad_nodes)`` of the result: the scheme that ran
+        and its nodes per point; None for the stiff engines."""
+        if self.impl in ("esdirk", "esdirk_lockstep"):
+            return None, None
+        if self.quad_on:
+            return "panel_gl", self.quad_nodes
+        return "trap", max(int(self.n_y), 2000)
+
+    def build_engine(self, esdirk_stats_sink=None):
+        """``(step, aux)`` of the plan's engine on its device."""
+        return build_chunk_engine(
+            self.base, self.static, n_y=self.n_y, impl=self.impl, device=self.device,
+            fuse_exp=self.fuse_exp, reduce=self.reduce, table_np=self.table_np,
+            table_nodes=self.table_nodes, esdirk_knobs=self.esdirk_knobs,
+            esdirk_stats_sink=esdirk_stats_sink)
+
+    def compute(self, engine, lo: int, hi: int, trace_dir: Optional[str] = None
+                ) -> Dict[str, np.ndarray]:
+        """One engine evaluation over [lo, hi), padded to :attr:`pad_size`:
+        the valid rows as host arrays.  The chunk step is the JAX engine's
+        jitted program: no sanitizer checkpoint inside it, one profiler
+        trace per call."""
+        from bdlz_tpu_torch import sanitize
+        from bdlz_tpu_torch.interop import point_params_from_numpy
+        from bdlz_tpu_torch.utils.profiling import trace as profiler_trace
+
+        with profiler_trace(trace_dir), sanitize.opaque():
+            ppc = point_params_from_numpy(
+                _pad_chunk(self.pp_all, lo, hi, self.pad_size), self.device)
+            res = engine[0](ppc, engine[1])
+            return {f: getattr(res, f)[: hi - lo].cpu().numpy() for f in self.fields}
+
+    def apply_nan_faults(self, host: Dict[str, np.ndarray], lo: int, hi: int
+                         ) -> Dict[str, np.ndarray]:
+        """The plan's ``nan`` faults in [lo, hi): those points' outputs
+        become NaN after a successful step."""
+        pts = self.faults.nan_points("step", lo, hi) if self.faults is not None else []
+        if pts:
+            for f in self.fields:
+                arr = np.array(host[f])
+                for p in pts:
+                    arr[p - lo] = np.nan
+                host[f] = arr
+        return host
+
+
+def plan_sweep(
+    base: Config,
+    axes: Mapping[str, Sequence[float]],
+    static: StaticChoices,
+    *,
+    chunk_size: int = 4096,
+    n_y: int = 8000,
+    impl: str = "tabulated",
+    fuse_exp: bool = False,
+    reduce: bool = REDUCE_DEFAULT,
+    device=None,
+    table_nodes: int = 16384,
+    lz_profile=None,
+    lz_method: str = "local",
+    lz_gamma_phi: float = 0.0,
+    bounce=None,
+    fault_plan=None,
+    retry=None,
+    label: str = "sweep",
+) -> SweepPlan:
+    """Resolve a sweep as :func:`run_sweep` runs it: the device, the fault
+    plan and retry policy, the grid (with each point's P from the LZ layer
+    when there is a profile), the engine routing, the quadrature
+    tri-state (the audit needs the host table, built once and shipped),
+    the repacked engine's knobs, the memory clamp and the identity."""
+    from bdlz_tpu_torch.faults import FaultPlan
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table
+    from bdlz_tpu_torch.solvers.panels import N_PANELS_DEFAULT, NODES_PER_PANEL_DEFAULT
+    from bdlz_tpu_torch.utils.retry import resolve_engine_retry
+    from bdlz_tpu_torch.validation import resolve_quad_panel_gl
+
+    dev = resolve_device(device)
+    faults = FaultPlan.resolve(fault_plan, base)
+    retry_policy = resolve_engine_retry(retry, base, static)
+    t_lz = time.perf_counter()
+    pp_all, lz_identity = _grid_with_lz(base, axes, static, lz_profile, lz_method,
+                                        lz_gamma_phi, bounce, dev)
+    lz_seconds = time.perf_counter() - t_lz if lz_identity is not None else 0.0
+    impl = route_impl(base, axes, impl, fuse_exp, label=label)
+    n_total = len(pp_all.m_chi_GeV)
+    table_np = (make_f_table(float(base.I_p), n=table_nodes)
+                if impl == "tabulated" and static.quad_panel_gl is None else None)
+    quad_on, _ = resolve_quad_panel_gl(pp_all, static, impl, n_y, table=table_np,
+                                       label=label)
+    static = static._replace(quad_panel_gl=quad_on)
+    quad_nodes = N_PANELS_DEFAULT * NODES_PER_PANEL_DEFAULT if quad_on else None
+    esdirk_knobs = _engine_knobs(static, pp_all) if impl == "esdirk" else None
+    chunk_size = _clamp_chunk_to_memory(int(chunk_size), n_y, dev, impl, quad_nodes)
+    hash_extra = dict(lz_identity) if lz_identity else {}
+    hash_extra.update(engine_identity_extra(
+        static, impl, esdirk_knobs=esdirk_knobs, faults=faults, fuse_exp=fuse_exp,
+        kernel_reduce=reduce))
+    return SweepPlan(
+        base=base, axes=dict(axes), static=static, device=dev, faults=faults,
+        retry_policy=retry_policy, pp_all=pp_all, lz_identity=lz_identity,
+        lz_seconds=lz_seconds, impl=impl, n_total=n_total, chunk_size=chunk_size,
+        n_chunks=(n_total + chunk_size - 1) // chunk_size, n_y=int(n_y),
+        table_np=table_np, table_nodes=int(table_nodes), quad_on=bool(quad_on),
+        quad_nodes=quad_nodes, esdirk_knobs=esdirk_knobs, fuse_exp=bool(fuse_exp),
+        reduce=bool(reduce), hash_extra=hash_extra,
+        hash=grid_hash(base, axes, n_y, impl, extra=hash_extra or None),
+    )
 
 
 def run_sweep(
@@ -601,50 +781,19 @@ def run_sweep(
     Sanitizer checkpoints inside the chunk step check nothing (the JAX
     step is jitted); the CLI checks the outputs.
     """
-    from bdlz_tpu_torch import sanitize
-    from bdlz_tpu_torch.faults import FaultPlan
-    from bdlz_tpu_torch.interop import point_params_from_numpy
-    from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
-    from bdlz_tpu_torch.ops.kjma_table import make_f_table
     from bdlz_tpu_torch.provenance import resolve_store
-    from bdlz_tpu_torch.solvers.panels import N_PANELS_DEFAULT, NODES_PER_PANEL_DEFAULT
     from bdlz_tpu_torch.utils.io import atomic_savez, atomic_write_json
-    from bdlz_tpu_torch.utils.profiling import trace as profiler_trace
-    from bdlz_tpu_torch.utils.retry import resolve_engine_retry
-    from bdlz_tpu_torch.validation import resolve_quad_panel_gl
 
-    dev = resolve_device(device)
-    faults = FaultPlan.resolve(fault_plan, base)
-    retry_policy = resolve_engine_retry(retry, base, static)
-    t_lz = time.perf_counter()
-    pp_all, lz_identity = _grid_with_lz(base, axes, static, lz_profile, lz_method,
-                                        lz_gamma_phi, bounce, dev)
-    lz_seconds = time.perf_counter() - t_lz if lz_identity is not None else 0.0
-    impl = route_impl(base, axes, impl, fuse_exp)
-    n_total = len(pp_all.m_chi_GeV)
-
-    # the audit needs the host table; build it once and ship the same one
-    table_np = (make_f_table(float(base.I_p), n=table_nodes)
-                if impl == "tabulated" and static.quad_panel_gl is None else None)
-    quad_on, _ = resolve_quad_panel_gl(pp_all, static, impl, n_y, table=table_np)
-    static = static._replace(quad_panel_gl=quad_on)
-    quad_nodes = N_PANELS_DEFAULT * NODES_PER_PANEL_DEFAULT if quad_on else None
-    esdirk_knobs = _engine_knobs(static, pp_all) if impl == "esdirk" else None
+    plan = plan_sweep(
+        base, axes, static, chunk_size=chunk_size, n_y=n_y, impl=impl, fuse_exp=fuse_exp,
+        reduce=reduce, device=device, table_nodes=table_nodes, lz_profile=lz_profile,
+        lz_method=lz_method, lz_gamma_phi=lz_gamma_phi, bounce=bounce,
+        fault_plan=fault_plan, retry=retry)
+    dev, faults, impl = plan.device, plan.faults, plan.impl
+    n_total, chunk_size, n_chunks = plan.n_total, plan.chunk_size, plan.n_chunks
+    fields = plan.fields
+    h = plan.hash
     stats: List[Any] = []
-
-    chunk_size = _clamp_chunk_to_memory(int(chunk_size), n_y, dev, impl, quad_nodes)
-    # the manifest and the events keep the requested size (JAX's); a chunk
-    # is padded only up to the grid
-    pad_size = min(chunk_size, n_total)
-    n_chunks = (n_total + chunk_size - 1) // chunk_size
-    fields = YieldsResult._fields
-
-    # ---- identity, manifest and the resume plan ----------------------
-    hash_extra = dict(lz_identity) if lz_identity else {}
-    hash_extra.update(engine_identity_extra(
-        static, impl, esdirk_knobs=esdirk_knobs, faults=faults, fuse_exp=fuse_exp,
-        kernel_reduce=reduce))
-    h = grid_hash(base, axes, n_y, impl, extra=hash_extra or None)
     manifest: Dict[str, Any] = {}
     manifest_path = None
     if out_dir is not None:
@@ -689,33 +838,20 @@ def run_sweep(
 
     # ---- the chunk cache's hit plan (a resumed chunk wins) -------------
     store = resolve_store(cache, base, label="sweep")
-    chunk_keys: List[str] = []
     cache_data: Dict[int, Dict[str, np.ndarray]] = {}
     if store is not None:
-        chunk_extra = {k: v for k, v in hash_extra.items()
-                       if k in ("quad", "esdirk", "kernel", "fault_plan")}
-        platform = device_platform(dev)
-        for ci in range(n_chunks):
-            lo, hi = ci * chunk_size, min((ci + 1) * chunk_size, n_total)
-            chunk_keys.append(chunk_cache_key(
-                base, static, pp_all, lo, hi, n_y=n_y, impl=impl, platform=platform,
-                table_nodes=table_nodes, extra=chunk_extra,
-                fault_ctx=("step", ci, lo, hi) if faults is not None else None))
         for ci in range(n_chunks):
             if ci in resumed_data:
                 continue
-            lo, hi = ci * chunk_size, min((ci + 1) * chunk_size, n_total)
-            ent = store.get_npz(f"sweep_chunk/{chunk_keys[ci]}.npz")
+            lo, hi = plan.chunk_bounds(ci)
+            ent = store.get_npz(plan.entry_name(ci))
             if chunk_entry_ok(ent, hi - lo):
                 cache_data[ci] = ent
 
     # the engine is built only if some chunk computes; before the clock
     engine = None
     if len(resumed_data) + len(cache_data) < n_chunks:
-        engine = build_chunk_engine(
-            base, static, n_y=n_y, impl=impl, device=dev, fuse_exp=fuse_exp,
-            reduce=reduce, table_np=table_np, table_nodes=table_nodes,
-            esdirk_knobs=esdirk_knobs, esdirk_stats_sink=stats.append)
+        engine = plan.build_engine(esdirk_stats_sink=stats.append)
 
     if event_log is not None:
         event_log.emit("sweep_start", n_points=n_total, chunks=n_chunks,
@@ -727,32 +863,18 @@ def run_sweep(
     qmasks: List[np.ndarray] = []
     totals = {"failed": 0, "quarantined": 0, "retries": 0}
     n_stats_seen = [0]
+    retry_policy = plan.retry_policy
     heal_on = retry_policy is not None
 
     def _compute(lo_r, hi_r):
-        # the chunk step is the JAX engine's jitted program: no sanitizer
-        # checkpoint inside it, one profiler trace per call
-        with profiler_trace(trace_dir), sanitize.opaque():
-            ppc = point_params_from_numpy(_pad_chunk(pp_all, lo_r, hi_r, pad_size), dev)
-            res = engine[0](ppc, engine[1])
-            return {f: getattr(res, f)[: hi_r - lo_r].cpu().numpy() for f in fields}
-
-    def _apply_nan_faults(host, lo_r, hi_r):
-        pts = faults.nan_points("step", lo_r, hi_r) if faults is not None else []
-        if pts:
-            for f in fields:
-                arr = np.array(host[f])
-                for p in pts:
-                    arr[p - lo_r] = np.nan
-                host[f] = arr
-        return host
+        return plan.compute(engine, lo_r, hi_r, trace_dir=trace_dir)
 
     def _attempt(ci, lo_r, hi_r):
         try:
             if faults is not None:
                 faults.fire("step", ci)
                 faults.check_range("step", lo_r, hi_r)
-            return 1, _apply_nan_faults(_compute(lo_r, hi_r), lo_r, hi_r), None
+            return 1, plan.apply_nan_faults(_compute(lo_r, hi_r), lo_r, hi_r), None
         except FloatingPointError:
             raise  # enable_nan_debugging aborts the sweep; never healed
         except Exception as exc:  # noqa: BLE001 — the healing path decides
@@ -775,7 +897,7 @@ def run_sweep(
         its retries (for a cache hit, the ones the entry recorded)."""
         n_valid = hi - lo
         if not cached:
-            host = _apply_nan_faults(host, lo, hi)
+            host = plan.apply_nan_faults(host, lo, hi)
         totals["quarantined"] += int(q.sum())
         totals["retries"] += int(paid)
         bad = ~np.isfinite(host["DM_over_B"])
@@ -808,7 +930,7 @@ def run_sweep(
                 faults.corrupt_file("chunk_write", ci, chunk_file)
         # a real quarantine is never cached; an armed plan's is (keyed)
         if store is not None and not cached and (not q.any() or faults is not None):
-            store.put_npz(f"sweep_chunk/{chunk_keys[ci]}.npz",
+            store.put_npz(plan.entry_name(ci),
                           chunk_entry_arrays(host, n_retries=paid, qmask=q))
         if keep_outputs:
             for f in fields:
@@ -819,7 +941,7 @@ def run_sweep(
     resumed = 0
     t0 = time.perf_counter()
     for ci in range(n_chunks):
-        lo, hi = ci * chunk_size, min((ci + 1) * chunk_size, n_total)
+        lo, hi = plan.chunk_bounds(ci)
         if ci in resumed_data:
             got = resumed_data[ci]
             resumed += 1
@@ -857,11 +979,7 @@ def run_sweep(
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
-    if impl in ("esdirk", "esdirk_lockstep"):
-        quad_impl, n_quad = None, None
-    else:
-        quad_impl = "panel_gl" if quad_on else "trap"
-        n_quad = quad_nodes if quad_on else max(int(n_y), 2000)
+    quad_impl, n_quad = plan.quad_report()
     cache_hits = cache_misses = None
     if store is not None:
         cache_hits = len(cache_data)
@@ -880,8 +998,8 @@ def run_sweep(
                  if keep_outputs else None),
         failed_mask=failed_mask,
         esdirk_stats=stats if impl == "esdirk" else None,
-        lz_identity=lz_identity,
-        lz_seconds=lz_seconds,
+        lz_identity=plan.lz_identity,
+        lz_seconds=plan.lz_seconds,
         out_dir=out_dir,
         resumed_chunks=resumed,
         n_quarantined=totals["quarantined"],

@@ -14,6 +14,7 @@ from bdlz_tpu_torch.provenance.identity import (  # noqa: F401
     static_payload,
     sweep_chunk_identity,
     sweep_identity,
+    traffic_snapshot_identity,
 )
 from bdlz_tpu_torch.provenance.registry import (  # noqa: F401
     ARTIFACT_KIND,

@@ -16,10 +16,10 @@ verifies in the other.  The rules:
 
 The ``kind`` tag is not hashed.  The MCMC segment identity carries one
 key of the port's own, the random stream, so that a chain directory of one
-package is never resumed by the other.  The JAX package's other
-identities (the accuracy-gate reference cache, bench legs, traffic
-snapshots, source fingerprints) come with the planes that use them
-(ROADMAP D6–D7).
+package is never resumed by the other.  The traffic-snapshot identity is
+byte-equal to the JAX package's, so a snapshot saved by either package
+loads in the other.  The JAX package's bench-leg and package-source
+fingerprints have no counterpart (the port has no bench script yet).
 """
 from __future__ import annotations
 
@@ -218,6 +218,30 @@ def mcmc_segment_identity(
     if rng is not None:
         payload["rng"] = str(rng)
     return Identity("mcmc_segment", (("json", payload),))
+
+
+def traffic_snapshot_identity(
+    axis_names: Sequence[str],
+    locations: Any,
+    reasons: Sequence["str | None"],
+    occupancy: Mapping[str, Any],
+) -> Identity:
+    """One served-traffic snapshot's content key (``bdlz_tpu_torch/refine``):
+    the axis names, the query-location bytes, the per-query fallback
+    reasons and the occupancy summary.  Its digest is the ``traffic`` key a
+    traffic-weighted emulator build stamps on its artifact identity."""
+    return Identity(
+        "traffic_snapshot",
+        (
+            ("json", {
+                "schema": SCHEMA_VERSION,
+                "axes": [str(n) for n in axis_names],
+                "reasons": [None if r is None else str(r) for r in reasons],
+                "occupancy": dict(occupancy),
+            }),
+            array_part(locations),
+        ),
+    )
 
 
 def code_fingerprint(modules: Sequence[Any]) -> str:

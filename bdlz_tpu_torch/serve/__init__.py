@@ -12,12 +12,19 @@
   registry re-provision and a loud degraded exact mode (``health.py``);
 * rollout — stage, warm, atomic cutover and error-budget auto-rollback;
   every response carries the artifact hash that answered
-  (``rollout.py``).
+  (``rollout.py``);
+* multi-tenant plane — scenario- or hash-routed per-artifact pools with
+  cold admission from the registry, autoscaling under a replica ceiling,
+  memory-budget eviction answered by the loud ``"pool_evicted"`` exact
+  path, and typed ``TenancyError`` skew rejection (``tenancy.py``);
+* cross-host fabric — host-lease membership through the shared store,
+  lease-fenced routing with whole-host failover, loud
+  ``"store_partition"`` exact answers, and idle-host elastic chunk
+  stealing (``fabric.py``).
 
 The typed errors (``QueueFull``, ``DeadlineExceeded``,
 ``ServiceUnavailable``, ``RolloutError``) export here.  Entry point:
-``python -m bdlz_tpu_torch.serve``.  The multi-tenant plane and the
-cross-host fabric are not ported yet (ROADMAP D7b)."""
+``python -m bdlz_tpu_torch.serve``."""
 from bdlz_tpu_torch.serve.batcher import (  # noqa: F401
     BatchResult,
     DeadlineExceeded,
@@ -25,6 +32,14 @@ from bdlz_tpu_torch.serve.batcher import (  # noqa: F401
     QueueFull,
     ServiceUnavailable,
     drain_results,
+)
+from bdlz_tpu_torch.serve.fabric import (  # noqa: F401
+    REASON_STORE_PARTITION,
+    FabricError,
+    FabricHost,
+    FabricPartitionError,
+    GlobalRouter,
+    ServingFabric,
 )
 from bdlz_tpu_torch.serve.fleet import (  # noqa: F401
     FleetResponse,
@@ -51,4 +66,10 @@ from bdlz_tpu_torch.serve.service import (  # noqa: F401
     gate_fallback_masks,
     resolve_error_gate,
     resolve_service_static,
+)
+from bdlz_tpu_torch.serve.tenancy import (  # noqa: F401
+    REASON_POOL_EVICTED,
+    MultiTenantService,
+    PoolState,
+    TenancyError,
 )

@@ -307,6 +307,8 @@ class MicroBatcher:
             n_gated=int(result.n_gated),
             lz_mode=self.lz_mode,
         )
+        # the refinement daemon's traffic trace (a no-op unless armed)
+        self.stats.record_queries(thetas, result.reasons)
         self._batch_index += 1
         for p, v, e in zip(batch, values, errors):
             # per-request error isolation: a poisoned request gets its

@@ -2,7 +2,8 @@
 
 Counterpart of ``bdlz_tpu/serve/fleet.py``, with its routing, admission
 control, deadline shedding, health plane, bit-identical re-answer,
-registry re-provision, degraded exact path and rollout seam.
+registry re-provision, degraded exact path, rollout seam and in-place
+resize (the multi-tenant autoscaler's hook).
 
 * :class:`ReplicaSet` — one artifact's tables resident on each replica's
   device; one dispatch per batch runs interpolation, the domain test and
@@ -385,7 +386,7 @@ class FleetService:
     control: admission (``queue_bound``, typed :class:`QueueFull` at
     submit), deadline shedding at dispatch (typed ``DeadlineExceeded``),
     the shared exact fallback, the replica health plane (on by default),
-    and the rollout seam :meth:`swap_replica_set`.  Dispatches are
+    the rollout seam :meth:`swap_replica_set` and :meth:`resize`.  Dispatches are
     asynchronous: :meth:`run_once` launches, :meth:`poll` resolves.
 
     ``n_replicas`` / ``queue_bound`` default from the base config.  The
@@ -528,6 +529,41 @@ class FleetService:
         with self._lock:
             old, self.replica_set = self.replica_set, replica_set
         return old
+
+    def resize(self, n_replicas: int) -> int:
+        """Rebuild the fleet at ``n_replicas`` replicas in place: the
+        multi-tenant autoscaler's hook (``serve/tenancy.py``), and the one
+        way to change the fleet's shape on a live service.  The new set is
+        built from the same artifact on the same devices and warmed before
+        the cutover, so no request pays the first call; it refuses while
+        batches are in flight.  The health plane is rebuilt at the new
+        width with the same policy (breaker state resets: a breaker of a
+        replica index that no longer exists would lie).  Replica count
+        never changes served bits.  Returns the new replica count."""
+        n = int(n_replicas)
+        if n < 1:
+            raise ValueError("n_replicas must be >= 1")
+        if self._closed:
+            raise ServiceUnavailable("service is closed; cannot resize")
+        if n == self.replica_set.n_replicas:
+            return n
+        if self.in_flight():
+            raise ValueError(
+                "resize with batches in flight; poll() them to completion "
+                "first (the autoscaler rebalances only between dispatches)"
+            )
+        replica_set = ReplicaSet(
+            self.replica_set.artifact, field=self.field, n_replicas=n,
+            devices=self._devices, max_batch_size=self.max_batch_size,
+            routing=self.replica_set.routing, warm=True, stats=self.stats,
+            error_gate=self.replica_set.error_gate, fault_plan=self._faults,
+        )
+        health = (HealthPlane(replica_set.n_replicas, self._health_policy, stats=self.stats)
+                  if self._health_policy is not None else None)
+        with self._lock:
+            self.replica_set = replica_set
+            self.health = health
+        return n
 
     # ---- enqueue (admission control) --------------------------------
 
@@ -752,6 +788,8 @@ class FleetService:
             n_gated=int(gated.sum()), artifact_hash=item.artifact_hash,
             replica=replica_index, lz_mode=self.lz_mode, host_id=self.host_id,
         )
+        # the refinement daemon's traffic trace (a no-op unless armed)
+        self.stats.record_queries(item.thetas, reasons)
         if self.health is not None and heal_cause is None:
             self.health.record_outcome(
                 replica_index, ok=True, now=now, seconds=replica_seconds,
@@ -834,6 +872,7 @@ class FleetService:
             n_gated=0, artifact_hash=replica_set.artifact_hash, replica=-1,
             lz_mode=self.lz_mode, host_id=self.host_id,
         )
+        self.stats.record_queries(thetas, REASON_DEGRADED)
         for p, v in zip(batch, values):
             self.stats.record_latency(done - p.enqueued_at)
             if err is not None:

@@ -21,11 +21,14 @@ checked against the artifact's.  Answers go to stdout in request order;
 ``"predicted_error"`` on the exact path.  ``--bench N`` pushes N random
 in-domain queries through the front and prints its throughput.
 
-The multi-tenant plane, its autoscaler and memory budget, and the
-closed-loop refinement (``--tenant-map``, ``--memory-budget``,
-``--tenant-routing``, ``--autoscale-interval-s``, ``--pool-min-replicas``,
-``--self-improve on``, ``--drift-gated-rate``, ``--rebuild-budget``) are
-refused, naming the ROADMAP item that brings them.
+``--tenant-map`` serves many artifacts through the multi-tenant plane
+(``tenancy.py``: pools cold-admitted from the registry by content hash,
+``--memory-budget`` eviction, ``--tenant-routing``,
+``--autoscale-interval-s`` and ``--pool-min-replicas``); every record
+names its ``pool`` and ``scenario``.  ``--self-improve on`` (with
+``--replicas``) attaches the refinement daemon (``bdlz_tpu_torch/refine``:
+``--drift-gated-rate``, ``--rebuild-budget``), which needs a provenance
+store (``cache_root`` or ``BDLZ_CACHE_ROOT``).
 """
 from __future__ import annotations
 
@@ -38,16 +41,6 @@ from typing import Optional
 
 import numpy as np
 
-from bdlz_tpu_torch.utils.deferred import add_deferred_flags, refuse_deferred_flags
-
-_D7B = "ROADMAP D7b, serving and elastic sweeps"
-#: Flags of the JAX serve CLI that the port does not have yet.
-DEFERRED_FLAGS = {
-    "--tenant-map": (True, _D7B), "--memory-budget": (True, _D7B),
-    "--tenant-routing": (True, _D7B), "--autoscale-interval-s": (True, _D7B),
-    "--pool-min-replicas": (True, _D7B), "--drift-gated-rate": (True, _D7B),
-    "--rebuild-budget": (True, _D7B),
-}
 
 
 def _error_record(rid, exc, host_id=None, **extra) -> dict:
@@ -58,9 +51,10 @@ def _error_record(rid, exc, host_id=None, **extra) -> dict:
         QueueFull,
         RolloutError,
         ServiceUnavailable,
+        TenancyError,
     )
 
-    typed = (QueueFull, DeadlineExceeded, ServiceUnavailable, RolloutError)
+    typed = (QueueFull, DeadlineExceeded, ServiceUnavailable, RolloutError, TenancyError)
     name = type(exc).__name__
     return {
         "id": rid,
@@ -126,7 +120,42 @@ def main(argv: Optional[list] = None) -> int:
                          "rollout auto-rollback (default: config)")
     ap.add_argument("--self-improve", default=None, dest="self_improve",
                     choices=("auto", "on", "off"),
-                    help=f"closed-loop refinement; on is not ported yet ({_D7B})")
+                    help="closed-loop continuous delivery (bdlz_tpu_torch/refine; "
+                         "--replicas only): the refinement daemon watches the "
+                         "served traffic for drift, rebuilds traffic-weighted "
+                         "and publishes a winning candidate through the "
+                         "rollout.  auto = the config tri-state (off here); "
+                         "needs a provenance store (cache_root/BDLZ_CACHE_ROOT)")
+    ap.add_argument("--drift-gated-rate", type=float, default=None,
+                    dest="drift_gated_rate",
+                    help="gated or out-of-domain traffic fraction above which "
+                         "the refinement daemon declares drift (default: config)")
+    ap.add_argument("--rebuild-budget", type=int, default=None, dest="rebuild_budget",
+                    help="maximum autonomous rebuild and rollout cycles per "
+                         "serve session (default: config)")
+    ap.add_argument("--tenant-routing", default=None, dest="tenant_routing",
+                    choices=("scenario", "hash"),
+                    help="multi-tenant routing-tag policy (--tenant-map only; "
+                         "default: config, whose None lets the engine decide)")
+    ap.add_argument("--autoscale-interval-s", type=float, default=None,
+                    dest="autoscale_interval_s",
+                    help="seconds between autoscaler passes (--tenant-map only; "
+                         "default: config)")
+    ap.add_argument("--pool-min-replicas", type=int, default=None,
+                    dest="pool_min_replicas",
+                    help="autoscaler floor per resident pool (--tenant-map "
+                         "only; default: config)")
+    ap.add_argument("--tenant-map", default=None, dest="tenant_map",
+                    help="multi-tenant plane (serve/tenancy.py): JSON text or "
+                         "path mapping scenario labels to artifact content "
+                         "hashes; pools are cold-admitted from the registry "
+                         "(cache_root/BDLZ_CACHE_ROOT) on first request")
+    ap.add_argument("--memory-budget", type=int, default=None, dest="memory_budget",
+                    metavar="BYTES",
+                    help="device-memory budget across resident pools "
+                         "(--tenant-map only): idle pools are LRU-evicted "
+                         "beyond it and answer through the degraded exact "
+                         "path until readmitted (default: unbounded)")
     ap.add_argument("--lz-profile", default=None, dest="lz_profile",
                     help="Bounce-profile CSV for a chain/thermal artifact's "
                          "exact fallback (must fingerprint-match its build)")
@@ -139,9 +168,7 @@ def main(argv: Optional[list] = None) -> int:
                     help="host identity stamped on every record (default none)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
-    add_deferred_flags(ap, DEFERRED_FLAGS)
     args = ap.parse_args(argv)
-    refuse_deferred_flags(ap, args, DEFERRED_FLAGS)
     _berr = bounce_flag_error(args)
     if _berr:
         ap.error(_berr)
@@ -158,24 +185,27 @@ def main(argv: Optional[list] = None) -> int:
     overrides = {
         k: getattr(args, k)
         for k in ("breaker_window", "breaker_threshold", "breaker_cooldown_s",
-                  "breaker_latency_slo_s", "rollback_budget")
+                  "breaker_latency_slo_s", "rollback_budget", "tenant_routing",
+                  "autoscale_interval_s", "pool_min_replicas", "drift_gated_rate",
+                  "rebuild_budget")
         if getattr(args, k) is not None
     }
     if args.self_improve is not None:
         overrides["self_improve"] = {"auto": None, "on": True, "off": False}[args.self_improve]
     if overrides:
         base = validate(dataclasses.replace(base, **overrides))
-    if base.self_improve:
-        ap.error(f"--self-improve / self_improve=true is not ported to "
-                 f"bdlz_tpu_torch yet ({_D7B})")
+    devices = None if device.type == "cuda" else [device]
+    if args.tenant_map is not None:
+        return _serve_tenant(args, ap, base, event_log, devices)
     if args.artifact is None:
-        ap.error("--artifact is required")
+        ap.error("--artifact is required (or serve pools via --tenant-map)")
+    from bdlz_tpu_torch.refine import RefinementDaemon, resolve_self_improve
+
     artifact = load_any_artifact(args.artifact)
-    fleet = service = None
+    fleet = service = daemon = None
     if args.replicas is not None:
         from bdlz_tpu_torch.serve.fleet import FleetService
 
-        devices = None if device.type == "cuda" else [device]
         fleet = FleetService(
             artifact, base, field=args.field, max_batch_size=args.max_batch,
             n_replicas=args.replicas if args.replicas > 0 else None,
@@ -185,7 +215,20 @@ def main(argv: Optional[list] = None) -> int:
             health={"auto": None, "on": True, "off": False}[args.health],
             lz_profile=args.lz_profile, bounce=args.bounce, host_id=args.host_id,
         )
+        if resolve_self_improve(base):
+            from bdlz_tpu_torch.provenance import resolve_store
+
+            refine_store = resolve_store(None, base, label="refine")
+            if refine_store is None:
+                ap.error("--self-improve needs a provenance store for snapshots "
+                         "and candidate publishing; set cache_root in the config "
+                         "or BDLZ_CACHE_ROOT")
+            daemon = RefinementDaemon(fleet, base, store=refine_store,
+                                      event_log=event_log)
     else:
+        if resolve_self_improve(base):
+            ap.error("--self-improve drives the fleet front's rollout pipeline; "
+                     "add --replicas N")
         service = YieldService(
             artifact, base, field=args.field, max_batch_size=args.max_batch,
             lz_profile=args.lz_profile, bounce=args.bounce, device=device,
@@ -265,7 +308,7 @@ def main(argv: Optional[list] = None) -> int:
 
     if fleet is not None:
         try:
-            n_ok = _serve_requests_fleet(fleet, requests)
+            n_ok = _serve_requests_fleet(fleet, requests, daemon=daemon)
         finally:
             fleet.close()
         event_log.emit("serve_done", **fleet.stats.summary())
@@ -308,10 +351,150 @@ def main(argv: Optional[list] = None) -> int:
     return 1 if (n_lines and n_ok == 0) else 0
 
 
-def _serve_requests_fleet(fleet, requests) -> int:
+def _load_tenant_map(text_or_path: str) -> dict:
+    """A ``--tenant-map`` value: JSON text, or a path to a JSON file.
+    Its labels and hashes are checked by the service."""
+    text = text_or_path
+    if not text_or_path.lstrip().startswith("{"):
+        with open(text_or_path, encoding="utf-8") as f:
+            text = f.read()
+    obj = json.loads(text)
+    if not isinstance(obj, dict):
+        raise ValueError("tenant map must be a JSON object mapping scenario labels "
+                         "to artifact content hashes")
+    return obj
+
+
+def _serve_tenant(args, ap, base, event_log, devices) -> int:
+    """``--tenant-map``: drain the request stream through the multi-tenant
+    plane.  Every record names its ``pool`` (the answering artifact hash)
+    and ``scenario``; routing and skew refusals (``TenancyError``) and a
+    pool's overload (``QueueFull``) are per-request error records.
+    Closing the service fails anything still queued with a typed
+    ``ServiceUnavailable``."""
+    from bdlz_tpu_torch.refine import resolve_self_improve
+    from bdlz_tpu_torch.serve.tenancy import MultiTenantService
+
+    if args.artifact is not None:
+        ap.error("--artifact is not used with --tenant-map (pools are fetched "
+                 "from the registry by content hash)")
+    if args.bench is not None:
+        ap.error("--bench is not supported with --tenant-map")
+    if resolve_self_improve(base):
+        ap.error("--self-improve watches ONE fleet's traffic; it is not supported "
+                 "with --tenant-map")
+    if args.requests is None:
+        ap.error("one of --requests or --bench is required")
+    try:
+        tenant_map = _load_tenant_map(args.tenant_map)
+    except Exception as exc:  # noqa: BLE001 — a flag-layer refusal
+        ap.error(f"--tenant-map: {exc}")
+    svc = MultiTenantService(
+        base, tenant_map=tenant_map, field=args.field, max_batch_size=args.max_batch,
+        n_replicas=args.replicas if args.replicas else None, devices=devices,
+        queue_bound=args.queue_bound, routing=args.routing,
+        max_wait_s=args.max_wait_ms / 1e3,
+        deadline_s=None if args.deadline_ms is None else args.deadline_ms / 1e3,
+        health={"auto": None, "on": True, "off": False}[args.health],
+        lz_profile=args.lz_profile, bounce=args.bounce,
+        memory_budget_bytes=args.memory_budget, host_id=args.host_id,
+    )
+    event_log.emit("serve_start", tenant_map=dict(tenant_map),
+                   tenant_routing=svc.tenant_routing,
+                   memory_budget_bytes=svc.memory_budget_bytes,
+                   max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
+    n_lines = n_ok = 0
+    submitted = []  # (rid, scenario, future)
+    resolved_at = {}  # submitted index -> resolve-time latency
+
+    def _stamp(index, t0):
+        def cb(_fut):
+            resolved_at[index] = time.monotonic() - t0
+
+        return cb
+
+    fh = sys.stdin if args.requests == "-" else open(args.requests, encoding="utf-8")
+    try:
+        for ln, line in enumerate(fh, 1):
+            line = line.strip()
+            if not line:
+                continue
+            n_lines += 1
+            try:
+                obj = json.loads(line)
+            except Exception as exc:  # noqa: BLE001 — report per request
+                print(json.dumps(_error_record(None, exc, host_id=svc.host_id, line=ln,
+                                               pool=None, scenario=None)))
+                continue
+            if not isinstance(obj, dict):
+                print(json.dumps(_error_record(ln, ValueError(
+                    "request line must be a JSON object"), host_id=svc.host_id,
+                    line=ln, pool=None, scenario=None)))
+                continue
+            rid = obj.get("id", ln)
+            scenario = obj.get("scenario")
+            ahash = obj.get("artifact_hash")
+            pool = ahash if ahash else tenant_map.get(scenario)
+            t0 = time.monotonic()
+            try:
+                if "theta" in obj:
+                    fut = svc.submit(np.asarray(obj["theta"], dtype=np.float64),
+                                     scenario=scenario, artifact_hash=ahash,
+                                     lz_mode=obj.get("lz_mode"))
+                else:
+                    # a mapping keeps its stated lz_mode inside (checked per pool)
+                    point = {k: v for k, v in obj.items()
+                             if k not in ("id", "scenario", "artifact_hash")}
+                    fut = svc.submit(point, scenario=scenario, artifact_hash=ahash)
+            except Exception as exc:  # noqa: BLE001 — report per request
+                print(json.dumps(_error_record(rid, exc, host_id=svc.host_id, line=ln,
+                                               pool=pool, scenario=scenario)))
+                continue
+            fut.add_done_callback(_stamp(len(submitted), t0))
+            submitted.append((rid, scenario, fut))
+            svc.run_once()
+            svc.poll(block=False)
+    finally:
+        if fh is not sys.stdin:
+            fh.close()
+    try:
+        svc.drain()
+        for index, (rid, scenario, fut) in enumerate(submitted):
+            latency = round(resolved_at.get(index, 0.0), 6)
+            try:
+                resp = fut.result(timeout=0)
+            except Exception as exc:  # noqa: BLE001 — report per request
+                print(json.dumps(_error_record(rid, exc, host_id=svc.host_id,
+                                               latency_s=latency, pool=None,
+                                               scenario=scenario)))
+                continue
+            n_ok += 1
+            print(json.dumps({
+                "id": rid,
+                "value": float(resp.value),
+                "pool": resp.artifact_hash,
+                "scenario": (scenario if scenario is not None
+                             else svc.scenario_for(resp.artifact_hash)),
+                "artifact_hash": resp.artifact_hash,
+                "replica": resp.replica,
+                "lz_mode": resp.lz_mode,
+                "fallback_reason": resp.fallback_reason,
+                "degraded": resp.degraded,
+                "host_id": resp.host_id,
+                "latency_s": latency,
+            }))
+    finally:
+        svc.close()
+    event_log.emit("serve_done", **svc.summary())
+    return 1 if (n_lines and n_ok == 0) else 0
+
+
+def _serve_requests_fleet(fleet, requests, daemon=None) -> int:
     """Drain parsed requests through the fleet, pumping it between
-    submits; admission rejections become error records.  Returns the
-    number of requests answered with a value."""
+    submits; admission rejections become error records.  With a
+    refinement ``daemon``, one daemon tick follows each pump (a detected
+    drift runs its rebuild and delivery there).  Returns the number of
+    requests answered with a value."""
     from bdlz_tpu_torch.serve.batcher import QueueFull
 
     n_ok = 0
@@ -334,7 +517,11 @@ def _serve_requests_fleet(fleet, requests) -> int:
             submitted.append((rid, None, exc))
         fleet.run_once()
         fleet.poll(block=False)
+        if daemon is not None:
+            daemon.step()
     fleet.drain()
+    if daemon is not None:
+        daemon.step()
     for index, (rid, fut, err) in enumerate(submitted):
         if err is not None:
             print(json.dumps(_error_record(rid, err, host_id=fleet.host_id, latency_s=0.0)))

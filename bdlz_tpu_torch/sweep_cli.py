@@ -19,9 +19,14 @@ config's ``retry_enabled``, ``cache_enabled``/``cache_root`` and
 ``fault_injection``/``fault_plan`` act as in the JAX CLI.  ``--sanitize``
 checks the outputs' float64 contract, ``--debug-nans`` aborts at the
 first torch op (or kernel) that makes a NaN, and ``--profile-dir`` writes
-one ``torch.profiler`` Chrome trace per chunk.  Its flags that the port
-does not have yet (meshes and elastic fleets) are refused with the
-ROADMAP item that brings them.
+one ``torch.profiler`` Chrome trace per chunk.
+
+``--elastic {local,coordinator,worker,auto}`` runs the sweep on the
+elastic work-stealing fleet (``parallel/scheduler.py``) over the shared
+store ``--elastic-store``: every role derives the plan from the same
+flags, and a role on another device (or of the JAX package) is refused
+by the job record.  ``--mesh-sp`` and ``--multihost`` are refused, naming
+ROADMAP D9.
 """
 from __future__ import annotations
 
@@ -33,16 +38,9 @@ import numpy as np
 
 from bdlz_tpu_torch.utils.deferred import add_deferred_flags, refuse_deferred_flags
 
-_D7 = "ROADMAP D7b, serving and elastic sweeps"
 _D9 = "ROADMAP D9, multi-GPU"
 #: Flags of the JAX sweep CLI that the port does not have yet.
-DEFERRED_FLAGS = {
-    "--elastic": (True, _D7), "--elastic-store": (True, _D7),
-    "--elastic-workers": (True, _D7), "--worker-id": (True, _D7),
-    "--lease-ttl": (True, _D7), "--quarantine-after": (True, _D7),
-    "--churn-plan": (True, _D7), "--poll": (True, _D7),
-    "--mesh-sp": (True, _D9), "--multihost": (False, _D9),
-}
+DEFERRED_FLAGS = {"--mesh-sp": (True, _D9), "--multihost": (False, _D9)}
 
 
 def parse_axis(spec: str):
@@ -56,6 +54,59 @@ def parse_axis(spec: str):
     else:
         vals = np.asarray([float(v) for v in rhs.split(",")])
     return name.strip(), vals
+
+
+def _run_elastic(args, cfg, static, axes, event_log):
+    """Run one ``--elastic`` role.  Every role derives the plan from the
+    same ``--config``/``--axis`` flags; the store's job record only checks
+    it.  Returns the folded ``SweepResult`` (local, coordinator), or None
+    for the worker role, which prints its own JSON summary."""
+    import os
+    import sys
+
+    from bdlz_tpu_torch.parallel import (
+        WallClock,
+        elect_coordinator,
+        plan_elastic_sweep,
+        run_sweep_elastic,
+        run_worker_loop,
+    )
+    from bdlz_tpu_torch.provenance import resolve_store
+
+    store = resolve_store(args.elastic_store, cfg, label="elastic-cli")
+    if store is None:
+        raise SystemExit(
+            f"--elastic-store {args.elastic_store!r} did not resolve to a "
+            "trusted store (check ownership/permissions)"
+        )
+    worker_id = args.worker_id or f"pid{os.getpid()}"
+    common = dict(chunk_size=args.chunk, n_y=args.n_y, impl=args.impl,
+                  fuse_exp=args.fuse_exp, device=args.device)
+    role = args.elastic
+    if role == "auto":
+        plan = plan_elastic_sweep(cfg, axes, static, **common)
+        won = elect_coordinator(store, plan.job, worker_id, ttl_s=args.lease_ttl)
+        role = "coordinator" if won else "worker"
+        print(f"[elastic] {worker_id}: elected {role}", file=sys.stderr)
+    if role == "worker":
+        summary = run_worker_loop(
+            cfg, axes, static, store=store, worker_id=worker_id,
+            lease_ttl_s=args.lease_ttl, quarantine_after=args.quarantine_after,
+            churn_plan=args.churn_plan, poll_s=args.poll, event_log=event_log,
+            **common,
+        )
+        print(json.dumps({"elastic": "worker", **summary}))
+        return None
+    # local: a deterministic in-process fleet; coordinator: the wall
+    # clock, so its lease arithmetic agrees with external workers
+    clock = None if role == "local" else WallClock()
+    return run_sweep_elastic(
+        cfg, axes, static, store=store, n_workers=args.elastic_workers,
+        lease_ttl_s=args.lease_ttl, quarantine_after=args.quarantine_after,
+        churn_plan=args.churn_plan, clock=clock,
+        tick_s=(1.0 if clock is None else args.poll), event_log=event_log,
+        **common,
+    )
 
 
 def main(argv=None) -> None:
@@ -128,11 +179,57 @@ def main(argv=None) -> None:
     )
     add_lz_scenario_flags(ap)
     add_bounce_flag(ap)
+    ap.add_argument("--elastic", default=None,
+                    choices=("local", "coordinator", "worker", "auto"),
+                    help="Elastic work-stealing mode (parallel/scheduler.py): "
+                         "local (in-process fleet, deterministic clock), "
+                         "coordinator (drive and fold beside external "
+                         "workers, wall clock), worker (claim/compute/commit "
+                         "only; prints a worker summary), auto (the first "
+                         "process to win the coordinator lease drives, the "
+                         "rest work).  Every role derives the plan from the "
+                         "same --config/--axis flags; drift fails loudly")
+    ap.add_argument("--elastic-store", default=None,
+                    help="Shared store root of the elastic lease/commit plane "
+                         "(required with --elastic)")
+    ap.add_argument("--elastic-workers", type=int, default=2,
+                    help="In-process fleet size for --elastic local/coordinator")
+    ap.add_argument("--worker-id", default=None,
+                    help="Stable worker name for --elastic worker/auto "
+                         "(default: from the pid)")
+    ap.add_argument("--lease-ttl", type=float, default=60.0,
+                    help="Elastic lease TTL in seconds (expired leases are "
+                         "stolen or requeued)")
+    ap.add_argument("--quarantine-after", type=int, default=3,
+                    help="Quarantine a chunk fleet-wide after it failed on "
+                         "this many distinct workers")
+    ap.add_argument("--churn-plan", default=None,
+                    help="Operational fault plan JSON or path (sites "
+                         "worker_crash/lease/store_read); never joins the "
+                         "result identity")
+    ap.add_argument("--poll", type=float, default=1.0,
+                    help="Elastic worker/coordinator poll interval (seconds)")
     add_deferred_flags(ap, DEFERRED_FLAGS)
     args = ap.parse_args(argv)
     refuse_deferred_flags(ap, args, DEFERRED_FLAGS)
     if args.fuse_exp and args.impl != "kernel":
         ap.error("--fuse-exp requires --impl kernel")
+    if args.elastic:
+        if not args.elastic_store:
+            ap.error("--elastic requires --elastic-store (the shared "
+                     "lease/commit plane)")
+        if args.out:
+            ap.error("--elastic results are committed to the store; "
+                     "--out is the static engine's resume dir")
+        if args.profile_dir:
+            ap.error("--profile-dir is not supported with --elastic")
+        if args.lz_profile:
+            ap.error("--lz-profile sweeps are not supported with --elastic "
+                     "(profiles are not shipped to workers); drop --elastic")
+        if args.bounce:
+            ap.error("--bounce sweeps are not supported with --elastic "
+                     "(the derived profile is not shipped to workers); "
+                     "drop --elastic")
     err = bounce_flag_error(args) or lz_flags_error(args, default_method="local")
     if err:
         ap.error(err)
@@ -182,14 +279,19 @@ def main(argv=None) -> None:
     static = static_choices_from_config(cfg)
     if args.quad != "auto":
         static = static._replace(quad_panel_gl=args.quad == "on")
-    res = run_sweep(
-        cfg, axes, static, chunk_size=args.chunk,
-        n_y=args.n_y, out_dir=args.out, event_log=event_log,
-        impl=args.impl, fuse_exp=args.fuse_exp,
-        device=args.device, lz_profile=args.lz_profile, lz_method=args.lz_method,
-        lz_gamma_phi=args.lz_gamma_phi, bounce=args.bounce,
-        trace_dir=args.profile_dir,
-    )
+    if args.elastic:
+        res = _run_elastic(args, cfg, static, axes, event_log)
+        if res is None:
+            return  # the worker role printed its own summary
+    else:
+        res = run_sweep(
+            cfg, axes, static, chunk_size=args.chunk,
+            n_y=args.n_y, out_dir=args.out, event_log=event_log,
+            impl=args.impl, fuse_exp=args.fuse_exp,
+            device=args.device, lz_profile=args.lz_profile, lz_method=args.lz_method,
+            lz_gamma_phi=args.lz_gamma_phi, bounce=args.bounce,
+            trace_dir=args.profile_dir,
+        )
     if args.sanitize:
         # the output boundary: dtype drift is a hard error; failed points
         # are in-band NaN, counted by n_failed
@@ -214,6 +316,7 @@ def main(argv=None) -> None:
     print(json.dumps({
         # omit-at-default, as in the JAX CLI
         **({"lz_mode": cfg.lz_mode} if cfg.lz_mode != "two_channel" else {}),
+        **({"elastic": args.elastic} if args.elastic else {}),
         "n_points": res.n_points,
         "n_failed": res.n_failed,
         "n_quarantined": res.n_quarantined,

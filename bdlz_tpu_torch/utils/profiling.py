@@ -20,7 +20,7 @@ import contextlib
 import dataclasses
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -157,6 +157,35 @@ class ServeStats:
     #: byte-identical to the pre-health service whenever nothing armed
     #: them (the zero-overhead pin in tests/test_health.py).
     extras: Dict[str, Any] = field(default_factory=dict)
+    #: Opt-in per-query traffic trace (the refinement daemon's input,
+    #: ``bdlz_tpu_torch/refine``): one ``(theta tuple, reason)`` entry per
+    #: answered request, ``reason`` as on the response (None = the
+    #: emulator answered).  ``None`` — the default — disables recording:
+    #: :meth:`record_queries` is a no-op and :meth:`summary` is
+    #: byte-identical to an unarmed service.  Arm with
+    #: :meth:`arm_traffic_log`.
+    traffic_log: "Optional[List[Tuple[Tuple[float, ...], Optional[str]]]]" = None
+
+    def arm_traffic_log(self) -> None:
+        """Start recording per-query locations and fallback reasons."""
+        if self.traffic_log is None:
+            self.traffic_log = []
+
+    def record_queries(self, thetas: Any, reasons: Any = None) -> None:
+        """Append one entry per request of a resolved batch (a no-op
+        unless :meth:`arm_traffic_log` ran).  ``thetas`` is the (B, d)
+        query block; ``reasons`` the per-request fallback reasons (a
+        single string broadcasts; None = all emulator-answered)."""
+        if self.traffic_log is None:
+            return
+        block = np.atleast_2d(np.asarray(thetas, dtype=np.float64))
+        b = block.shape[0]
+        if reasons is None:
+            reasons = [None] * b
+        elif isinstance(reasons, str):
+            reasons = [reasons] * b
+        for row, reason in zip(block, reasons):
+            self.traffic_log.append((tuple(float(v) for v in row), reason))
 
     def record_batch(self, **kw: Any) -> None:
         self.rows.append(ServeBatch(**kw))

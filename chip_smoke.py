@@ -1605,14 +1605,17 @@ def _serve_stream(submit, thetas):
     return answers, np.asarray(done), time.monotonic() - t0
 
 
-def _mixed_queries(lo, hi, n, seed):
-    """``n`` queries in the box, 10% of them pushed 5% past one edge."""
+def _mixed_queries(lo, hi, n, seed, log_axes=()):
+    """``n`` queries in the box, 10% of them pushed 5% past one edge.  Below
+    a ``log_axes`` axis the push is a factor 1.05 (the linear push takes
+    m_chi of the emulator box negative, where no log box can reach)."""
     rng = np.random.default_rng(seed)
     th = lo + (hi - lo) * rng.uniform(size=(n, len(lo)))
     out = rng.choice(n, n // 10, replace=False)
     for i in out:
         k = rng.integers(len(lo))
-        th[i, k] = hi[k] * 1.05 if rng.integers(2) else lo[k] - 0.05 * (hi[k] - lo[k])
+        below = lo[k] / 1.05 if k in log_axes else lo[k] - 0.05 * (hi[k] - lo[k])
+        th[i, k] = hi[k] * 1.05 if rng.integers(2) else below
     return th
 
 
@@ -1817,11 +1820,481 @@ def phase_serving_path(dev, artifact=None):
     return k1
 
 
+ELASTIC_WORKERS = 3
+#: The main grid as sweep_cli flags (np.geomspace / np.linspace, as MAIN_AXES).
+MAIN_AXIS_FLAGS = ["--axis", "m_chi_GeV=geom:0.1:10.0:64", "--axis",
+                   "T_p_GeV=geom:30.0:300.0:32", "--axis", "v_w=lin:0.05:0.95:16"]
+
+
+def _sweep_summary(ratios: np.ndarray) -> dict:
+    """sweep_cli's closest-to-Planck record of a main-grid result."""
+    from bdlz_tpu_torch.constants import PLANCK_DM_OVER_B
+
+    best = int(np.argmin(np.abs(ratios - PLANCK_DM_OVER_B)))
+    return {"index": best, "DM_over_B": float(ratios[best])}
+
+
+def phase_elastic_path(dev) -> dict:
+    """The elastic work-stealing sweep on the main grid: each kernel tier
+    through ``run_sweep_elastic`` (3 in-process workers on a manual
+    clock) bitwise against ``run_sweep`` of the same tier, 4 launches
+    each; a run under churn (a worker crash on chunk 1, a flaky lease
+    claim on chunk 2) still bitwise; two ``sweep_cli --elastic auto``
+    processes over one store (one coordinator, one worker) whose folded
+    result is the in-process one; and a ``--device cpu`` worker refused
+    by the card's job record.  Returns the launches per tier."""
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.faults import FaultPlan
+    from bdlz_tpu_torch.parallel import (
+        ManualClock,
+        plan_elastic_sweep,
+        run_sweep,
+        run_sweep_elastic,
+    )
+    from bdlz_tpu_torch.provenance import Store, read_lease
+
+    t0 = time.perf_counter()
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    kw = dict(impl="kernel", chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev)
+    work = tempfile.mkdtemp(prefix="bdlz_elastic_")
+    launches, tiers = {}, {}
+    try:
+        for name, (fuse_exp, reduce) in TIERS.items():
+            tier = dict(kw, fuse_exp=fuse_exp, reduce=reduce)
+            ref = run_sweep(base, MAIN_AXES, static, **tier)
+            res, counts = _launches_around(lambda: run_sweep_elastic(
+                base, MAIN_AXES, static, store=os.path.join(work, name),
+                n_workers=ELASTIC_WORKERS, clock=ManualClock(), **tier))
+            check(res.n_points == 32768 and res.n_failed == 0, f"elastic {name}: all finite")
+            check(_bitwise(res.outputs, ref.outputs), f"elastic {name}: bitwise run_sweep")
+            check(counts[name] == 4 and sum(counts.values()) == 4,
+                  f"elastic {name}: 4 launches of its kernel only, got {counts}")
+            launches[name] = counts[name]
+            tiers[name] = {"launches": counts[name], "seconds": res.seconds,
+                           "serial_seconds": ref.seconds, "points_per_sec": res.points_per_sec}
+            if name == "reduce":
+                k1_ref = ref
+
+        churn = FaultPlan.from_obj([
+            {"site": "worker_crash", "kind": "transient", "chunk": 1, "times": 1},
+            {"site": "lease", "kind": "transient", "chunk": 2, "times": 1}])
+        churn_store = os.path.join(work, "churn")
+        res, counts = _launches_around(lambda: run_sweep_elastic(
+            base, MAIN_AXES, static, store=churn_store, n_workers=ELASTIC_WORKERS,
+            lease_ttl_s=5.0, churn_plan=churn, clock=ManualClock(), **kw))
+        plan = plan_elastic_sweep(base, MAIN_AXES, static, **kw)
+        recs = [read_lease(Store(churn_store), plan.job, ci) for ci in range(plan.n_chunks)]
+        check(_bitwise(res.outputs, k1_ref.outputs) and res.n_quarantined == 0,
+              "elastic under churn: bitwise run_sweep")
+        check(recs[1]["failures"] and all(r["state"] == "done" for r in recs),
+              f"the crashed worker's chunk was stolen: {recs[1]}")
+        launches["reduce"] += counts["reduce"]
+        churn_row = {"k1_launches": counts["reduce"], "seconds": res.seconds,
+                     "stolen_generation": recs[1]["generation"],
+                     "failure_credit": recs[1]["failures"],
+                     "generations": [r["generation"] for r in recs]}
+
+        # two processes over one store: one is elected coordinator
+        cfg = os.path.join(work, "cfg.json")
+        with open(cfg, "w") as f:
+            json.dump(ARCHIVED, f)
+        cli_store = os.path.join(work, "cli")
+        cli = [sys.executable, "-m", "bdlz_tpu_torch.sweep_cli", "--config", cfg,
+               *MAIN_AXIS_FLAGS, "--impl", "kernel", "--elastic-store", cli_store,
+               "--poll", "0.2"]
+        t1 = time.perf_counter()
+        procs = [subprocess.Popen(cli + ["--elastic", "auto", "--worker-id", f"p{i}"],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                  env=_subprocess_env()) for i in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=300)
+                outs.append((p.returncode, out, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        cli_s = time.perf_counter() - t1
+        check(all(rc == 0 for rc, _, _ in outs),
+              f"elastic CLI roles: {[err[-1500:] for rc, _, err in outs if rc]}")
+        roles = ["coordinator" if "elected coordinator" in err else "worker"
+                 for _, _, err in outs]
+        check(sorted(roles) == ["coordinator", "worker"], f"elected roles {roles}")
+        coord = json.loads(outs[roles.index("coordinator")][1].strip().splitlines()[-1])
+        worker = json.loads(outs[roles.index("worker")][1].strip().splitlines()[-1])
+        want = _sweep_summary(k1_ref.outputs["DM_over_B"])
+        got = {k: coord["closest_to_planck"][k] for k in want}
+        check(coord["n_points"] == 32768 and coord["n_failed"] == 0 and got == want,
+              f"coordinator summary {got} against in-process {want}")
+        folded = run_sweep_elastic(base, MAIN_AXES, static, store=cli_store, **kw)
+        check(folded.cache_hits == 4 and _bitwise(folded.outputs, k1_ref.outputs),
+              "the CLI fleet's committed chunks are the in-process bits")
+
+        # a CPU role against the card's job is refused by the job record
+        cpu = subprocess.run(cli + ["--elastic", "worker", "--worker-id", "cpu0",
+                                    "--device", "cpu"], capture_output=True, text=True,
+                             env=_subprocess_env(), timeout=300)
+        check(cpu.returncode != 0 and "ElasticError" in cpu.stderr,
+              f"a --device cpu worker must be refused: rc {cpu.returncode}, "
+              f"{cpu.stderr[-800:]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "elastic_path", "seconds": time.perf_counter() - t0, "points": 32768,
+          "chunks": 4, "workers": ELASTIC_WORKERS, "tiers": tiers, "churn": churn_row,
+          "cli": {"roles": roles, "seconds": cli_s, "worker_chunks": worker["chunks_done"],
+                  "closest_to_planck": got},
+          "cpu_worker_refused": True})
+    return launches
+
+
+#: The chain tenant: N = 3 over a (m_chi, v_w) box, P from an analytic
+#: profile (the tests' tanh wall), at the main path's n_y through K1.
+CHAIN_SPEC = {"m_chi_GeV": (0.5, 2.0, 5, "log"), "v_w": (0.2, 0.4, 5, "lin")}
+AUTOSCALE_S, FAR_M_CHI = 1.0, 40.0
+
+
+def _chain_profile():
+    from bdlz_tpu_torch.lz.profile import BounceProfile
+
+    xi = np.linspace(-30.0, 30.0, 1001)
+    return BounceProfile(xi=xi, delta=-0.08 * np.tanh(xi / 4.0), mix=np.full_like(xi, 0.02))
+
+
+def _values(futs) -> np.ndarray:
+    return np.array([f.result(timeout=0).value for f in futs])
+
+
+def _drift_queries(artifact, n, seed):
+    """``n`` queries of a traffic drift: uniform over a sub-box that hangs a
+    third past the box's top edge in m_chi and sits in the middle tenth of
+    every other axis (in each axis's own scale)."""
+    from bdlz_tpu_torch.emulator.grid import axis_coord
+
+    rng = np.random.default_rng(seed)
+    cols = []
+    for k, name in enumerate(artifact.axis_names):
+        nodes, scale = np.asarray(artifact.axis_nodes[k]), artifact.axis_scales[k]
+        u_lo, u_hi = (float(v) for v in axis_coord(nodes[[0, -1]], scale))
+        d = u_hi - u_lo
+        a, b = ((u_lo + 0.8 * d, u_hi + 0.1 * d) if name == "m_chi_GeV"
+                else (u_lo + 0.45 * d, u_lo + 0.55 * d))
+        u = rng.uniform(a, b, n)
+        cols.append(10.0 ** u if scale == "log" else u)
+    return np.stack(cols, axis=1)
+
+
+def _refine_cycle(artifact, base, stream, dev, root):
+    """The refinement daemon on a 1-replica fleet of ``artifact``: serve
+    ``stream`` in 256-query batches until the daemon sees drift and runs
+    its cycle (snapshot, traffic-weighted rebuild through K1, delivery),
+    then serve the stream again on whatever surface serves.  Returns
+    (record, K1 launches of the cycle)."""
+    from bdlz_tpu_torch.emulator import artifact_hull
+    from bdlz_tpu_torch.parallel import ManualClock
+    from bdlz_tpu_torch.provenance import Store
+    from bdlz_tpu_torch.provenance.registry import ARTIFACT_KIND
+    from bdlz_tpu_torch.refine import RefinementDaemon
+    from bdlz_tpu_torch.serve import FleetService
+
+    clock = ManualClock()
+    fleet = FleetService(artifact, base, max_batch_size=SERVE_BATCH, n_replicas=1,
+                         clock=clock, devices=[dev])
+    store = Store(root)
+    daemon = RefinementDaemon(
+        fleet, base, store=store, clock=clock, window=N_MIXED, min_queries=32,
+        drift_gated_rate=0.05, rebuild_budget=1, observe_s=0.5,
+        build_kw=dict(n_probe=48, max_rounds=25, chunk_size=N_POINTS))
+    lo, hi = artifact_hull(artifact)
+    far = lo + 0.5 * (hi - lo)
+    far[artifact.axis_names.index("m_chi_GeV")] = FAR_M_CHI
+
+    def serve(thetas):
+        futs = [fleet.submit(t) for t in thetas]
+        clock.advance(0.01)
+        while fleet.pending():
+            fleet.run_once(force=True)
+            while fleet.in_flight():
+                fleet.poll(block=True)
+        return [f.result(timeout=0) for f in futs]
+
+    def fallback_rate(rows):
+        return sum(r.n_fallback for r in rows) / sum(r.size for r in rows)
+
+    far_before = serve([far])[0]
+    rebuild_s, k1, steps, rows = None, 0, 0, []
+    for i in range(0, len(stream), SERVE_BATCH):  # until the daemon sees drift
+        serve(stream[i:i + SERVE_BATCH])
+        rows = list(fleet.stats.rows[1:])  # served by the seed surface
+        t1 = time.perf_counter()
+        status, counts = _launches_around(daemon.step)
+        steps += 1
+        if status.get("drifted"):
+            rebuild_s, k1 = time.perf_counter() - t1, counts["reduce"]
+            break
+    check(rebuild_s is not None and daemon.cycles == 1 and k1 >= 1,
+          f"the daemon saw the drift and rebuilt through K1 ({k1} launches)")
+    far_after = serve([far])[0]
+    n2 = len(fleet.stats.rows)
+    for i in range(0, len(stream), SERVE_BATCH):
+        serve(stream[i:i + SERVE_BATCH])
+    far_bitwise = np.float64(far_before.value).tobytes() == np.float64(far_after.value).tobytes()
+    check(far_before.fallback_reason == far_after.fallback_reason == "ood" and far_bitwise,
+          "a far out-of-domain answer is bitwise equal across the cycle")
+    decision = daemon.history[0]["decision"]
+    published = os.path.isdir(os.path.join(store.root, ARTIFACT_KIND))
+    check((decision["outcome"] == "promoted") == published
+          and (fleet.artifact_hash != artifact.content_hash) == published,
+          f"promoted iff published and serving: {decision}")
+    row = {"drift_at_step": steps, "rebuild_seconds": rebuild_s, "rebuild_k1_launches": k1,
+           "snapshot_ood_rate": daemon.history[0]["snapshot_ood_rate"],
+           "snapshot_gated_rate": daemon.history[0]["snapshot_gated_rate"],
+           "fallback_rate_before": fallback_rate(rows),
+           "fallback_rate_after": fallback_rate(fleet.stats.rows[n2:]),
+           "far_ood_bitwise": far_bitwise, "decision": decision, "published": published,
+           "rollbacks": fleet.stats.extras.get("rollbacks", [])}
+    fleet.close()
+    return row, k1
+
+
+def phase_fabric_path(dev, artifact=None) -> int:
+    """Tenancy, refinement and the fabric on the card.  Two tenants (the
+    emulator_path box and an N=3 chain surface built here through K1)
+    behind one ``MultiTenantService`` at the serve CLI's defaults under a
+    steady load on its clock (the autoscaler grows and shrinks the pools),
+    answers bitwise a single-tenant fleet's, an eviction answered through
+    K1 and a readmission bitwise the pre-eviction answers; the refinement
+    daemon on a 1-replica fleet fed the 1,024-request mix until it
+    rebuilds through K1 and cuts over; two fabric hosts over one store: a
+    host crash failed over bitwise, a store partition answered through K1,
+    and an idle host stealing the main grid's chunks through K1, bitwise
+    ``run_sweep``.  Returns the K1 launches of the phase."""
+    import dataclasses
+
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.emulator import AxisSpec, artifact_hull, build_emulator
+    from bdlz_tpu_torch.emulator import make_exact_evaluator
+    from bdlz_tpu_torch.faults import FaultPlan
+    from bdlz_tpu_torch.parallel import (
+        LeasePlane,
+        ManualClock,
+        ensure_job_record,
+        plan_elastic_sweep,
+        run_sweep,
+        run_sweep_elastic,
+    )
+    from bdlz_tpu_torch.provenance import Store, publish_artifact
+    from bdlz_tpu_torch.serve import (
+        FabricHost,
+        FleetService,
+        GlobalRouter,
+        MultiTenantService,
+        ServiceUnavailable,
+        ServingFabric,
+    )
+    from bdlz_tpu_torch.serve.tenancy import pool_bytes_per_replica
+
+    t0 = time.perf_counter()
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    if artifact is None:
+        (artifact, _), _, _ = _build_emu_box(dev)
+    base_chain = dataclasses.replace(base, lz_mode="chain", lz_n_levels=3)
+    prof = _chain_profile()
+    (chain_art, chain_rep), chain_counts = _launches_around(lambda: build_emulator(
+        base_chain, {k: AxisSpec(*v) for k, v in CHAIN_SPEC.items()},
+        static_choices_from_config(base_chain), rtol=1e-3, n_probe=16, max_rounds=6,
+        n_y=N_Y, chunk_size=N_POINTS, impl="kernel", lz_profile=prof, device=dev))
+    k1 = chain_counts["reduce"]
+    check(k1 >= 1, "the chain tenant was built through K1")
+    work = tempfile.mkdtemp(prefix="bdlz_fabric_")
+    try:
+        store = Store(os.path.join(work, "store"))
+        tenants = {"box": publish_artifact(store, artifact),
+                   "chain": publish_artifact(store, chain_art)}
+        lo, hi = artifact_hull(artifact)
+        clo, chi = artifact_hull(chain_art)
+        rng = np.random.default_rng(31)
+
+        # ---- tenancy: a steady offered load on the service's clock
+        clock = ManualClock()
+        svc = MultiTenantService(base, tenant_map=tenants, store=store,
+                                 max_batch_size=SERVE_BATCH, max_wait_s=SERVE_WAIT_S,
+                                 clock=clock, lz_profile=prof, autoscale_interval_s=AUTOSCALE_S,
+                                 n_replicas=1, devices=[dev])
+        mem, bytes_est = {}, {}
+        for scn, (a, b) in (("box", (lo, hi)), ("chain", (clo, chi))):
+            m0 = torch.cuda.memory_allocated(dev)
+            svc.submit(a + 0.5 * (b - a), scenario=scn)
+            mem[scn] = torch.cuda.memory_allocated(dev) - m0
+            bytes_est[scn] = svc.pool(scn).bytes_per_replica
+        svc.drain()
+        blocks = {"box": lo + (hi - lo) * rng.uniform(size=(SERVE_BATCH, len(lo))),
+                  "chain": clo + (chi - clo) * rng.uniform(size=(SERVE_BATCH, len(clo)))}
+        replicas, host_ms, answers = [], {s: [] for s in blocks}, {}
+        for tick in range(6):
+            if tick < 3:  # one full batch per pool per interval, timed per pool
+                futs = {}
+                for scn in blocks:
+                    futs[scn] = [svc.submit(t, scenario=scn) for t in blocks[scn]]
+                    t1 = time.perf_counter()
+                    svc.run_once()
+                    svc.poll(block=True)
+                    torch.cuda.synchronize(dev)
+                    host_ms[scn].append((time.perf_counter() - t1) * 1e3)
+                answers.setdefault("first", {s: _values(f) for s, f in futs.items()})
+            clock.advance(AUTOSCALE_S)
+            svc.run_once()
+            replicas.append({s: svc.pool(s).n_replicas for s in blocks})
+        for _ in range(2):
+            clock.advance(AUTOSCALE_S)
+            svc.run_once()
+            replicas.append({s: svc.pool(s).n_replicas for s in blocks})
+        check(any(r["box"] == 2 for r in replicas) and replicas[-1]["box"] == 1,
+              f"the autoscaler grew and shrank the box pool: {replicas}")
+        single = {"box": FleetService(artifact, base, max_batch_size=SERVE_BATCH,
+                                      devices=[dev]),
+                  "chain": FleetService(chain_art, base_chain, max_batch_size=SERVE_BATCH,
+                                        lz_profile=prof, devices=[dev])}
+        bitwise_single = {}
+        for scn, fleet in single.items():
+            fs = [fleet.submit(t) for t in blocks[scn]]
+            fleet.drain()
+            bitwise_single[scn] = _values(fs).tobytes() == answers["first"][scn].tobytes()
+            fleet.close()
+        check(all(bitwise_single.values()), f"tenancy vs single-tenant fleets {bitwise_single}")
+
+        # ---- eviction below the two pools' bytes, then readmission
+        svc.submit(blocks["chain"][0], scenario="chain")
+        svc.drain()
+        svc.memory_budget_bytes = svc.pool("chain").resident_bytes
+        svc.run_once()
+        check(svc.pool("box").evicted and not svc.pool("chain").evicted,
+              "the memory budget evicted the idle box pool")
+        probe = blocks["box"][:64]
+        deg, deg_counts = _launches_around(lambda: (
+            [svc.submit(t, scenario="box") for t in probe], svc.drain())[0])
+        deg_resp = [f.result(timeout=0) for f in deg]
+        plain = make_exact_evaluator(
+            base, static._replace(quad_panel_gl=False), n_y=N_Y, impl="tabulated",
+            chunk_size=len(probe), device="cpu")(
+                {n: probe[:, k] for k, n in enumerate(artifact.axis_names)})["DM_over_B"]
+        deg_rel = _max_rel([r.value for r in deg_resp], plain)
+        check(all(r.degraded and r.fallback_reason == "pool_evicted" and r.replica == -1
+                  for r in deg_resp) and deg_counts["reduce"] >= 1
+              and deg_rel <= FALLBACK_RTOL,
+              f"evicted pool answered through K1 ({deg_counts['reduce']}), {deg_rel:.3e}")
+        k1 += deg_counts["reduce"]
+        svc.memory_budget_bytes = None
+        svc.readmit("box")
+        post = [svc.submit(t, scenario="box") for t in blocks["box"]]
+        svc.drain()
+        readmit_bitwise = _values(post).tobytes() == answers["first"]["box"].tobytes()
+        check(readmit_bitwise, "readmitted answers bitwise the pre-eviction ones")
+        tenancy = {"replicas_per_pass": replicas, "wall_ms_per_batch": host_ms,
+                   "memory_allocated_bytes": mem, "pool_bytes_per_replica": bytes_est,
+                   "bitwise_single_tenant": bitwise_single,
+                   "evicted_k1_launches": deg_counts["reduce"],
+                   "evicted_vs_cpu_tabulated_max_rel": deg_rel,
+                   "readmit_bitwise": readmit_bitwise, "summary": {
+                       k: v for k, v in svc.summary().items() if k != "pools"}}
+        svc.close()
+
+        # ---- refinement: drift, a traffic-weighted rebuild through K1, delivery
+        log_axes = [k for k, sc in enumerate(artifact.axis_scales) if sc == "log"]
+        streams = {"mix": _mixed_queries(lo, hi, N_MIXED, 22, log_axes=log_axes),
+                   "drift": _drift_queries(artifact, N_MIXED, 23)}
+        refine = {}
+        for name, stream in streams.items():
+            row, counts = _refine_cycle(artifact, base, stream, dev,
+                                        os.path.join(work, f"refine_{name}"))
+            k1 += counts
+            refine[name] = row
+        mix, drift = refine["mix"], refine["drift"]
+        check(drift["decision"]["outcome"] == "promoted"
+              and drift["fallback_rate_after"] <= drift["fallback_rate_before"] / 2,
+              f"the drifted stream's candidate was promoted and the fallback rate fell "
+              f"at least 2x: {drift}")
+        check(mix["decision"]["outcome"] == "promoted"
+              and mix["fallback_rate_after"] <= mix["fallback_rate_before"] / 2
+              or mix["decision"]["outcome"] == "rejected" and not mix["published"],
+              f"the mix's candidate was promoted with the fallback rate 2x lower, or "
+              f"rejected unpublished: {mix}")
+
+        # ---- the fabric: two hosts over one store
+        fclock = ManualClock()
+        # host 1's store calls: register 0, two ticks' heartbeats 1 and 2,
+        # then the partitioned heartbeat's two attempts 3 and 4
+        crash = FaultPlan.from_obj([{"site": "host_crash", "kind": "raise", "chunk": 1}])
+        part = FaultPlan.from_obj([{"site": "store_partition", "kind": "raise", "chunk": k}
+                                   for k in (3, 4)])
+        hosts = [FabricHost(base, fabric="chip", host_id=f"h{i}", host_index=i, store=store,
+                            tenant_map=tenants, clock=fclock, ttl_s=30.0,
+                            max_batch_size=SERVE_BATCH, fault_plan=faults,
+                            partition_retries=2, steal_chunks_per_tick=4, cache_root=cache,
+                            devices=[dev])
+                 for i, (faults, cache) in enumerate(
+                     ((crash, None), (part, os.path.join(work, "h1cache"))))]
+        fab = ServingFabric(hosts, GlobalRouter(store, "chip", 2, clock=fclock))
+        fab.register_all()
+        trace = blocks["box"][:64]
+        v0 = [fab.submit(t, scenario="box") for t in trace]
+        fab.drain()
+        check({f.result(timeout=0).host_id for f in v0} == {"h0"}, "host 0 served first")
+        fab.tick()  # host 0 advertises its pool; then dies at its next tick
+        doomed = [fab.submit(t, scenario="box") for t in trace[:8]]
+        fab.tick()
+        n_typed = sum(isinstance(f.exception(timeout=0), ServiceUnavailable) for f in doomed)
+        check(not hosts[0].alive and n_typed == len(doomed), "host 0 crashed, queued work typed")
+        v1 = [fab.submit(t, scenario="box") for t in trace]
+        fab.drain()
+        failover_bitwise = _values(v1).tobytes() == _values(v0).tobytes()
+        check(failover_bitwise and {f.result(timeout=0).host_id for f in v1} == {"h1"},
+              "failover to host 1, bitwise the clean run")
+        check(not hosts[1].heartbeat() and hosts[1].partitioned, "host 1 partitioned")
+        pres, pcounts = _launches_around(
+            lambda: hosts[1].submit(trace[0], scenario="box").result(timeout=0))
+        check(pres.degraded and pres.fallback_reason == "store_partition"
+              and pcounts["reduce"] >= 1, f"partition answered through K1 ({pcounts})")
+        k1 += pcounts["reduce"]
+        check(hosts[1].heartbeat() and not hosts[1].partitioned, "the partition healed")
+
+        kw = dict(impl="kernel", chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev)
+        ref = run_sweep(base, MAIN_AXES, static, **kw)
+        plan = plan_elastic_sweep(base, MAIN_AXES, static, **kw)
+        ensure_job_record(store, plan)
+        leases = LeasePlane(store, plan.job, plan.n_chunks, ttl_s=60.0, clock=fclock)
+        hosts[1].attach_sweep(plan, leases)
+        _, scounts = _launches_around(lambda: [fab.tick() for _ in range(2)])
+        folded = run_sweep_elastic(base, MAIN_AXES, static, store=store, **kw)
+        check(hosts[1].chunks_stolen == 4 and scounts["reduce"] == 4
+              and folded.cache_hits == 4 and _bitwise(folded.outputs, ref.outputs),
+              f"host 1 stole 4 chunks through K1, bitwise run_sweep ({scounts})")
+        k1 += scounts["reduce"]
+        fabric = {"failover_bitwise": failover_bitwise, "typed_failures": n_typed,
+                  "failovers": fab.failovers, "partition_k1_launches": pcounts["reduce"],
+                  "stolen_chunks": hosts[1].chunks_stolen,
+                  "stolen_k1_launches": scounts["reduce"],
+                  "artifact_cache": hosts[1].artifact_cache.counters()}
+        fab.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "fabric_path", "seconds": time.perf_counter() - t0,
+          "chain_build": {"k1_launches": chain_counts["reduce"],
+                          "converged": chain_rep.converged,
+                          "seconds": chain_rep.build_seconds},
+          "tenancy": tenancy, "refine": refine, "fabric": fabric, "k1_launches": k1})
+    return k1
+
+
 #: Phases that can run on their own (``--only``); such a run prints no
 #: kernels line and no ok line.
 STANDALONE = {"robust_path": phase_robust_path, "emulator_path": phase_emulator_path,
               "sampling_path": phase_sampling_path, "host_planes": phase_host_planes,
-              "serving_path": phase_serving_path}
+              "serving_path": phase_serving_path, "elastic_path": phase_elastic_path,
+              "fabric_path": phase_fabric_path}
 
 
 def main(argv=None) -> int:
@@ -1865,6 +2338,11 @@ def main(argv=None) -> int:
     phase_host_planes(dev)
     # K1's row counts the main path's launches and the serving run's
     launches["reduce"] += phase_serving_path(dev, artifact)
+    # K1-K4 on the elastic sweep, and K1 through tenancy, refinement and
+    # the fabric
+    for name, n in phase_elastic_path(dev).items():
+        launches[name] += n
+    launches["reduce"] += phase_fabric_path(dev, artifact)
     from bdlz_tpu_torch.ops import bounce_kernel as bk
 
     emit({"kernels": [{

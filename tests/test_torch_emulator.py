@@ -14,8 +14,9 @@
 * The Planck-weighted and the Fisher-steered builds of the same box
   match JAX's: nodes, rounds, gradient evaluations and identity equal,
   values ≤1e-12 rel.
-* Options the port does not have yet name their ROADMAP item; without a
-  card nothing runs unless the CPU is asked for.
+* Option pairings both packages refuse (a traffic signal without a
+  snapshot, an elastic build without a store) give JAX's message; without
+  a card nothing runs unless the CPU is asked for.
 
 ``pytest -s`` prints the ``RESIDUAL`` lines.
 """
@@ -238,26 +239,32 @@ def test_exact_evaluator_quarantines_a_dead_probe_chunk_like_jax():
         assert np.max(np.abs(got[f][ok] / ref[f][ok] - 1.0)) <= BUILD_RTOL
 
 
-# the Planck weighting and the Fisher signal build now (see
-# test_weighted_and_fisher_builds_match_jax); beside a D7 option they
-# still name D7
+# option pairings that both packages refuse with the same message: a
+# traffic signal without a snapshot, a snapshot without a traffic signal,
+# and an elastic build without a shared store
 REFUSED = [
-    ({"posterior_weight": "planck", "elastic": 2}, {}, "ROADMAP D7"),
-    ({"traffic": object()}, {"posterior_weight": "planck"}, "ROADMAP D7"),
-    ({"refine_signal": "traffic"}, {"refine_signal": "fisher"}, "ROADMAP D7"),
-    ({"refine_signal": "traffic"}, {}, "ROADMAP D7"),
-    ({}, {"refine_signal": "traffic*planck"}, "ROADMAP D7"),
-    ({"traffic": object()}, {}, "ROADMAP D7"),
-    ({"elastic": 2}, {}, "ROADMAP D7"),
+    ({"posterior_weight": "planck", "elastic": 2}, {}),
+    ({"traffic": object()}, {"posterior_weight": "planck"}),
+    ({"refine_signal": "traffic"}, {"refine_signal": "fisher"}),
+    ({"refine_signal": "traffic"}, {}),
+    ({}, {"refine_signal": "traffic*planck"}),
+    ({"traffic": object()}, {}),
+    ({"elastic": 2}, {}),
 ]
 
 
-@pytest.mark.parametrize("kw,cfg,item", REFUSED, ids=range(len(REFUSED)))
-def test_refused_options_name_their_roadmap_item(kw, cfg, item):
+@pytest.mark.parametrize("kw,cfg", REFUSED, ids=range(len(REFUSED)))
+def test_refused_options_name_their_roadmap_item(kw, cfg, monkeypatch):
+    monkeypatch.delenv("BDLZ_CACHE_ROOT", raising=False)
+    with pytest.raises(je.EmulatorBuildError) as ref:
+        je.build_emulator(jc.config_from_dict(dict(ARCHIVED, **cfg)),
+                          {"m_chi_GeV": je.AxisSpec(0.9, 1.1, 2, "log")}, **kw)
     base = tc.config_from_dict(dict(ARCHIVED, **cfg))
     spec = {"m_chi_GeV": te.AxisSpec(0.9, 1.1, 2, "log")}
-    with pytest.raises(te.EmulatorBuildError, match=item):
+    with pytest.raises(te.EmulatorBuildError) as got:
         te.build_emulator(base, spec, device="cpu", **kw)
+    # the messages name each package's own refine module
+    assert str(got.value) == str(ref.value).replace("bdlz_tpu.", "bdlz_tpu_torch.")
 
 
 def test_invalid_weighting_values_are_refused_like_jax():

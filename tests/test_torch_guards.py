@@ -191,3 +191,91 @@ def test_clis_without_a_card_raise_unless_asked_for_the_cpu(monkeypatch, tmp_pat
                 "--steps", "2", "--burn", "0", "--sanitize"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)
+
+
+def _d7b_call(entry, device, tmp_path):
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+
+    base = config_from_dict({"P_chi_to_B": 0.15})
+    static = static_choices_from_config(base)
+    axes = {"m_chi_GeV": [1.0, 2.0]}
+    dev = {} if device is None else {"device": device}
+    devs = {} if device is None else {"devices": [device]}
+    if entry == "plan_elastic_sweep":
+        from bdlz_tpu_torch.parallel import plan_elastic_sweep
+
+        return plan_elastic_sweep(base, axes, static, n_y=2000, **dev)
+    if entry == "run_sweep_elastic":
+        from bdlz_tpu_torch.parallel import run_sweep_elastic
+
+        return run_sweep_elastic(base, axes, static, n_y=2000, store=str(tmp_path / "s"),
+                                 **dev)
+    if entry == "run_worker_loop":
+        from bdlz_tpu_torch.parallel import run_worker_loop
+
+        return run_worker_loop(base, axes, static, n_y=2000, store=str(tmp_path / "w"),
+                               worker_id="w", **dev)
+    if entry == "MultiTenantService":
+        from bdlz_tpu_torch.serve import MultiTenantService
+
+        return MultiTenantService(base, tenant_map={"a": "0123456789abcdef"},
+                                  store=str(tmp_path / "t"), **devs)
+    if entry == "FabricHost":
+        from bdlz_tpu_torch.serve import FabricHost
+
+        return FabricHost(base, fabric="f", host_id="h", host_index=0,
+                          store=str(tmp_path / "f"), **devs)
+    if entry == "traffic_miss_score":
+        from bdlz_tpu_torch.refine import traffic_miss_score
+
+        return traffic_miss_score(_tiny_artifact(), [[1.0, 100.0]], 1e-3, **dev)
+    from bdlz_tpu_torch.sweep_cli import main
+
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text('{"P_chi_to_B": 0.15}')
+    return main(["--config", str(cfg), "--axis", "m_chi_GeV=1,2", "--n-y", "2000",
+                 "--elastic", "local", "--elastic-store", str(tmp_path / "c"),
+                 *(["--device", device] if device else [])])
+
+
+@pytest.mark.parametrize("entry", ["plan_elastic_sweep", "run_sweep_elastic",
+                                   "run_worker_loop", "MultiTenantService", "FabricHost",
+                                   "traffic_miss_score", "sweep_cli --elastic"])
+def test_the_d7b_entry_points_without_a_card_raise_unless_asked_for_the_cpu(
+        monkeypatch, tmp_path, capsys, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _d7b_call(entry, None, tmp_path)
+    got = _d7b_call(entry, "cpu", tmp_path)
+    if hasattr(got, "close"):
+        got.close()
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_a_jax_role_and_a_port_role_refuse_each_other_s_job(tmp_path, first):
+    """The port's job record carries its platform: a fleet that mixes the
+    packages would commit under different chunk keys and never fold, so
+    whichever role comes second is refused at the job record."""
+    import bdlz_tpu.parallel.scheduler as jsch
+    import bdlz_tpu_torch.parallel.scheduler as tsch
+    from bdlz_tpu.config import config_from_dict as jcfg
+    from bdlz_tpu.config import static_choices_from_config as jstatic
+    from bdlz_tpu.provenance import Store as JStore
+    from bdlz_tpu_torch.config import config_from_dict as tcfg
+    from bdlz_tpu_torch.config import static_choices_from_config as tstatic
+    from bdlz_tpu_torch.provenance import Store as TStore
+
+    cfg = {"P_chi_to_B": 0.15}
+    axes = {"m_chi_GeV": [1.0, 2.0]}
+    jplan = jsch.plan_elastic_sweep(jcfg(cfg), axes, jstatic(jcfg(cfg)), n_y=2000)
+    tplan = tsch.plan_elastic_sweep(tcfg(cfg), axes, tstatic(tcfg(cfg)), n_y=2000,
+                                    device="cpu")
+    assert jplan.job == tplan.job  # one namespace: only the record tells them apart
+    root = str(tmp_path / "store")
+    roles = [(jsch, JStore, jplan), (tsch, TStore, tplan)]
+    if first == "port":
+        roles.reverse()
+    (mod1, store1, plan1), (mod2, store2, plan2) = roles
+    mod1.ensure_job_record(store1(root), plan1)
+    with pytest.raises(mod2.ElasticError, match="does not match"):
+        mod2.ensure_job_record(store2(root), plan2)

@@ -431,3 +431,94 @@ def test_yield_service_on_the_card_launches_k1_and_matches_the_cpu(cuda, tmp_pat
     ref, n_ref = YieldService(art, base, max_batch_size=64, device="cpu").evaluate(th)
     assert n_ref == n_fb
     assert np.max(np.abs(got / ref - 1.0)) <= 1e-10
+
+
+# ---- the elastic sweep, tenancy and the fabric on the card ---------------------------
+
+TIER_ARGS = {"reduce": (False, True), "stream": (False, False),
+             "fused_reduce": (True, True), "fused_stream": (True, False)}
+
+
+@pytest.mark.parametrize("tier", sorted(TIER_ARGS))
+def test_an_elastic_kernel_sweep_is_bitwise_run_sweep(tier, cuda, tmp_path):
+    """Three in-process workers over 4 chunks launch the tier's kernel once
+    per chunk and fold the serial sweep's bits."""
+    from bdlz_tpu_torch.parallel import run_sweep_elastic
+
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    fuse_exp, reduce = TIER_ARGS[tier]
+    axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 16), "T_p_GeV": np.geomspace(30.0, 300.0, 8)}
+    kw = dict(impl="kernel", fuse_exp=fuse_exp, reduce=reduce, chunk_size=32, n_y=N_Y,
+              device=cuda)
+    ref = run_sweep(base, axes, static, **kw)
+    kk.reset_launches()
+    res = run_sweep_elastic(base, axes, static, store=str(tmp_path / "s"), n_workers=3, **kw)
+    assert kk.LAUNCHES[tier] == 4
+    for f in ref.outputs:
+        assert res.outputs[f].tobytes() == ref.outputs[f].tobytes(), f
+
+
+def _kernel_artifact(tmp_path, cuda):
+    from bdlz_tpu_torch.emulator import AxisSpec, build_emulator
+    from bdlz_tpu_torch.provenance import Store, publish_artifact
+
+    base = config_from_dict(ARCHIVED)
+    spec = {"m_chi_GeV": AxisSpec(0.9, 1.1, 3, "log"), "T_p_GeV": AxisSpec(90.0, 110.0, 3, "log")}
+    art, _ = build_emulator(base, spec, rtol=1e-3, n_probe=4, n_holdout=8, max_rounds=2,
+                            n_y=2000, impl="kernel", device=cuda)
+    store = Store(str(tmp_path / "store"))
+    return base, art, store, publish_artifact(store, art)
+
+
+def test_an_evicted_pool_answers_through_k1_on_the_card(cuda, tmp_path):
+    from bdlz_tpu_torch.emulator import make_exact_evaluator
+    from bdlz_tpu_torch.serve import MultiTenantService
+
+    base, art, store, h = _kernel_artifact(tmp_path, cuda)
+    clock = [0.0]
+    svc = MultiTenantService(base, tenant_map={"a": h}, store=store, max_batch_size=8,
+                             clock=lambda: clock[0], fault_plan='{"faults": [{"site": '
+                             '"pool_evict", "kind": "raise", "key": 0}]}')
+    th = np.stack([np.linspace(0.92, 1.08, 8), np.linspace(92.0, 108.0, 8)], axis=1)
+    try:
+        for t in th:
+            svc.submit(t, scenario="a")
+        svc.drain()
+        svc.run_once()
+        assert svc.pool("a").evicted
+        kk.reset_launches()
+        futs = [svc.submit(t, scenario="a") for t in th]
+        svc.drain()
+        got = np.array([f.result(timeout=0).value for f in futs])
+        assert kk.LAUNCHES["reduce"] >= 1
+        assert all(f.result(timeout=0).fallback_reason == "pool_evicted" for f in futs)
+    finally:
+        svc.close()
+    static = static_choices_from_config(base)._replace(quad_panel_gl=False)
+    ref = make_exact_evaluator(base, static, n_y=2000, impl="tabulated", chunk_size=8,
+                               device="cpu")({"m_chi_GeV": th[:, 0], "T_p_GeV": th[:, 1]})
+    assert np.max(np.abs(got / ref["DM_over_B"] - 1.0)) <= 1e-10
+
+
+def test_a_partitioned_host_answers_through_k1_on_the_card(cuda, tmp_path):
+    from bdlz_tpu_torch.serve import FabricHost
+
+    base, art, store, h = _kernel_artifact(tmp_path, cuda)
+    clock = [0.0]
+    plan = '{"faults": [{"site": "store_partition", "kind": "raise", "chunk": 1}, ' \
+           '{"site": "store_partition", "kind": "raise", "chunk": 2}]}'
+    host = FabricHost(base, fabric="f", host_id="h0", host_index=0, store=store,
+                      tenant_map={"a": h}, clock=lambda: clock[0], fault_plan=plan,
+                      partition_retries=2, max_batch_size=8)
+    try:
+        host.register()
+        host.submit([1.0, 100.0], scenario="a")
+        host.drain()
+        assert not host.heartbeat() and host.partitioned
+        kk.reset_launches()
+        r = host.submit([1.01, 101.0], scenario="a").result(timeout=0)
+        assert r.degraded and r.fallback_reason == "store_partition"
+        assert kk.LAUNCHES["reduce"] >= 1 and np.isfinite(r.value)
+    finally:
+        host.close()

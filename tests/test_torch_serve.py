@@ -28,7 +28,6 @@ import bdlz_tpu_torch.serve as ts
 from bdlz_tpu.faults import FaultPlan as JPlan
 from bdlz_tpu.utils.profiling import ServeStats as JStats
 from bdlz_tpu_torch.faults import FaultPlan as TPlan
-from bdlz_tpu_torch.serve.serve_cli import DEFERRED_FLAGS
 from bdlz_tpu_torch.utils.profiling import ServeStats as TStats
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -200,19 +199,6 @@ def test_serve_cli_records_equal_jax_s(served, cli_files, capsys, extra):
         assert t == j
     done = [json.loads(ln) for ln in proc.stderr.splitlines() if '"serve_done"' in ln]
     assert done and done[0]["requests"] == 40
-
-
-@pytest.mark.parametrize("flag", sorted(DEFERRED_FLAGS) + ["--self-improve"])
-def test_serve_cli_refuses_what_is_not_ported_naming_d7b(served, cli_files, capsys, flag):
-    from bdlz_tpu_torch.serve.serve_cli import main
-
-    value = ["on"] if flag == "--self-improve" else (["1"] if DEFERRED_FLAGS[flag][0]
-                                                      else [])
-    with pytest.raises(SystemExit) as exc:
-        main(["--config", str(cli_files / "cfg.json"), "--artifact", served.out_dir,
-              "--bench", "4", "--device", "cpu", flag, *value])
-    assert exc.value.code == 2
-    assert "ROADMAP D7b, serving and elastic sweeps" in capsys.readouterr().err
 
 
 def test_serve_cli_bench_on_the_cpu(served, cli_files, capsys):

@@ -124,7 +124,8 @@ def _draw_probes(spec: Mapping[str, AxisSpec], n: int, rng: np.random.Generator
 
 def _exact_fields(base, axes: Mapping[str, np.ndarray], static, *, chunk_size: int,
                   n_y: int, impl: str, device, fault_plan=None, retry=None, cache=None,
-                  lz_profile=None, elastic=None) -> Tuple[Dict[str, np.ndarray], int]:
+                  lz_profile=None, elastic=None, mesh=None
+                  ) -> Tuple[Dict[str, np.ndarray], int]:
     """The exact pipeline over a product grid through ``run_sweep``
     (chunk healing included).  A point that stays failed — non-finite or
     quarantined — is an :class:`EmulatorBuildError`: the table masks
@@ -168,7 +169,7 @@ def _exact_fields(base, axes: Mapping[str, np.ndarray], static, *, chunk_size: i
         res = run_sweep(base, dict(axes), static, chunk_size=chunk_size, n_y=n_y,
                         out_dir=None, keep_outputs=True, impl=impl, device=device,
                         fault_plan=fault_plan, retry=retry, cache=cache,
-                        lz_profile=lz_profile)
+                        lz_profile=lz_profile, mesh=mesh)
     if res.n_failed:
         bad = np.argwhere(np.asarray(res.failed_mask))[:, 0]
         quarantined = (f", {res.n_quarantined} of them infrastructure-quarantined"
@@ -183,7 +184,7 @@ def _exact_fields(base, axes: Mapping[str, np.ndarray], static, *, chunk_size: i
 
 def make_exact_evaluator(base, static, *, n_y: int, impl: str, chunk_size: int = 2048,
                          retry=None, fault_plan=None, quarantine_sink=None, cache=None,
-                         lz_profile=None, device=None):
+                         lz_profile=None, device=None, mesh=None):
     """Zipped exact evaluator through the sweep's engine:
     ``evaluate(axes) -> {field: (n,) array}`` for equal-length per-point
     columns.  Non-finite outputs pass through as NaN.  Chunks are padded
@@ -196,10 +197,10 @@ def make_exact_evaluator(base, static, *, n_y: int, impl: str, chunk_size: int =
     keyed by the chunk-call counter.  ``cache`` (a ``Store``) reads and
     writes the same chunk entries as ``run_sweep``; the engine is built
     on the first chunk that misses.  ``device`` is the card unless the
-    caller asks for the CPU.
+    caller asks for the CPU; a ``mesh`` splits each chunk over its
+    members (padded to a multiple of them) and gathers the rows.
     """
     from bdlz_tpu_torch.backend import resolve_device
-    from bdlz_tpu_torch.interop import point_params_from_numpy
     from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
     from bdlz_tpu_torch.parallel.sweep import (
         _pad_chunk,
@@ -210,10 +211,12 @@ def make_exact_evaluator(base, static, *, n_y: int, impl: str, chunk_size: int =
         chunk_entry_ok,
         device_platform,
         engine_identity_extra,
+        evaluate_chunk,
+        mesh_pad,
     )
     from bdlz_tpu_torch.utils.retry import call_with_retry
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.local_devices[0]
     fields = YieldsResult._fields
     lz_mode = getattr(static, "lz_mode", "two_channel")
     if lz_mode != "two_channel":
@@ -232,7 +235,7 @@ def make_exact_evaluator(base, static, *, n_y: int, impl: str, chunk_size: int =
     def _ensure_engine():
         if "step" not in engine:
             engine["step"], engine["aux"] = build_chunk_engine(
-                base, static, n_y=n_y, impl=impl, device=dev)
+                base, static, n_y=n_y, impl=impl, device=dev, mesh=mesh)
         return engine["step"], engine["aux"]
 
     def _chunk_extra(pp, lo, hi):
@@ -284,9 +287,9 @@ def make_exact_evaluator(base, static, *, n_y: int, impl: str, chunk_size: int =
                 attempts[0] += 1
                 if fault_plan is not None:
                     fault_plan.fire("probe", call_idx)
-                step, aux = _ensure_engine()
-                res = step(point_params_from_numpy(_pad_chunk(pp, lo, hi, chunk), dev), aux)
-                return {f: getattr(res, f)[: hi - lo].cpu().numpy() for f in fields}
+                return evaluate_chunk(_ensure_engine(),
+                                      _pad_chunk(pp, lo, hi, mesh_pad(chunk, mesh)),
+                                      hi - lo, dev, mesh)
 
             quarantined_here = False
             try:
@@ -610,6 +613,7 @@ def build_emulator(
     elastic=None,
     traffic=None,
     device=None,
+    mesh=None,
 ) -> Tuple[EmulatorArtifact, BuildReport]:
     """Build (and with ``out_dir`` save) an error-controlled yield-surface
     emulator, as ``bdlz_tpu.emulator.build_emulator`` does.
@@ -628,7 +632,9 @@ def build_emulator(
     ``bounce`` feed a chain or thermal ``lz_mode``.  The engine resolves
     as the JAX build resolves it, with ``"kernel"`` (the CUDA kernels) in
     place of ``"pallas"``; ``device`` is the card unless the caller asks
-    for the CPU.  ``posterior_weight`` ("planck", or
+    for the CPU, and a ``mesh`` splits the exact grid and the probes over
+    its members (the elastic fleet fills the grid on its own workers).
+    ``posterior_weight`` ("planck", or
     ``Config.posterior_weight``) and ``refine_signal`` ("fisher",
     "traffic", "traffic*planck", or ``Config.refine_signal``) steer the
     refinement as in the JAX build and join the artifact identity; a
@@ -650,7 +656,7 @@ def build_emulator(
     from bdlz_tpu_torch.validation import resolve_quad_panel_gl
 
     t0 = time.time()
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.local_devices[0]
     validate(base)
     if not (safety >= 1.0):
         raise EmulatorBuildError(f"safety must be >= 1, got {safety}")
@@ -726,7 +732,7 @@ def build_emulator(
             posterior_weight=pw, refine_signal=rs,
             # sub-builds re-derive the profile from the spec
             lz_profile=None if bounce_fp is not None else lz_profile, bounce=bounce,
-            traffic=traffic, device=dev,
+            traffic=traffic, device=dev, mesh=mesh,
         )
     # engine resolution, once, so the grid, the probes and the identity
     # name the same engine
@@ -774,7 +780,7 @@ def build_emulator(
                                               axis_names, scales, n_y=n_y, device=dev)
     sweep_kw = dict(chunk_size=chunk_size, n_y=n_y, impl=impl, device=dev,
                     fault_plan=faults, retry=retry_policy, cache=store, lz_profile=lz_profile,
-                    elastic=elastic)
+                    elastic=elastic, mesh=mesh)
 
     def grid_shape() -> Tuple[int, ...]:
         return tuple(len(a) for a in nodes)
@@ -789,7 +795,7 @@ def build_emulator(
     exact_eval = make_exact_evaluator(
         base, static, n_y=n_y, impl=impl, chunk_size=min(int(chunk_size), int(n_probe)),
         retry=retry_policy, fault_plan=faults, quarantine_sink=qsink.append, cache=store,
-        lz_profile=lz_profile, device=dev)
+        lz_profile=lz_profile, device=dev, mesh=mesh)
     n_quarantined_probes = 0
 
     def exact_zip(axes):

@@ -16,8 +16,11 @@ CLI, through CPU ``torch.Generator`` streams: a chain is reproducible per
 seed on the CPU and on the card, but it is not the JAX CLI's chain.
 ``--sanitize`` arms the op-level NaN check over the whole run (the
 stand-in for ``jax_debug_nans`` under the JAX likelihood) and checks the
-chain at the output boundary; ``--multihost`` is refused with the ROADMAP
-item that brings it.
+chain at the output boundary.  ``--multihost`` joins the process group
+from JAX's env vars (one identical invocation per process, each on its
+``--device``): the stretch walkers are rounded to a multiple of twice
+the processes and split over them for every logp evaluation, NUTS
+chains stay unsharded, and only the coordinator writes and prints.
 """
 from __future__ import annotations
 
@@ -28,13 +31,6 @@ import sys
 
 import numpy as np
 import torch
-
-from bdlz_tpu_torch.utils.deferred import add_deferred_flags, refuse_deferred_flags
-
-#: Flags of the JAX CLI that the port does not have yet.
-DEFERRED_FLAGS = {
-    "--multihost": (False, "ROADMAP D9, multi-GPU"),
-}
 
 
 def parse_param(spec: str):
@@ -123,9 +119,11 @@ def main(argv=None) -> None:
     ap.add_argument("--sanitize", action="store_true",
                     help="Runtime sanitizer: the op-level NaN check under the "
                          "likelihood and a finite-f64 check of the chain")
-    add_deferred_flags(ap, DEFERRED_FLAGS)
+    ap.add_argument("--multihost", action="store_true",
+                    help="Join the process group from JAX_COORDINATOR_ADDRESS/"
+                         "JAX_NUM_PROCESSES/JAX_PROCESS_ID; walkers shard across "
+                         "the processes (one identical invocation per process)")
     args = ap.parse_args(argv)
-    refuse_deferred_flags(ap, args, DEFERRED_FLAGS)
     _gerr = lz_flags_error(args, default_method="local")
     if _gerr:
         raise SystemExit(_gerr)
@@ -133,6 +131,11 @@ def main(argv=None) -> None:
         raise SystemExit(
             f"--burn {args.burn} must satisfy 0 <= burn < --steps {args.steps}"
         )
+
+    if args.multihost:
+        from bdlz_tpu_torch.parallel import init_multihost
+
+        init_multihost()
 
     from bdlz_tpu_torch.backend import resolve_device
     from bdlz_tpu_torch.config import load_config, static_choices_from_config, validate
@@ -331,8 +334,19 @@ def main(argv=None) -> None:
         # until the output boundary below
         enable_nan_debugging(True)
 
-    # one device: NUTS chains are not rounded, stretch walkers to even
-    W = max(int(args.walkers), 1) if sampler == "nuts" else ((args.walkers + 1) // 2) * 2
+    from bdlz_tpu_torch.parallel import make_mesh
+    from bdlz_tpu_torch.parallel.multihost import is_coordinator, process_count
+
+    # one mesh member per process, on its --device
+    n_dev = process_count()
+    if sampler == "nuts":
+        # NUTS chains are batched, not sharded: a few gradient chains
+        # leave no walker axis worth scattering
+        W = max(int(args.walkers), 1)
+        mesh = None
+    else:
+        W = ((args.walkers + 2 * n_dev - 1) // (2 * n_dev)) * 2 * n_dev
+        mesh = make_mesh(shape=(n_dev, 1), devices=[dev]) if n_dev > 1 else None
     init = initial_walkers(params, W, args.seed)
 
     resumed_segments = 0
@@ -351,7 +365,7 @@ def main(argv=None) -> None:
         run = run_ensemble_checkpointed(
             args.seed + 1, logp, init, n_steps=args.steps,
             out_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
-            static=static_resolved, sampler=sampler, device=dev,
+            static=static_resolved, sampler=sampler, device=dev, mesh=mesh,
             sampler_opts=(
                 {"mass_matrix": mass_matrix, "target_accept": float(target_accept),
                  "max_tree_depth": int(max_tree_depth), "n_warmup": int(nuts_warmup)}
@@ -399,7 +413,7 @@ def main(argv=None) -> None:
         }
     else:
         run = run_ensemble(logp, init, args.steps, generator=make_generator(args.seed + 1),
-                           device=dev)
+                           device=dev, mesh=mesh)
         full_chain = run.chain.cpu().numpy()
         full_logp = run.logp_chain.cpu().numpy()
         acceptance = float(run.acceptance)
@@ -459,11 +473,14 @@ def main(argv=None) -> None:
         if args.lz_method == "dephased":
             summary["lz"]["gamma_phi"] = "sampled" if gamma_sampled else args.lz_gamma_phi
     if args.out:
-        from bdlz_tpu_torch.utils.io import atomic_savez
+        if is_coordinator():
+            from bdlz_tpu_torch.utils.io import atomic_savez
 
-        atomic_savez(args.out, chain=full_chain, logp=full_logp, param_names=list(params))
+            atomic_savez(args.out, chain=full_chain, logp=full_logp,
+                         param_names=list(params))
         summary["out"] = args.out
-    print(json.dumps(summary))
+    if is_coordinator():
+        print(json.dumps(summary))
 
 
 if __name__ == "__main__":

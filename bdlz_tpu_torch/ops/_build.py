@@ -52,12 +52,20 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def library_digest(source: str) -> str:
+    """16 hex digits over ``csrc/<source>`` and its nvcc flags: the name of
+    its built library, and what keys its numerics."""
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
+    return hashlib.sha256((CSRC_DIR / source).read_bytes()
+                          + " ".join(flags).encode()).hexdigest()[:16]
+
+
 def build(source: str) -> Built:
     """Compile ``csrc/<source>`` for sm_90a, or reuse the build of the same
     source and flags.  Raises ``RuntimeError`` with nvcc's output on failure."""
     src = CSRC_DIR / source
     flags = NVCC_FLAGS + SOURCE_FLAGS.get(source, ())
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    digest = library_digest(source)
     lib = BUILD_DIR / f"{src.stem}-{digest}.so"
     log = lib.with_suffix(".ptxas.txt")
     if lib.exists():

@@ -71,6 +71,15 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def kernel_digest() -> str:
+    """What keys the kernels' numerics across a fleet: the library digest
+    of their source and nvcc flags (the sweep agrees on it before a
+    multi-process run computes)."""
+    from bdlz_tpu_torch.ops._build import library_digest
+
+    return library_digest(SOURCE)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (or reuse) and load the kernels' shared library."""

@@ -1,11 +1,13 @@
-"""The parameter-sweep engine on one CUDA device.
+"""The parameter-sweep engine, on one CUDA device or over a device mesh.
 
-Counterpart of the single-device path of ``bdlz_tpu/parallel/sweep.py``:
-flatten the sweep axes into a grid of points, then evaluate it chunk by
-chunk — each chunk padded to one fixed size by repeating its last point,
-moved to the device, run through the batched pipeline, and its valid
-rows brought back.  Failed points (non-finite outputs) are masked and
-counted, never fatal.
+Counterpart of ``bdlz_tpu/parallel/sweep.py``: flatten the sweep axes
+into a grid of points, then evaluate it chunk by chunk — each chunk
+padded to one fixed size by repeating its last point, moved to the
+device, run through the batched pipeline, and its valid rows brought
+back.  Failed points (non-finite outputs) are masked and counted, never
+fatal.  With a ``mesh`` (``parallel/mesh.py``) the chunk is padded to a
+multiple of its members, each process takes its rows, each member its
+share on its own device and CUDA stream, and the rows are gathered.
 
 Engines (``impl``):
 
@@ -28,8 +30,13 @@ through the LZ layer on the run's device before the chunk loop.
 Robustness, as in the JAX engine: resume directories (``manifest.json``
 and ``chunk_{ci:05d}.npz``, the JAX package's format), retry → bisect →
 quarantine under deterministic fault injection, the content-addressed
-chunk cache, and the JSON-lines event log.  Not ported yet: multi-device
-meshes and the multi-process agreement (ROADMAP D9).
+chunk cache, and the JSON-lines event log.  Across processes
+(``parallel/multihost.py``) the fleet agrees where JAX's does: the chunk
+size is broadcast, the kernels' library digest is agreed by
+``allreduce_min`` (a fleet with mixed builds raises on every process),
+the coordinator owns the manifest, the chunk files and the store and
+broadcasts the resume and cache plans, and every attempt's outcome is
+agreed, so that healing is one plan for the whole fleet.
 """
 from __future__ import annotations
 
@@ -363,12 +370,109 @@ def make_sweep_step(
     reduce: bool = REDUCE_DEFAULT,
     esdirk_knobs: Optional[Dict[str, bool]] = None,
     esdirk_stats_sink=None,
+    mesh=None,
 ):
     """The per-chunk step: ``step(pp_chunk, aux) -> YieldsResult`` of (P,)
     tensors on the chunk's device.  ``aux`` is the device F-table
     (``kernel``, ``tabulated``) or the KJMA z-grid (``direct`` and both
     stiff engines).  The quadrature tri-state in ``static`` must already
-    be resolved."""
+    be resolved.
+
+    With a ``mesh`` the step takes the padded chunk as host arrays and
+    ``aux`` as ``{device: aux}`` over this process's members, and
+    returns this process's rows as host arrays (:func:`gather_to_host`
+    brings the rest): each member's rows run on its device and its own
+    CUDA stream.  The repacked stiff engine takes the mesh itself and
+    splits each round's lanes over the members."""
+    step = _sweep_step_one_device(static, n_y, impl, fuse_exp, reduce, esdirk_knobs,
+                                  esdirk_stats_sink, mesh)
+    if mesh is None:
+        return step
+    return _mesh_step(step, mesh, one_call=(impl == "esdirk"))
+
+
+def _mesh_step(step, mesh, one_call: bool):
+    """``mstep(pp_np, auxes) -> YieldsResult`` of this process's rows as
+    host arrays: each local member's contiguous rows (the batch plan of
+    ``batch_sharding``) prepared and launched on its device and stream,
+    then brought back in member order.  ``one_call`` hands the whole
+    chunk to ``step`` on the first member (the repacked stiff engine,
+    which splits its rounds over the mesh itself; single-process only)."""
+    from bdlz_tpu_torch.interop import point_params_from_numpy
+    from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
+    from bdlz_tpu_torch.parallel.mesh import batch_sharding, on_stream
+
+    sharding = batch_sharding(mesh)
+    flat = mesh.devices.reshape(-1)
+
+    def mstep(pp_np, auxes):
+        n = len(np.asarray(pp_np.m_chi_GeV))
+        if one_call:
+            home = mesh.local_devices[0]
+            res = step(point_params_from_numpy(pp_np, home), auxes[home])
+            return YieldsResult(*(f.cpu().numpy() for f in res))
+        launched = []
+        for k, (lo, hi) in zip(mesh.local_members, sharding.local_bounds(n)):
+            dev, s = flat[k], mesh.stream(k)
+            if s is not None:
+                s.wait_stream(torch.cuda.current_stream(dev))
+            with on_stream(s):
+                ppm = point_params_from_numpy(
+                    PointParams(*(np.asarray(f)[lo:hi] for f in pp_np)), dev)
+                launched.append((s, step(ppm, auxes[dev])))
+        parts = []
+        for s, res in launched:
+            with on_stream(s):
+                parts.append([f.cpu().numpy() for f in res])
+        return YieldsResult(*(np.concatenate([p[i] for p in parts])
+                              for i in range(len(YieldsResult._fields))))
+
+    return mstep
+
+
+def sweep_step(pp_chunk: PointParams, static: StaticChoices, table, mesh=None,
+               n_y: int = 8000):
+    """One-shot wrapper around :func:`make_sweep_step` (the tabulated
+    engine).  Without a mesh ``pp_chunk`` and ``table`` are on one
+    device; with one, ``pp_chunk`` is host arrays (its length a multiple
+    of the mesh's members), ``table`` a host ``KJMATable``, and the
+    result every process's rows as host arrays."""
+    if mesh is None:
+        return make_sweep_step(static, n_y=n_y)(pp_chunk, table)
+    from bdlz_tpu_torch.ops.kjma_table import table_to_device
+    from bdlz_tpu_torch.parallel.multihost import gather_to_host
+
+    auxes = {dev: table_to_device(table, dev) for dev in mesh.local_devices}
+    local = make_sweep_step(static, n_y=n_y, mesh=mesh)(pp_chunk, auxes)
+    return type(local)(*gather_to_host(list(local)))
+
+
+def evaluate_chunk(engine, pp_np: PointParams, n_valid: int, device, mesh=None
+                   ) -> Dict[str, np.ndarray]:
+    """One engine evaluation of a padded host chunk: its first ``n_valid``
+    rows as host arrays.  ``engine`` is :func:`build_chunk_engine`'s;
+    with a ``mesh`` the rows are split over the members and gathered
+    across processes (a collective)."""
+    from bdlz_tpu_torch.interop import point_params_from_numpy
+    from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
+
+    if mesh is None:
+        res = engine[0](point_params_from_numpy(pp_np, device), engine[1])
+        return {f: getattr(res, f)[:n_valid].cpu().numpy() for f in YieldsResult._fields}
+    from bdlz_tpu_torch.parallel.multihost import gather_to_host
+
+    full = gather_to_host(dict(zip(YieldsResult._fields, engine[0](pp_np, engine[1]))))
+    return {f: v[:n_valid] for f, v in full.items()}
+
+
+def mesh_pad(n: int, mesh) -> int:
+    """``n`` rounded up to a multiple of the mesh's members (``n`` without
+    a mesh)."""
+    return n if mesh is None else -(-int(n) // mesh.size) * mesh.size
+
+
+def _sweep_step_one_device(static, n_y, impl, fuse_exp, reduce, esdirk_knobs,
+                           esdirk_stats_sink, mesh):
     if impl not in IMPLS:
         raise ValueError(f"unknown sweep impl {impl!r}; expected one of {IMPLS}")
     if fuse_exp and impl != "kernel":
@@ -397,7 +501,7 @@ def make_sweep_step(
         from bdlz_tpu_torch.solvers.batching import make_batched_esdirk_step
 
         return make_batched_esdirk_step(
-            static, stats_sink=esdirk_stats_sink, knobs=esdirk_knobs,
+            static, stats_sink=esdirk_stats_sink, knobs=esdirk_knobs, mesh=mesh,
         )
     from bdlz_tpu_torch.models.yields_pipeline import YieldsResult, present_day
     from bdlz_tpu_torch.solvers.batching import initial_yields
@@ -416,7 +520,7 @@ def make_sweep_step(
 
 def _clamp_chunk_to_memory(
     chunk_size: int, n_y: int, device: torch.device, impl: str,
-    quad_nodes: Optional[int] = None,
+    quad_nodes: Optional[int] = None, mesh=None,
 ) -> int:
     """Clamp the chunk so its temporaries fit the device's free memory.
 
@@ -425,11 +529,16 @@ def _clamp_chunk_to_memory(
     nodes); the direct engine ~3 copies of its (n_y × 1200) integrand;
     the stiff engines ~32 of the (1200,) z-integral per lane.  The budget
     is 90% of what ``torch.cuda.mem_get_info`` reports free.  CPU runs
-    are never clamped.
+    are never clamped.  On a mesh each member holds ``1/size`` of the
+    chunk, and members that share a card share its budget.
     """
     if device.type != "cuda":
         return chunk_size
     free, _ = torch.cuda.mem_get_info(device)
+    n_dev, share = 1, 1
+    if mesh is not None:
+        n_dev = mesh.size
+        share = sum(1 for d in mesh.local_devices if d == device)
     nz = 1200
     if impl == "direct":
         per_point_bytes = 3 * max(int(n_y), 1) * nz * 8
@@ -439,7 +548,7 @@ def _clamp_chunk_to_memory(
         per_point_bytes = 20 * max(int(quad_nodes), 1) * 8
     else:
         per_point_bytes = 20 * max(int(n_y), 1) * 8
-    max_chunk = max(int(0.9 * free) // per_point_bytes, 1)
+    max_chunk = max(int(0.9 * free) // per_point_bytes // share, 1) * n_dev
     if chunk_size > max_chunk:
         print(
             f"[sweep] chunk_size {chunk_size} would need "
@@ -453,11 +562,14 @@ def _clamp_chunk_to_memory(
 
 
 def route_impl(base: Config, axes: Mapping[str, Sequence[float]], impl: str,
-               fuse_exp: bool = False, label: str = "sweep") -> str:
+               fuse_exp: bool = False, label: str = "sweep",
+               multiprocess: bool = False) -> str:
     """The engine a sweep runs, as the JAX sweep routes it: the stiff
     regime goes to ``esdirk`` unless ``esdirk_lockstep`` was asked for; a
-    swept I_p sends the table engines to ``direct``.  A forced change is
-    announced on stderr; ``fuse_exp`` on a forced non-kernel engine
+    swept I_p sends the table engines to ``direct``; a multi-process run
+    takes ``esdirk_lockstep`` for ``esdirk`` (the repacking compacts lanes
+    on the host, so it needs every lane in one process).  A forced change
+    is announced on stderr; ``fuse_exp`` on a forced non-kernel engine
     raises."""
     if impl not in IMPLS:
         raise ValueError(f"unknown sweep impl {impl!r}; expected one of {IMPLS}")
@@ -472,6 +584,9 @@ def route_impl(base: Config, axes: Mapping[str, Sequence[float]], impl: str,
     if "I_p" in axes and impl in ("tabulated", "kernel"):
         impl = "direct"
         reason = "I_p swept: per-I_p table unavailable"
+    if impl == "esdirk" and multiprocess:
+        impl = "esdirk_lockstep"
+        reason = "multi-controller run: host lane-compaction needs addressable lanes"
     if impl != requested:
         print(
             f"[{label}] impl {requested!r} is invalid for this configuration; "
@@ -499,27 +614,29 @@ def build_chunk_engine(
     table_nodes: int = 16384,
     esdirk_knobs: Optional[Dict[str, bool]] = None,
     esdirk_stats_sink=None,
+    mesh=None,
 ):
     """``(step, aux)`` of one engine on ``device``: the F-table shipped
     once (``table_np`` reuses a host-built table) or the KJMA z-grid, and
     on the card the kernels' library built and loaded.  Every
-    identity-affecting knob must already be resolved."""
+    identity-affecting knob must already be resolved.  With a ``mesh``,
+    ``aux`` is ``{device: aux}`` over this process's distinct members
+    and ``step`` is the mesh step of :func:`make_sweep_step`."""
     from bdlz_tpu_torch.ops.kjma_table import make_f_table, table_to_device
     from bdlz_tpu_torch.physics.percolation import make_kjma_grid
 
-    if impl in ("kernel", "tabulated"):
-        if table_np is None:
-            table_np = make_f_table(float(base.I_p), n=table_nodes)
-        aux = table_to_device(table_np, device)
-    else:
-        aux = make_kjma_grid(device)
-    if impl == "kernel" and torch.device(device).type == "cuda":
+    devices = [torch.device(device)] if mesh is None else list(dict.fromkeys(mesh.local_devices))
+    if impl in ("kernel", "tabulated") and table_np is None:
+        table_np = make_f_table(float(base.I_p), n=table_nodes)
+    auxes = {dev: (table_to_device(table_np, dev) if impl in ("kernel", "tabulated")
+                   else make_kjma_grid(dev)) for dev in devices}
+    if impl == "kernel" and any(dev.type == "cuda" for dev in devices):
         from bdlz_tpu_torch.ops.kjma_kernel import load_library
 
         load_library()
-    step = make_sweep_step(static, n_y, impl, fuse_exp, reduce,
-                           esdirk_knobs=esdirk_knobs, esdirk_stats_sink=esdirk_stats_sink)
-    return step, aux
+    step = make_sweep_step(static, n_y, impl, fuse_exp, reduce, esdirk_knobs=esdirk_knobs,
+                           esdirk_stats_sink=esdirk_stats_sink, mesh=mesh)
+    return step, (auxes[devices[0]] if mesh is None else auxes)
 
 
 @dataclass
@@ -556,11 +673,17 @@ class SweepPlan:
     hash_extra: Dict[str, Any]
     #: The resume identity (:func:`grid_hash`).
     hash: str
+    #: The device mesh the chunks are split over, or None (one device).
+    mesh: Any = None
 
     @property
     def pad_size(self) -> int:
-        """Every chunk is padded to this many points (no more than the grid)."""
-        return min(self.chunk_size, self.n_total)
+        """Every chunk is padded to this many points: no more than the
+        grid, rounded up to a multiple of the mesh's members."""
+        pad = min(self.chunk_size, self.n_total)
+        if self.mesh is not None:
+            pad = -(-pad // self.mesh.size) * self.mesh.size
+        return pad
 
     @property
     def fields(self):
@@ -606,23 +729,41 @@ class SweepPlan:
             self.base, self.static, n_y=self.n_y, impl=self.impl, device=self.device,
             fuse_exp=self.fuse_exp, reduce=self.reduce, table_np=self.table_np,
             table_nodes=self.table_nodes, esdirk_knobs=self.esdirk_knobs,
-            esdirk_stats_sink=esdirk_stats_sink)
+            esdirk_stats_sink=esdirk_stats_sink, mesh=self.mesh)
 
-    def compute(self, engine, lo: int, hi: int, trace_dir: Optional[str] = None
-                ) -> Dict[str, np.ndarray]:
-        """One engine evaluation over [lo, hi), padded to :attr:`pad_size`:
-        the valid rows as host arrays.  The chunk step is the JAX engine's
-        jitted program: no sanitizer checkpoint inside it, one profiler
-        trace per call."""
+    def compute_local(self, engine, lo: int, hi: int, trace_dir: Optional[str] = None
+                      ) -> Dict[str, np.ndarray]:
+        """This process's share of one engine evaluation over [lo, hi),
+        padded to :attr:`pad_size`, as host arrays: without a mesh the
+        valid rows, with one the process's rows of the padded chunk
+        (:meth:`gather` brings the rest).  The chunk step is the JAX
+        engine's jitted program: no sanitizer checkpoint inside it, one
+        profiler trace per call."""
         from bdlz_tpu_torch import sanitize
-        from bdlz_tpu_torch.interop import point_params_from_numpy
         from bdlz_tpu_torch.utils.profiling import trace as profiler_trace
 
         with profiler_trace(trace_dir), sanitize.opaque():
-            ppc = point_params_from_numpy(
-                _pad_chunk(self.pp_all, lo, hi, self.pad_size), self.device)
-            res = engine[0](ppc, engine[1])
-            return {f: getattr(res, f)[: hi - lo].cpu().numpy() for f in self.fields}
+            padded = _pad_chunk(self.pp_all, lo, hi, self.pad_size)
+            if self.mesh is not None:
+                return dict(zip(self.fields, engine[0](padded, engine[1])))
+            return evaluate_chunk(engine, padded, hi - lo, self.device)
+
+    def gather(self, local: Dict[str, np.ndarray], lo: int, hi: int
+               ) -> Dict[str, np.ndarray]:
+        """Every process's rows of :meth:`compute_local`, tiled in process
+        order and cut to the valid [lo, hi) (a collective on a mesh)."""
+        if self.mesh is None:
+            return local
+        from bdlz_tpu_torch.parallel.multihost import gather_to_host
+
+        full = gather_to_host(local)
+        return {f: full[f][: hi - lo] for f in self.fields}
+
+    def compute(self, engine, lo: int, hi: int, trace_dir: Optional[str] = None
+                ) -> Dict[str, np.ndarray]:
+        """One engine evaluation over [lo, hi): the valid rows as host
+        arrays."""
+        return self.gather(self.compute_local(engine, lo, hi, trace_dir), lo, hi)
 
     def apply_nan_faults(self, host: Dict[str, np.ndarray], lo: int, hi: int
                          ) -> Dict[str, np.ndarray]:
@@ -657,27 +798,42 @@ def plan_sweep(
     fault_plan=None,
     retry=None,
     label: str = "sweep",
+    mesh=None,
 ) -> SweepPlan:
     """Resolve a sweep as :func:`run_sweep` runs it: the device, the fault
     plan and retry policy, the grid (with each point's P from the LZ layer
     when there is a profile), the engine routing, the quadrature
     tri-state (the audit needs the host table, built once and shipped),
-    the repacked engine's knobs, the memory clamp and the identity."""
+    the repacked engine's knobs, the memory clamp and the identity.
+
+    With a ``mesh`` the chunk size is rounded up to a multiple of its
+    members and the device is its first local member.  Across processes
+    the chunk size is the coordinator's and the kernels' library digest
+    is agreed (:func:`agree_kernel_digest`)."""
     from bdlz_tpu_torch.faults import FaultPlan
     from bdlz_tpu_torch.ops.kjma_table import make_f_table
     from bdlz_tpu_torch.solvers.panels import N_PANELS_DEFAULT, NODES_PER_PANEL_DEFAULT
     from bdlz_tpu_torch.utils.retry import resolve_engine_retry
     from bdlz_tpu_torch.validation import resolve_quad_panel_gl
 
-    dev = resolve_device(device)
+    from bdlz_tpu_torch.parallel.multihost import broadcast_from_coordinator, process_count
+
+    dev = resolve_device(device) if mesh is None else mesh.local_devices[0]
+    if mesh is not None and device is not None and resolve_device(device).type != dev.type:
+        raise ValueError(f"device={str(device)!r} but the mesh's members are {dev.type}")
     faults = FaultPlan.resolve(fault_plan, base)
     retry_policy = resolve_engine_retry(retry, base, static)
     t_lz = time.perf_counter()
     pp_all, lz_identity = _grid_with_lz(base, axes, static, lz_profile, lz_method,
                                         lz_gamma_phi, bounce, dev)
     lz_seconds = time.perf_counter() - t_lz if lz_identity is not None else 0.0
-    impl = route_impl(base, axes, impl, fuse_exp, label=label)
+    impl = route_impl(base, axes, impl, fuse_exp, label=label,
+                      multiprocess=process_count() > 1)
     n_total = len(pp_all.m_chi_GeV)
+    if mesh is not None:
+        # the batch axis must divide evenly across the mesh
+        n_dev = mesh.size
+        chunk_size = ((max(int(chunk_size), n_dev) + n_dev - 1) // n_dev) * n_dev
     table_np = (make_f_table(float(base.I_p), n=table_nodes)
                 if impl == "tabulated" and static.quad_panel_gl is None else None)
     quad_on, _ = resolve_quad_panel_gl(pp_all, static, impl, n_y, table=table_np,
@@ -685,7 +841,11 @@ def plan_sweep(
     static = static._replace(quad_panel_gl=quad_on)
     quad_nodes = N_PANELS_DEFAULT * NODES_PER_PANEL_DEFAULT if quad_on else None
     esdirk_knobs = _engine_knobs(static, pp_all) if impl == "esdirk" else None
-    chunk_size = _clamp_chunk_to_memory(int(chunk_size), n_y, dev, impl, quad_nodes)
+    chunk_size = _clamp_chunk_to_memory(int(chunk_size), n_y, dev, impl, quad_nodes, mesh)
+    # a per-host clamp must not split the fleet on chunk counts
+    chunk_size = int(np.asarray(broadcast_from_coordinator(np.array([chunk_size])))[0])
+    if impl == "kernel":
+        agree_kernel_digest()
     hash_extra = dict(lz_identity) if lz_identity else {}
     hash_extra.update(engine_identity_extra(
         static, impl, esdirk_knobs=esdirk_knobs, faults=faults, fuse_exp=fuse_exp,
@@ -698,8 +858,30 @@ def plan_sweep(
         table_np=table_np, table_nodes=int(table_nodes), quad_on=bool(quad_on),
         quad_nodes=quad_nodes, esdirk_knobs=esdirk_knobs, fuse_exp=bool(fuse_exp),
         reduce=bool(reduce), hash_extra=hash_extra,
-        hash=grid_hash(base, axes, n_y, impl, extra=hash_extra or None),
+        hash=grid_hash(base, axes, n_y, impl, extra=hash_extra or None), mesh=mesh,
     )
+
+
+def agree_kernel_digest() -> None:
+    """The fleet's agreement on what keys the kernels' numerics: the
+    library digest of ``kjma_interp.cu`` (its source and nvcc flags,
+    ``ops/kjma_kernel.kernel_digest``), the port's counterpart of JAX's
+    ``COL_BLOCK``/``TABLE_SPLIT3`` knobs.  One ``allreduce_min`` over
+    ``[v, -v]`` gives ``[min, -max]``; min ≠ max raises on every process
+    together, so a fleet with mixed builds never splices mixed-kernel
+    chunks.  The identity in one process."""
+    from bdlz_tpu_torch.ops import kjma_kernel
+    from bdlz_tpu_torch.parallel.multihost import allreduce_min
+
+    local = int(kjma_kernel.kernel_digest()[:15], 16)
+    lo, neg_hi = (int(v) for v in np.asarray(
+        allreduce_min(np.array([local, -local], dtype=np.int64))))
+    if lo != -neg_hi:
+        raise RuntimeError(
+            f"the kernel library digest differs across hosts (min {lo:015x}, max "
+            f"{-neg_hi:015x}; this host {local:015x}); build one kjma_interp.cu "
+            "with one set of flags fleet-wide"
+        )
 
 
 def run_sweep(
@@ -724,10 +906,21 @@ def run_sweep(
     retry=None,
     cache=None,
     trace_dir: Optional[str] = None,
+    mesh=None,
 ) -> SweepResult:
-    """Run a full sweep on one device: route the engine, resolve the
-    quadrature, then evaluate chunk by chunk — resuming, healing and
+    """Run a full sweep on one device or a mesh: route the engine, resolve
+    the quadrature, then evaluate chunk by chunk — resuming, healing and
     caching as the JAX engine does.
+
+    ``mesh`` (``parallel/mesh.make_mesh``) splits every chunk over its
+    members: the chunk size is rounded up to a multiple of them, each
+    process computes its rows (``process_local_bounds``), each member its
+    share on its own device and CUDA stream, and the rows are gathered
+    to every process.  ``mesh=None`` is the one-device path.  In a
+    multi-process run (``multihost.init_multihost``) the coordinator
+    owns the manifest, the chunk files and the store and broadcasts the
+    resume and cache plans; the other processes read the same files, so
+    the directory and the store root must be on shared storage.
 
     ``lz_profile`` (a CSV path or a ``BounceProfile``) derives each
     point's P from its own wall speed by ``lz_method`` (``lz_gamma_phi``
@@ -781,6 +974,11 @@ def run_sweep(
     Sanitizer checkpoints inside the chunk step check nothing (the JAX
     step is jitted); the CLI checks the outputs.
     """
+    from bdlz_tpu_torch.parallel.multihost import (
+        broadcast_from_coordinator,
+        is_coordinator,
+        process_count,
+    )
     from bdlz_tpu_torch.provenance import resolve_store
     from bdlz_tpu_torch.utils.io import atomic_savez, atomic_write_json
 
@@ -788,18 +986,21 @@ def run_sweep(
         base, axes, static, chunk_size=chunk_size, n_y=n_y, impl=impl, fuse_exp=fuse_exp,
         reduce=reduce, device=device, table_nodes=table_nodes, lz_profile=lz_profile,
         lz_method=lz_method, lz_gamma_phi=lz_gamma_phi, bounce=bounce,
-        fault_plan=fault_plan, retry=retry)
+        fault_plan=fault_plan, retry=retry, mesh=mesh)
     dev, faults, impl = plan.device, plan.faults, plan.impl
     n_total, chunk_size, n_chunks = plan.n_total, plan.chunk_size, plan.n_chunks
     fields = plan.fields
     h = plan.hash
+    coordinator = is_coordinator()
+    multiproc = process_count() > 1
     stats: List[Any] = []
     manifest: Dict[str, Any] = {}
     manifest_path = None
     if out_dir is not None:
-        os.makedirs(out_dir, exist_ok=True)
+        if coordinator:
+            os.makedirs(out_dir, exist_ok=True)
         manifest_path = f"{out_dir}/manifest.json"
-        if os.path.exists(manifest_path):
+        if coordinator and os.path.exists(manifest_path):
             with open(manifest_path) as f:
                 manifest = json.load(f)
             if manifest.get("hash") != h:
@@ -814,39 +1015,77 @@ def run_sweep(
         manifest.setdefault("chunk_size", chunk_size)
         manifest.setdefault("chunks", {})
 
-    resumed_data: Dict[int, Dict[str, np.ndarray]] = {}
-    for ci, rec in list(manifest.get("chunks", {}).items()):
-        ci = int(ci)
+    def _load_chunk(ci: int) -> Dict[str, np.ndarray]:
         chunk_file = f"{out_dir}/chunk_{ci:05d}.npz"
+        with np.load(chunk_file) as data:
+            got = {f: np.asarray(data[f]) for f in fields}
+            got["failed"] = np.asarray(
+                data["failed"] if "failed" in data.files
+                else ~np.isfinite(data["DM_over_B"]), dtype=bool)
+            got["quarantined"] = (
+                np.asarray(data["quarantined"], dtype=bool)
+                if "quarantined" in data.files else np.zeros(len(got["failed"]), bool))
+        return got
+
+    # ---- the resume plan: the coordinator owns the manifest and the
+    # chunk files, and broadcasts [done, n_failed, n_quarantined] per
+    # chunk, so that every process skips and computes the same chunks
+    rplan = np.zeros((n_chunks, 3), dtype=np.int64)
+    resumed_data: Dict[int, Dict[str, np.ndarray]] = {}
+    for ci, rec in list(manifest.get("chunks", {}).items() if coordinator else []):
+        ci = int(ci)
         try:
-            with np.load(chunk_file) as data:
-                got = {f: np.asarray(data[f]) for f in fields}
-                got["failed"] = np.asarray(
-                    data["failed"] if "failed" in data.files
-                    else ~np.isfinite(data["DM_over_B"]), dtype=bool)
-                got["quarantined"] = (
-                    np.asarray(data["quarantined"], dtype=bool)
-                    if "quarantined" in data.files else np.zeros(len(got["failed"]), bool))
+            got = _load_chunk(ci)
         except Exception as exc:  # noqa: BLE001 — a torn file is recomputed
-            print(f"[sweep] resume: chunk {ci} listed in manifest but {chunk_file} is "
-                  f"missing/unreadable ({exc!r}); recomputing", file=sys.stderr)
+            print(f"[sweep] resume: chunk {ci} listed in manifest but "
+                  f"{out_dir}/chunk_{ci:05d}.npz is missing/unreadable ({exc!r}); "
+                  "recomputing", file=sys.stderr)
             del manifest["chunks"][str(ci)]
             continue
-        got["n_failed"] = int(rec["n_failed"])
-        got["n_quarantined"] = int(rec.get("n_quarantined", 0))
-        resumed_data[ci] = got
+        if ci < n_chunks:
+            resumed_data[ci] = got
+            rplan[ci] = (1, int(rec["n_failed"]), int(rec.get("n_quarantined", 0)))
+    rplan = broadcast_from_coordinator(rplan)
+    for ci in np.flatnonzero(rplan[:, 0]):
+        ci = int(ci)
+        if ci not in resumed_data:
+            # another process's plan: the files are on shared storage
+            try:
+                resumed_data[ci] = _load_chunk(ci)
+            except Exception as exc:  # noqa: BLE001 — re-raised with the cause
+                raise RuntimeError(
+                    f"resumed chunk file {out_dir}/chunk_{ci:05d}.npz unreadable on "
+                    f"this process ({exc!r}); multi-process resume requires shared "
+                    "storage") from exc
+        resumed_data[ci]["n_failed"] = int(rplan[ci, 1])
+        resumed_data[ci]["n_quarantined"] = int(rplan[ci, 2])
 
-    # ---- the chunk cache's hit plan (a resumed chunk wins) -------------
+    # ---- the chunk cache's hit plan (a resumed chunk wins), decided by
+    # the coordinator and broadcast as [hit, n_retries] per chunk
     store = resolve_store(cache, base, label="sweep")
     cache_data: Dict[int, Dict[str, np.ndarray]] = {}
-    if store is not None:
+    cplan = np.zeros((n_chunks, 2), dtype=np.int64)
+    if store is not None and coordinator:
         for ci in range(n_chunks):
-            if ci in resumed_data:
+            if rplan[ci, 0]:
                 continue
             lo, hi = plan.chunk_bounds(ci)
             ent = store.get_npz(plan.entry_name(ci))
             if chunk_entry_ok(ent, hi - lo):
                 cache_data[ci] = ent
+                cplan[ci] = (1, int(ent.get("n_retries", 0)))
+    cplan = broadcast_from_coordinator(cplan)
+    for ci in np.flatnonzero(cplan[:, 0]):
+        ci = int(ci)
+        if ci not in cache_data:
+            lo, hi = plan.chunk_bounds(ci)
+            ent = store.get_npz(plan.entry_name(ci)) if store is not None else None
+            if not chunk_entry_ok(ent, hi - lo):
+                raise RuntimeError(
+                    f"chunk {ci} was cache-planned by the coordinator but its entry "
+                    "is unreadable on this process; multi-process cached sweeps "
+                    "require a shared cache root (like chunk-file resume)")
+            cache_data[ci] = ent
 
     # the engine is built only if some chunk computes; before the clock
     engine = None
@@ -866,19 +1105,30 @@ def run_sweep(
     retry_policy = plan.retry_policy
     heal_on = retry_policy is not None
 
-    def _compute(lo_r, hi_r):
-        return plan.compute(engine, lo_r, hi_r, trace_dir=trace_dir)
+    def _agree_ok(ok_local: int) -> int:
+        # one outcome fleet-wide: a one-sided failure puts every process
+        # on the healing path (the identity in one process)
+        if not multiproc:
+            return int(ok_local)
+        from bdlz_tpu_torch.parallel.multihost import allreduce_min
+
+        return int(np.asarray(allreduce_min(np.array([ok_local], dtype=np.int64)))[0])
 
     def _attempt(ci, lo_r, hi_r):
+        local, err = None, None
         try:
             if faults is not None:
                 faults.fire("step", ci)
                 faults.check_range("step", lo_r, hi_r)
-            return 1, plan.apply_nan_faults(_compute(lo_r, hi_r), lo_r, hi_r), None
+            local = plan.compute_local(engine, lo_r, hi_r, trace_dir=trace_dir)
         except FloatingPointError:
             raise  # enable_nan_debugging aborts the sweep; never healed
         except Exception as exc:  # noqa: BLE001 — the healing path decides
-            return 0, None, exc
+            err = exc
+        if not _agree_ok(err is None):
+            return 0, None, err or RuntimeError("chunk dispatch failed on another process")
+        host = plan.gather(local, lo_r, hi_r)
+        return 1, plan.apply_nan_faults(host, lo_r, hi_r), None
 
     def _quarantine(ci, lo_r, hi_r, err):
         if event_log is not None:
@@ -894,7 +1144,8 @@ def run_sweep(
 
     def _collect(ci, lo, hi, host, q, t_chunk, paid=0, cached=False):
         """Count, log, persist and keep one chunk's results; ``paid`` is
-        its retries (for a cache hit, the ones the entry recorded)."""
+        its retries (for a cache hit, the ones the entry recorded).  Only
+        the coordinator writes."""
         n_valid = hi - lo
         if not cached:
             host = plan.apply_nan_faults(host, lo, hi)
@@ -911,7 +1162,7 @@ def run_sweep(
                 event_log.emit("esdirk_rounds", chunk=ci, **cs.summary(),
                                per_round=cs.as_rows())
         n_stats_seen[0] = len(stats)
-        if out_dir is not None:
+        if out_dir is not None and coordinator:
             chunk_file = f"{out_dir}/chunk_{ci:05d}.npz"
             atomic_savez(chunk_file, **host, failed=bad,
                          **({"quarantined": q} if q.any() else {}))
@@ -929,7 +1180,8 @@ def run_sweep(
                 # torn storage after the atomic write: resume must detect it
                 faults.corrupt_file("chunk_write", ci, chunk_file)
         # a real quarantine is never cached; an armed plan's is (keyed)
-        if store is not None and not cached and (not q.any() or faults is not None):
+        if (store is not None and coordinator and not cached
+                and (not q.any() or faults is not None)):
             store.put_npz(plan.entry_name(ci),
                           chunk_entry_arrays(host, n_retries=paid, qmask=q))
         if keep_outputs:
@@ -963,16 +1215,23 @@ def run_sweep(
             continue
         q = np.zeros(hi - lo, dtype=bool)
         paid = [0]
+        local, err = None, None
         try:
             if faults is not None:
                 faults.fire("step", ci)
                 faults.check_range("step", lo, hi)
-            host = _compute(lo, hi)
+            local = plan.compute_local(engine, lo, hi, trace_dir=trace_dir)
         except Exception as exc:  # noqa: BLE001 — healed below
             if not heal_on or isinstance(exc, FloatingPointError):
                 raise
+            err = exc
+        if heal_on and multiproc and not _agree_ok(err is None) and err is None:
+            err = RuntimeError("chunk dispatch failed on another process")
+        if err is None:
+            host = plan.gather(local, lo, hi)
+        else:
             host, q = heal_range(
-                ci, lo, hi, exc, attempt=_attempt, quarantine=_quarantine,
+                ci, lo, hi, err, attempt=_attempt, quarantine=_quarantine,
                 policy=retry_policy, budget=[heal_budget(hi - lo, retry_policy.max_attempts)],
                 paid=paid, fields=fields, on_retry=_on_retry)
         _collect(ci, lo, hi, host, q, t_chunk, paid=paid[0])

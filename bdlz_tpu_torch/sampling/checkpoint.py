@@ -17,9 +17,14 @@ Counterpart of ``bdlz_tpu/sampling/checkpoint.py``, with its files:
 The identity is JAX's payload plus the port's random stream
 (``provenance.MCMC_RNG_STREAM``): JAX's threefry draws cannot be
 reproduced in torch, so a chain directory of one package is refused by
-the other with the "different run identity" message, never spliced.  One
-process, one device: the multi-host gather and broadcast of the JAX
-package are the identity here, and a ``mesh`` is refused (ROADMAP D9).
+the other with the "different run identity" message, never spliced.
+
+Across processes (``parallel/multihost.py``) the coordinator reads the
+manifest, validates the longest loadable prefix and broadcasts its
+length; the others load that prefix from the shared directory, and only
+the coordinator writes segments and the manifest.  A ``mesh`` splits the
+stretch move's walkers over its members; NUTS chains stay unsharded, as
+in the JAX package.
 """
 from __future__ import annotations
 
@@ -32,8 +37,6 @@ import numpy as np
 import torch
 
 from bdlz_tpu_torch.backend import F64
-
-_D9 = "ROADMAP D9, multi-GPU"
 
 
 def _load_segment(seg_file):
@@ -109,13 +112,15 @@ def run_ensemble_checkpointed(
     loudly.  NUTS warms up inside segment 0 and persists the adapted
     (ε, mass) in every segment file; later segments are continuations.
     The chain runs on ``device``, else on the logp's ``.device``, else on
-    the card (no card raises; pass ``device="cpu"`` for the CPU).
+    the card (no card raises; pass ``device="cpu"`` for the CPU).  With a
+    ``mesh`` the stretch move's walkers are split over its members (NUTS
+    ignores it, as in the JAX package); across processes the coordinator
+    decides the resume plan and owns the files.
     """
+    from bdlz_tpu_torch.parallel.multihost import broadcast_from_coordinator, is_coordinator
     from bdlz_tpu_torch.sampling.ensemble import _sampler_device, make_generator, run_ensemble
     from bdlz_tpu_torch.utils.io import atomic_savez, atomic_write_json
 
-    if mesh is not None:
-        raise ValueError(f"mesh= is not ported to bdlz_tpu_torch yet ({_D9})")
     if sampler not in ("stretch", "nuts"):
         raise ValueError(f"sampler must be 'stretch' or 'nuts', got {sampler!r}")
     if sampler == "nuts":
@@ -141,7 +146,10 @@ def run_ensemble_checkpointed(
                 "move's only knob is 'a')"
             )
         sampler_payload = None
+    if mesh is not None and device is None:
+        device = mesh.local_devices[0]
     device = _sampler_device(logp_fn, device)
+    coordinator = is_coordinator()
 
     init_walkers = np.asarray(init_walkers, dtype=np.float64)
     W, D = init_walkers.shape
@@ -151,16 +159,20 @@ def run_ensemble_checkpointed(
     seg_keep = max(1, checkpoint_every // thin)
     n_segs = (n_keep_total + seg_keep - 1) // seg_keep
 
-    os.makedirs(out_dir, exist_ok=True)
+    if coordinator:
+        os.makedirs(out_dir, exist_ok=True)
     manifest_path = os.path.join(out_dir, "manifest.json")
     h = _run_hash(init_walkers, seed, n_steps, checkpoint_every, a, thin, identity,
                   static=static, sampler=sampler_payload)
 
+    # the resume plan: the coordinator reads the manifest and validates
+    # the longest loadable prefix, then broadcasts its length, so that
+    # no process races a coordinator still flushing the last run's files
     manifest: dict = {}
     resumed = 0
     chain_parts, logp_parts = [], []
     state = None
-    if os.path.exists(manifest_path):
+    if coordinator and os.path.exists(manifest_path):
         try:
             with open(manifest_path) as f:
                 manifest = json.load(f)
@@ -179,7 +191,7 @@ def run_ensemble_checkpointed(
             manifest = {}
         elif manifest.get("hash") != h:
             manifest = {}
-    done = set(int(i) for i in manifest.get("done", []))
+    done = set(int(i) for i in manifest.get("done", [])) if coordinator else set()
     for k in range(n_segs):
         if k not in done:
             break
@@ -199,6 +211,13 @@ def run_ensemble_checkpointed(
         resumed += 1
     if resumed == 0:
         state = None
+    resumed = int(np.asarray(broadcast_from_coordinator(np.array([resumed])))[0])
+    if not coordinator:
+        # the agreed prefix, from the shared checkpoint directory
+        for k in range(resumed):
+            seg_chain, seg_logp, state = _load_segment(os.path.join(out_dir, f"seg_{k:05d}.npz"))
+            chain_parts.append(seg_chain)
+            logp_parts.append(seg_logp)
     manifest["done"] = list(range(resumed))
     manifest.setdefault("hash", h)
     manifest.setdefault("n_segments", n_segs)
@@ -267,7 +286,7 @@ def run_ensemble_checkpointed(
             seg_chain, seg_logp = run.chain, run.logp_chain
         else:
             run = run_ensemble(logp_fn, walkers, steps_k, generator=gen, a=a, thin=thin,
-                               init_logp=logp0, device=device)
+                               init_logp=logp0, device=device, mesh=mesh)
             walkers, logp0 = run.final.walkers, run.final.logp
             seg_accept = int(run.final.n_accept)
             n_accept += seg_accept
@@ -275,16 +294,17 @@ def run_ensemble_checkpointed(
             seg_logp = run.logp_chain.cpu().numpy()
         chain_parts.append(seg_chain)
         logp_parts.append(seg_logp)
-        # atomic: a crash mid-write leaves the previous complete segment
-        atomic_savez(
-            os.path.join(out_dir, f"seg_{k:05d}.npz"),
-            chain=seg_chain, logp=seg_logp,
-            walkers=walkers.cpu().numpy(), state_logp=logp0.cpu().numpy(),
-            n_accept=np.int64(n_accept),
-            **nuts_extra,
-        )
         manifest["done"] = sorted(set(int(i) for i in manifest["done"]) | {k})
-        atomic_write_json(manifest_path, manifest)
+        if coordinator:
+            # atomic: a crash mid-write leaves the previous complete segment
+            atomic_savez(
+                os.path.join(out_dir, f"seg_{k:05d}.npz"),
+                chain=seg_chain, logp=seg_logp,
+                walkers=walkers.cpu().numpy(), state_logp=logp0.cpu().numpy(),
+                n_accept=np.int64(n_accept),
+                **nuts_extra,
+            )
+            atomic_write_json(manifest_path, manifest)
         if event_log is not None:
             event_log.emit(
                 "mcmc_segment_done", segment=k, steps=steps_k,

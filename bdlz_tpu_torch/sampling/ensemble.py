@@ -17,6 +17,12 @@ seed alone, the same on the CPU and on the card.  JAX's threefry draws
 cannot be reproduced in torch: a port chain is not JAX's chain for the
 same seed, but the optional ``draws`` source lets a caller inject JAX's
 draws and compare the two steppers.
+
+With a ``mesh`` the walker axis is split over its members for every
+logp evaluation (each member's rows on its device and CUDA stream, the
+rows gathered across processes); every process draws the same seeded
+numbers and holds the whole ensemble, so the chain is bitwise the chain
+without a mesh.
 """
 from __future__ import annotations
 
@@ -113,6 +119,47 @@ def stretch_step(state: EnsembleState, logp_fn: Callable,
     )
 
 
+def sharded_logp(logp_fn: Callable, mesh, home) -> Callable:
+    """``logp_fn`` with its batch split over ``mesh``: member ``k``'s rows
+    (``batch_sharding``) evaluated on its device and stream, every
+    process's rows gathered in order, the result on ``home``.  A member
+    on another device than the logp's raises."""
+    from bdlz_tpu_torch.parallel.mesh import batch_sharding, on_stream
+    from bdlz_tpu_torch.parallel.multihost import allgather_ragged, process_count
+
+    own = getattr(logp_fn, "device", None)
+    flat = mesh.devices.reshape(-1)
+    for dev in mesh.local_devices:
+        if own is not None and torch.device(own) != dev:
+            raise ValueError(f"the logp runs on {str(own)!r}, but a mesh member is {str(dev)!r}")
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        bounds = batch_sharding(mesh).bounds(int(x.shape[0]))
+        launched = []
+        for k in mesh.local_members:
+            lo, hi = bounds[k]
+            s = mesh.stream(k)
+            if s is not None:
+                s.wait_stream(torch.cuda.current_stream(flat[k]))
+            with on_stream(s):
+                launched.append((s, logp_fn(x[lo:hi].to(flat[k]))))
+        parts = []
+        for s, out in launched:
+            if s is not None:
+                torch.cuda.current_stream(home).wait_stream(s)
+            parts.append(out.to(home))
+        local = torch.cat(parts)
+        if process_count() == 1:
+            return local
+        per = mesh.n_local
+        counts = [bounds[(p + 1) * per - 1][1] - bounds[p * per][0]
+                  for p in range(process_count())]
+        return torch.as_tensor(allgather_ragged(local, counts), dtype=F64, device=home)
+
+    fn.device = home
+    return fn
+
+
 def run_ensemble(
     logp_fn: Callable,
     init_walkers,
@@ -124,6 +171,7 @@ def run_ensemble(
     init_logp=None,
     draws: Optional[Callable[[int], "Sequence[HalfDraws]"]] = None,
     device=None,
+    mesh=None,
 ) -> EnsembleRun:
     """Run the ensemble for ``n_steps``, keeping every ``thin``-th state.
 
@@ -134,10 +182,16 @@ def run_ensemble(
     (a seeded CPU ``torch.Generator``), or from ``draws(step) ->
     (half_1, half_2)`` when given.  ``init_logp`` carries a resumed
     chain's (W,) log-probabilities instead of re-evaluating them.  No
-    host sync happens inside the step loop.
+    host sync happens inside the step loop.  ``mesh`` splits the walkers
+    of every logp evaluation over its members (:func:`sharded_logp`);
+    the chain is the one without a mesh, bit for bit.
     """
     if (generator is None) == (draws is None):
         raise ValueError("pass exactly one of generator= and draws=")
+    if mesh is not None:
+        device = _sampler_device(logp_fn, device if device is not None
+                                 else mesh.local_devices[0])
+        logp_fn = sharded_logp(logp_fn, mesh, device)
     device = _sampler_device(logp_fn, device)
     walkers = torch.as_tensor(init_walkers, dtype=F64, device=device)
     W, D = walkers.shape

@@ -390,7 +390,8 @@ class FleetService:
     asynchronous: :meth:`run_once` launches, :meth:`poll` resolves.
 
     ``n_replicas`` / ``queue_bound`` default from the base config.  The
-    exact fallback runs on the first replica's device.
+    exact fallback runs on the first replica's device, or split over the
+    members of ``mesh``.
     """
 
     def __init__(
@@ -417,6 +418,7 @@ class FleetService:
         lz_profile=None,
         bounce=None,
         host_id: Optional[str] = None,
+        mesh=None,
     ):
         from bdlz_tpu_torch.emulator.artifact import build_identity
         from bdlz_tpu_torch.provenance import resolve_store
@@ -457,7 +459,7 @@ class FleetService:
         self._fallback = ExactFallback(
             base, static, n_y=n_y, impl=impl, chunk_size=self.max_batch_size,
             retry=retry, fault_plan=fault_plan, lz_profile=lz_profile,
-            device=devices[0],
+            device=devices[0], mesh=mesh,
         )
         #: The engine the exact fallback runs ("kernel" = the CUDA K1).
         self.exact_engine = self._fallback.engine

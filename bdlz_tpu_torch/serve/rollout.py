@@ -1,8 +1,9 @@
 """Zero-downtime artifact rollout: blue/green over the serving fleet.
 
 Counterpart of ``bdlz_tpu/serve/rollout.py``: stage, warm, cutover,
-abort and error-budget auto-rollback, with the same records; the
-cross-host agreement is the identity in one process (ROADMAP D9).
+abort and error-budget auto-rollback, with the same records; across
+processes the cutover is agreed as there (the coordinator's staged hash
+broadcast, one ``allreduce_min`` vote), the identity in one process.
 
 A production fleet must be able to adopt a rebuilt emulator artifact
 (finer refinement, a widened box) without dropping a request or ever
@@ -53,9 +54,15 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
+
 from bdlz_tpu_torch.emulator.artifact import EmulatorArtifact, check_identity
 from bdlz_tpu_torch.emulator.multidomain import MultiDomainArtifact, load_any_artifact
 from bdlz_tpu_torch.serve.fleet import FleetService, ReplicaSet
+
+#: Fixed width of the hash-agreement broadcast (content hashes are 16 hex
+#: characters; the headroom is the JAX package's wire format).
+HASH_WIRE_WIDTH = 64
 
 
 class RolloutError(RuntimeError):
@@ -359,20 +366,40 @@ def _looks_like_content_hash(s: str) -> bool:
 
 def _agree_cutover(staged_hash: str, warmed: bool) -> None:
     """Fleet-wide agreement that every process activates the same build,
-    warmed.  The JAX rollout broadcasts the coordinator's hash and votes
-    with ``allreduce_min`` across hosts (``bdlz_tpu/serve/rollout.py:
-    362-380``); the port serves from one process, where both collectives
-    are the identity, so only the local verdict remains (cross-process
-    agreement: ROADMAP D9, multi-GPU)."""
+    warmed.  The coordinator's staged hash is broadcast and compared on
+    every process, and one ``allreduce_min`` vote carries each process's
+    verdict (hash matches and stage warmed).  Every process joins both
+    collectives before any of them raises, so no peer is left blocked in
+    the next one; a failed vote then raises on every process, each naming
+    its own cause.  In one process both collectives are the identity.
+    Callers sequence stage()/cutover() alike on every process."""
+    from bdlz_tpu_torch.parallel.multihost import allreduce_min, broadcast_text
+
+    agreed = broadcast_text(staged_hash, width=HASH_WIRE_WIDTH)
+    hash_ok = agreed == staged_hash
+    ready = allreduce_min(np.asarray([1 if (hash_ok and warmed) else 0], dtype=np.int64))
+    if int(np.asarray(ready).min()) == 1:
+        return
     if not warmed:
         raise RolloutError(
             "staged replicas are cold; warm() them before cutover so "
             "no request pays the compile"
         )
+    if not hash_ok:
+        raise RolloutError(
+            f"rollout hash skew: this process staged {staged_hash!r} but "
+            f"the coordinator is activating {agreed!r} — every host must "
+            "stage the same artifact build before cutover"
+        )
+    raise RolloutError(
+        "rollout refused: another process reported hash skew or a cold "
+        "stage"
+    )
 
 
 __all__ = [
     "ArtifactRollout",
     "RolloutError",
+    "HASH_WIRE_WIDTH",
     "looks_like_content_hash",
 ]

@@ -238,7 +238,7 @@ class ExactFallback:
 
     def __init__(
         self, base, static, *, n_y: int, impl: str, chunk_size: int,
-        retry=None, fault_plan=None, lz_profile=None, device=None,
+        retry=None, fault_plan=None, lz_profile=None, device=None, mesh=None,
     ):
         from bdlz_tpu_torch.faults import FaultPlan
         from bdlz_tpu_torch.utils.retry import resolve_engine_retry
@@ -248,7 +248,7 @@ class ExactFallback:
         self.engine = "kernel" if impl == "pallas" else impl
         self._exact = make_exact_evaluator(
             base, static, n_y=n_y, impl=self.engine, chunk_size=chunk_size,
-            lz_profile=lz_profile, device=device,
+            lz_profile=lz_profile, device=device, mesh=mesh,
         )
         self._calls = 0
 
@@ -290,7 +290,8 @@ class YieldService:
     ``base``/``static`` must be the physics the artifact was built for
     (checked at construction through the artifact identity); the
     fallback runs at the artifact's recorded n_y and engine.  ``device``
-    is the card unless the caller asks for the CPU.
+    is the card unless the caller asks for the CPU; a ``mesh`` splits the
+    exact fallback's chunks over its members.
     """
 
     def __init__(
@@ -307,6 +308,7 @@ class YieldService:
         lz_profile=None,
         bounce=None,
         device=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         static, n_y, impl = resolve_service_static(artifact, base, static)
@@ -325,7 +327,7 @@ class YieldService:
         self._exact_guarded = ExactFallback(
             base, static, n_y=n_y, impl=impl, chunk_size=self.max_batch_size,
             retry=retry, fault_plan=fault_plan, lz_profile=lz_profile,
-            device=self.device,
+            device=self.device, mesh=mesh,
         )
         #: The engine the exact fallback runs ("kernel" = the CUDA K1).
         self.exact_engine = self._exact_guarded.engine

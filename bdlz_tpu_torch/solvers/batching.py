@@ -19,6 +19,11 @@ With the knobs off, each lane's result equals the lockstep engine's bit
 for bit.  The JAX engine pads each round to a power-of-two bucket so that
 XLA compiles a handful of programs; eager PyTorch compiles nothing, so
 rounds run at their exact size and the ladder is dropped.
+
+With a ``mesh`` each round's packed lanes are split over the members
+(the batch plan of ``parallel/mesh.batch_sharding``), each piece advanced
+on its member's device and CUDA stream; the compaction stays on the
+host, in one process, as in the JAX engine.
 """
 from __future__ import annotations
 
@@ -72,6 +77,10 @@ def _take(nt, idx: torch.Tensor):
     return type(nt)(*(f[idx] for f in nt))
 
 
+def _to(nt, device):
+    return type(nt)(*(f.to(device) for f in nt))
+
+
 def initial_yields(pp: PointParams, static: StaticChoices) -> torch.Tensor:
     """(P, 2) initial state: thermal lanes start at n_eq(T_hi)/s(T_hi),
     nonthermal ones at Y_chi_init; Y_B starts at 0.  Unknown regimes
@@ -96,6 +105,7 @@ def solve_boltzmann_esdirk_batch(
     max_steps: int = 10_000,
     stats: Optional[CompactionStats] = None,
     knobs: Optional[Dict[str, bool]] = None,
+    mesh=None,
 ):
     """Solve the Boltzmann system for a batch of lanes (``pp`` of (P,)
     tensors on the device), lane-repacked.  Returns an ``ESDIRKSolution``
@@ -105,6 +115,7 @@ def solve_boltzmann_esdirk_batch(
     from this batch.  A sweep resolves once over its full grid and passes
     the result, so that chunk boundaries never change which RHS runs.
     ``stats`` receives one record per round and the per-lane step counts.
+    ``mesh`` splits each round's lanes over its members (one process).
     """
     from bdlz_tpu_torch.solvers.sdirk import (
         ESDIRKState,
@@ -135,12 +146,51 @@ def solve_boltzmann_esdirk_batch(
     pp_sorted = _take(pp, order_t)
 
     rtol, atol, method = static.ode_rtol, static.ode_atol, static.ode_method
+    aux_on: Dict[torch.device, tuple] = {dev: (grid, av_table)}
 
     def problem(pp_lanes):
+        d = pp_lanes.m_chi_GeV.device
+        if d not in aux_on:
+            aux_on[d] = (_to(grid, d),
+                         None if av_table is None else av_table._replace(
+                             values=av_table.values.to(d)))
+        g, av = aux_on[d]
         return boltzmann_ode_problem(
-            pp_lanes, static.chi_stats, static.deplete_DM_from_source, grid,
-            av_table=av_table,
+            pp_lanes, static.chi_stats, static.deplete_DM_from_source, g, av_table=av,
         )
+
+    def advance(sub, pp_lanes):
+        rhs_u, u0, u1, h_max_fn = problem(pp_lanes)
+        return esdirk_advance(
+            rhs_u, sub, u0, u1, rtol=rtol, atol=atol, max_steps=max_steps,
+            h_max_fn=h_max_fn, method=method,
+            pi_controller=knobs["pi_controller"], budget=round_steps,
+        )
+
+    def advance_on_mesh(sub, pp_lanes):
+        """One round's lanes split over the members, each piece advanced
+        on its device and stream, joined back in member order."""
+        from bdlz_tpu_torch.parallel.mesh import batch_sharding, on_stream
+
+        flat = mesh.devices.reshape(-1)
+        launched = []
+        for k, (a, b) in zip(mesh.local_members,
+                             batch_sharding(mesh).local_bounds(int(sub.x.shape[0]))):
+            if b == a:
+                continue
+            s = mesh.stream(k)
+            if s is not None:
+                s.wait_stream(torch.cuda.current_stream(dev))
+            with on_stream(s):
+                part = (_to(type(sub)(*(f[a:b] for f in sub)), flat[k]),
+                        _to(type(pp_lanes)(*(f[a:b] for f in pp_lanes)), flat[k]))
+                launched.append((s, advance(*part)))
+        parts = []
+        for s, new in launched:
+            if s is not None:
+                torch.cuda.current_stream(dev).wait_stream(s)
+            parts.append(_to(new, dev))
+        return type(sub)(*(torch.cat([p[i] for p in parts]) for i in range(len(sub))))
 
     rhs_u, u0, u1, h_max_fn = problem(pp_sorted)
     state = esdirk_init(
@@ -158,12 +208,7 @@ def solve_boltzmann_esdirk_batch(
             break
         t0 = time.perf_counter()
         sub = _take(state, idx)
-        rhs_u, u0, u1, h_max_fn = problem(_take(pp_sorted, idx))
-        new = esdirk_advance(
-            rhs_u, sub, u0, u1, rtol=rtol, atol=atol, max_steps=max_steps,
-            h_max_fn=h_max_fn, method=method,
-            pi_controller=knobs["pi_controller"], budget=round_steps,
-        )
+        new = (advance if mesh is None else advance_on_mesh)(sub, _take(pp_sorted, idx))
         state = ESDIRKState(*(f.index_copy(0, idx, g) for f, g in zip(state, new)))
         if stats is not None:
             retired = int(idx.numel() - running(new).sum())
@@ -192,18 +237,19 @@ def make_batched_esdirk_step(
     max_steps: int = 10_000,
     stats_sink=None,
     knobs: Optional[Dict[str, bool]] = None,
+    mesh=None,
 ):
     """``step(pp_chunk, grid) -> YieldsResult`` on the repacked engine;
     failed lanes become NaN rows.  ``stats_sink`` is called with each
     chunk's :class:`CompactionStats`; ``knobs`` pins one resolution
-    across every chunk."""
+    across every chunk; ``mesh`` splits each round over its members."""
     def step(pp_chunk, grid):
         from bdlz_tpu_torch.models.yields_pipeline import YieldsResult, present_day
 
         stats = CompactionStats()
         sol = solve_boltzmann_esdirk_batch(
             pp_chunk, static, grid, round_steps=round_steps,
-            max_steps=max_steps, stats=stats, knobs=knobs,
+            max_steps=max_steps, stats=stats, knobs=knobs, mesh=mesh,
         )
         if stats_sink is not None:
             stats_sink(stats)

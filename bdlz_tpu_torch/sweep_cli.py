@@ -1,4 +1,4 @@
-"""Sweep command line on one CUDA device:
+"""Sweep command line, on the card, a mesh of cards or many processes:
 
     python -m bdlz_tpu_torch.sweep_cli \\
         --config yields_config_equal_mass.json \\
@@ -8,6 +8,16 @@ Axis syntax: ``name=geom:start:stop:n`` (geomspace), ``lin:start:stop:n``
 (linspace), or an explicit comma list ``name=0.1,0.5,1.0``.  A JSON
 summary with the JAX sweep CLI's keys goes to stdout.  ``--device cpu``
 runs the plain PyTorch path on the host; the default is the card.
+
+The sweep runs on a mesh of ``--device``'s members, as the JAX CLI runs
+on ``jax.devices()``: ``cuda`` (the default) is every visible card, and a
+comma list names the members (``cuda:0,cuda:1``; ``cpu,cpu`` is a
+two-member host mesh).  ``--mesh-sp N`` reserves N members for the sp
+axis (it must divide the member count).  ``--multihost`` joins the
+process group from JAX's env vars (``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) before the mesh is built: run
+one identical invocation per process, each adding its members to the
+mesh; the coordinator writes ``--out``.
 
 ``--lz-profile``/``--bounce`` derive each point's P from its wall speed
 through the LZ layer (``--lz-method``, ``--lz-gamma-phi``, and the
@@ -25,8 +35,7 @@ one ``torch.profiler`` Chrome trace per chunk.
 elastic work-stealing fleet (``parallel/scheduler.py``) over the shared
 store ``--elastic-store``: every role derives the plan from the same
 flags, and a role on another device (or of the JAX package) is refused
-by the job record.  ``--mesh-sp`` and ``--multihost`` are refused, naming
-ROADMAP D9.
+by the job record; it is refused with ``--multihost``, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -35,12 +44,6 @@ import json
 from typing import Dict
 
 import numpy as np
-
-from bdlz_tpu_torch.utils.deferred import add_deferred_flags, refuse_deferred_flags
-
-_D9 = "ROADMAP D9, multi-GPU"
-#: Flags of the JAX sweep CLI that the port does not have yet.
-DEFERRED_FLAGS = {"--mesh-sp": (True, _D9), "--multihost": (False, _D9)}
 
 
 def parse_axis(spec: str):
@@ -119,6 +122,8 @@ def main(argv=None) -> None:
                     help="Write JSON-lines sweep events to this file")
     ap.add_argument("--chunk", type=int, default=8192)
     ap.add_argument("--n-y", type=int, default=8000, dest="n_y")
+    ap.add_argument("--mesh-sp", type=int, default=1,
+                    help="Devices reserved for the sp (grid) mesh axis")
     ap.add_argument("--impl", default="tabulated",
                     choices=("kernel", "tabulated", "direct", "esdirk",
                              "esdirk_lockstep"),
@@ -143,7 +148,9 @@ def main(argv=None) -> None:
                          "reference trapezoid).  Overrides the config's "
                          "quad_panel_gl")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (default; fails without a card) or cpu")
+                    help="The mesh's members: cuda (default: every visible card; "
+                         "fails without one), cpu, or a comma list such as "
+                         "cuda:0,cuda:1 or cpu,cpu")
     ap.add_argument("--profile-dir", default=None,
                     help="Write one torch.profiler Chrome trace per chunk here")
     ap.add_argument("--debug-nans", action="store_true",
@@ -179,6 +186,10 @@ def main(argv=None) -> None:
     )
     add_lz_scenario_flags(ap)
     add_bounce_flag(ap)
+    ap.add_argument("--multihost", action="store_true",
+                    help="Join the process group from JAX_COORDINATOR_ADDRESS/"
+                         "JAX_NUM_PROCESSES/JAX_PROCESS_ID before building the mesh "
+                         "(run one identical invocation per process)")
     ap.add_argument("--elastic", default=None,
                     choices=("local", "coordinator", "worker", "auto"),
                     help="Elastic work-stealing mode (parallel/scheduler.py): "
@@ -209,15 +220,18 @@ def main(argv=None) -> None:
                          "result identity")
     ap.add_argument("--poll", type=float, default=1.0,
                     help="Elastic worker/coordinator poll interval (seconds)")
-    add_deferred_flags(ap, DEFERRED_FLAGS)
     args = ap.parse_args(argv)
-    refuse_deferred_flags(ap, args, DEFERRED_FLAGS)
     if args.fuse_exp and args.impl != "kernel":
         ap.error("--fuse-exp requires --impl kernel")
     if args.elastic:
         if not args.elastic_store:
             ap.error("--elastic requires --elastic-store (the shared "
                      "lease/commit plane)")
+        if args.multihost:
+            ap.error("--elastic and --multihost are mutually exclusive "
+                     "(elastic workers are single-process; scale is the fleet)")
+        if "," in args.device:
+            ap.error("--elastic roles run on one device; give --device one")
         if args.out:
             ap.error("--elastic results are committed to the store; "
                      "--out is the static engine's resume dir")
@@ -236,6 +250,11 @@ def main(argv=None) -> None:
     if args.lz_mode in ("chain", "thermal") and not (args.lz_profile or args.bounce):
         ap.error(f"--lz-mode {args.lz_mode} derives P per point from a "
                  "bounce profile; pass --lz-profile or --bounce")
+
+    if args.multihost:
+        from bdlz_tpu_torch.parallel import init_multihost
+
+        init_multihost()
 
     if args.sanitize:
         from bdlz_tpu_torch import sanitize
@@ -271,6 +290,18 @@ def main(argv=None) -> None:
     if not axes:
         raise SystemExit("at least one --axis is required")
 
+    mesh = None
+    if not args.elastic:  # elastic workers are single-process; scale is the fleet
+        from bdlz_tpu_torch.parallel import make_mesh, process_count
+
+        members = None if args.device == "cuda" else [d.strip() for d in args.device.split(",")]
+        n_local = len(members) if members is not None else _visible_cards()
+        n_dev = n_local * process_count()
+        sp = max(1, args.mesh_sp)
+        if n_dev % sp:
+            raise SystemExit(f"--mesh-sp {sp} does not divide device count {n_dev}")
+        mesh = make_mesh(shape=(n_dev // sp, sp), devices=members)
+
     event_log = None
     if args.events:
         from bdlz_tpu_torch.utils.logging import EventLog
@@ -285,10 +316,10 @@ def main(argv=None) -> None:
             return  # the worker role printed its own summary
     else:
         res = run_sweep(
-            cfg, axes, static, chunk_size=args.chunk,
+            cfg, axes, static, mesh=mesh, chunk_size=args.chunk,
             n_y=args.n_y, out_dir=args.out, event_log=event_log,
             impl=args.impl, fuse_exp=args.fuse_exp,
-            device=args.device, lz_profile=args.lz_profile, lz_method=args.lz_method,
+            lz_profile=args.lz_profile, lz_method=args.lz_method,
             lz_gamma_phi=args.lz_gamma_phi, bounce=args.bounce,
             trace_dir=args.profile_dir,
         )
@@ -329,6 +360,16 @@ def main(argv=None) -> None:
         "out_dir": res.out_dir,
         "closest_to_planck": closest,
     }))
+
+
+def _visible_cards() -> int:
+    """Every visible card; none raises, as an entry point without a card
+    does (the port never falls back)."""
+    from bdlz_tpu_torch.backend import resolve_device
+    import torch
+
+    resolve_device("cuda")
+    return torch.cuda.device_count()
 
 
 if __name__ == "__main__":

@@ -353,19 +353,26 @@ def population_max_rel(run_chunk, chunk: int, ref: np.ndarray) -> float:
 
 def engine_population_max_rel(
     pop_grid, ref: np.ndarray, static, table, *, impl: str, n_y: int, device=None,
+    mesh=None,
 ) -> float:
     """Run the sweep engine ``impl`` over the population grid in one
     chunk on ``device`` (``table`` is its aux: the device F-table, or the
-    KJMA z-grid for ``direct``) and measure :func:`population_max_rel`."""
+    KJMA z-grid for ``direct``) and measure :func:`population_max_rel`.
+    With a ``mesh`` the chunk is padded to a multiple of its members and
+    split over them (``table`` is then ``{device: aux}``, as
+    ``parallel.sweep.build_chunk_engine`` builds it)."""
     from bdlz_tpu_torch.backend import resolve_device
     from bdlz_tpu_torch.interop import point_params_from_numpy
-    from bdlz_tpu_torch.parallel.sweep import make_sweep_step
+    from bdlz_tpu_torch.parallel.sweep import _pad_chunk, evaluate_chunk, make_sweep_step, mesh_pad
 
-    dev = resolve_device(device)
-    step = make_sweep_step(static, n_y, impl)
+    dev = resolve_device(device) if mesh is None else mesh.local_devices[0]
+    step = make_sweep_step(static, n_y, impl, mesh=mesh)
     n = int(ref.shape[0])
 
     def run_chunk(lo, hi):
+        if mesh is not None:
+            padded = _pad_chunk(pop_grid, lo, hi, mesh_pad(hi - lo, mesh))
+            return evaluate_chunk((step, table), padded, hi - lo, dev, mesh)["DM_over_B"]
         pp = type(pop_grid)(*(np.asarray(f)[lo:hi] for f in pop_grid))
         return step(point_params_from_numpy(pp, dev), table).DM_over_B.cpu().numpy()
 

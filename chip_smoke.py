@@ -40,7 +40,12 @@ against the card's K1 engine, ``sweep_cli --sanitize --profile-dir`` and
 artifact served by the single service under 65,536 queries, mixed
 requests whose exact fallback runs K1, the 2-replica fleet with its fault
 drills, a rollout cutover under load, and ``python -m bdlz_tpu_torch.serve``
-in subprocesses).
+in subprocesses).  Last the mesh (``mesh_path``): the main grid on two
+members of the one card through K1 and the tabulated engine, bitwise the
+runs without a mesh; one point's sp quadrature at n_y 1,048,576;
+``sweep_cli --multihost`` and ``mcmc_cli --multihost`` in two processes on
+the card (gloo carries their agreements), resumed; a fleet with mixed
+kernel builds refused on both processes; and a NCCL world of one.
 
 Every phase prints one JSON line; the card's name and power limit as
 ``nvidia-smi`` reports them and a ``kernels`` line come before the last
@@ -48,7 +53,7 @@ line, which is ``{"ok": true, "device": {...}}``.  Any failed check ends
 the script with a non-zero exit and no ``ok`` line; so does a machine
 without a CUDA device, or a directory without the port.  Imports nothing
 of JAX or of the JAX package.  ``--only host_planes,serving_path`` (or any
-of robust_path, emulator_path, sampling_path) runs just those phases
+of robust_path, emulator_path, sampling_path, mesh_path) runs just those phases
 (after the build) and prints no ``ok`` line.
 """
 from __future__ import annotations
@@ -2289,12 +2294,304 @@ def phase_fabric_path(dev, artifact=None) -> int:
     return k1
 
 
+# The mesh: the main grid split over two members of the one card, the sp
+# quadrature of one point at a giant n_y, two processes on the card through
+# the CLIs (gloo carries their agreements), and a NCCL world of one.
+SP_N_Y, SP_RTOL = 1_048_576, 1e-12
+MESH_CLI_TIMEOUT = 300
+#: Runs ``sweep_cli.main`` as ``python -m bdlz_tpu_torch.sweep_cli`` would,
+#: recording what the CLI does not print: each K1 launch's rows, the files
+#: the process wrote and its gathered outputs.  ``argv[2]`` other than "-"
+#: makes this process report another kernel library digest.
+SWEEP_PROBE = r'''
+import json, sys
+import numpy as np
+from bdlz_tpu_torch import sweep_cli
+from bdlz_tpu_torch.ops import kjma_kernel as kk
+from bdlz_tpu_torch.parallel import sweep as sw
+from bdlz_tpu_torch.utils import io
+out_npz, digest = sys.argv[1], sys.argv[2]
+if digest != "-":
+    kk.kernel_digest = lambda: digest
+rows, writes, box = [], [0], {}
+launch, run_sweep = kk._launch, sw.run_sweep
+def counted_launch(name, reduce, g, *rest):
+    rows.append(int(g.shape[0]))
+    return launch(name, reduce, g, *rest)
+def counted(fn):
+    def inner(*a, **k):
+        writes[0] += 1
+        return fn(*a, **k)
+    return inner
+def kept(*a, **k):
+    box["res"] = res = run_sweep(*a, **k)
+    return res
+kk._launch, sw.run_sweep = counted_launch, kept
+io.atomic_savez, io.atomic_write_json = counted(io.atomic_savez), counted(io.atomic_write_json)
+sweep_cli.main(sys.argv[3:])
+res = box["res"]
+np.savez(out_npz, **res.outputs)
+print(json.dumps({"probe": {"launches": dict(kk.LAUNCHES), "rows": rows, "writes": writes[0],
+                            "resumed": res.resumed_chunks, "chunks": res.chunks}}), flush=True)
+'''
+#: A NCCL world of size one: the control plane over gloo, then the
+#: collectives on cuda:0 tensors through the NCCL group, and the sp
+#: quadrature's all-reduce.
+NCCL_PROBE = r'''
+import json, sys
+import numpy as np, torch
+from bdlz_tpu_torch.config import config_from_dict, point_params_from_config, static_choices_from_config
+from bdlz_tpu_torch.ops.kjma_table import make_f_table
+from bdlz_tpu_torch.parallel import make_mesh, multihost as mh
+from bdlz_tpu_torch.parallel.gridshard import make_sp_quadrature
+cfg = config_from_dict(json.loads(sys.argv[2]))
+static, dev = static_choices_from_config(cfg), torch.device("cuda", 0)
+pp, table = point_params_from_config(cfg, cfg.P_chi_to_B), make_f_table(cfg.I_p)
+sp = make_sp_quadrature(static, make_mesh((1, 2), devices=[dev, dev]), n_y=65536)
+alone = float(sp(pp, table))
+assert mh.init_multihost(f"localhost:{sys.argv[1]}", 1, 0) and mh.process_count() == 1
+host = mh.allreduce_min(np.array([3, -3], dtype=np.int64)).tolist()
+knobs = mh.allreduce_min(torch.tensor([7, -7], dtype=torch.int64, device=dev))
+plan = mh.broadcast_from_coordinator(torch.arange(4, dtype=torch.float64, device=dev))
+world = float(sp(pp, table))
+torch.cuda.synchronize()
+print(json.dumps({"nccl": {"backends": mh.backend_names(), "host_min": host,
+    "device_min": knobs.tolist(), "device_min_on": str(knobs.device),
+    "broadcast": plan.tolist(), "sp_alone": alone, "sp_in_world": world}}), flush=True)
+import torch.distributed as dist
+dist.destroy_process_group()
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _two_processes(argv_of, env=None):
+    """Start ``argv_of(pid)`` for pids 0 and 1 with JAX's env vars of one
+    two-process run; ``[(rc, stdout, stderr)]``, every process stopped."""
+    port = str(_free_port())
+    procs = []
+    for pid in (0, 1):
+        penv = dict(env or _subprocess_env(), JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                    JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen(argv_of(pid), stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True, env=penv))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=MESH_CLI_TIMEOUT)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _probe(out: str) -> dict:
+    return next(json.loads(line)["probe"] for line in out.splitlines()
+                if line.startswith('{"probe"'))
+
+
+def phase_mesh_path(dev) -> int:
+    """Meshes and processes at full width on the card: (a) the main grid
+    on a ``(2, 1)`` mesh of ``[cuda:0, cuda:0]`` through K1 (8 launches of
+    4096 points) and through the tabulated engine, bitwise the runs
+    without a mesh; (b) the archived point's Y_B at n_y 1,048,576 on a
+    ``(1, 2)`` mesh against the one-device trapezoid and the CPU; (c)
+    ``sweep_cli --multihost`` in two processes on the card (4 K1 launches
+    of 4096 points each, the one-process result gathered on both, only
+    the coordinator writing, a second invocation resuming every chunk),
+    a two-process ``mcmc_cli --multihost`` run with checkpoints resumed
+    bitwise, and a run whose kernel digest differs on one process,
+    refused by both; (d) a NCCL world of one.  Returns K1's launches."""
+    from bdlz_tpu_torch.config import (
+        config_from_dict,
+        point_params_from_config,
+        static_choices_from_config,
+    )
+    from bdlz_tpu_torch.interop import point_params_from_numpy
+    from bdlz_tpu_torch.ops import kjma_kernel as kk
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table, table_to_device
+    from bdlz_tpu_torch.parallel import make_mesh, run_sweep
+    from bdlz_tpu_torch.parallel.gridshard import make_sp_quadrature
+    from bdlz_tpu_torch.solvers.quadrature import integrate_YB_quadrature_tabulated
+
+    t0 = time.perf_counter()
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    mesh = make_mesh((2, 1), devices=[dev, dev])
+    kw = dict(chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N)
+
+    # ---- (a) the main grid on an in-process mesh, timed in turns --------
+    # (plain, mesh, mesh, plain) so that first-use costs fall on neither
+    plain = run_sweep(base, MAIN_AXES, static, impl="kernel", device=dev, **kw)
+    rows = []
+    launch = kk._launch
+
+    def counted_launch(name, reduce, g, *rest):
+        rows.append(int(g.shape[0]))
+        return launch(name, reduce, g, *rest)
+
+    kk._launch = counted_launch
+    try:
+        meshed, counts = _launches_around(
+            lambda: run_sweep(base, MAIN_AXES, static, impl="kernel", mesh=mesh, **kw))
+    finally:
+        kk._launch = launch
+    check(counts["reduce"] == 8 and sum(counts.values()) == 8 and rows == [4096] * 8,
+          f"meshed K1: 8 launches of 4096 points, got {counts} rows {rows}")
+    check(_bitwise(meshed.outputs, plain.outputs), "meshed K1 sweep bitwise the plain one")
+    meshed2 = run_sweep(base, MAIN_AXES, static, impl="kernel", mesh=mesh, **kw)
+    plain2 = run_sweep(base, MAIN_AXES, static, impl="kernel", device=dev, **kw)
+    pinned = static._replace(quad_panel_gl=False)
+    tab = [run_sweep(base, MAIN_AXES, pinned, impl="tabulated", **where)
+           for where in ({"device": dev}, {"mesh": mesh}, {"mesh": mesh}, {"device": dev})]
+    check(all(_bitwise(t.outputs, tab[0].outputs) for t in tab[1:]),
+          "meshed tabulated sweep bitwise the plain one")
+    grid = {"k1": {"launches": counts["reduce"], "rows_per_launch": rows[0],
+                   "seconds": [meshed.seconds, meshed2.seconds],
+                   "plain_seconds": [plain.seconds, plain2.seconds],
+                   "points_per_sec": [meshed.points_per_sec, meshed2.points_per_sec],
+                   "bitwise": True},
+            "tabulated": {"seconds": [tab[1].seconds, tab[2].seconds],
+                          "plain_seconds": [tab[0].seconds, tab[3].seconds], "bitwise": True}}
+
+    # ---- (b) the sp quadrature at a giant n_y --------------------------
+    pp, table = point_params_from_config(base, base.P_chi_to_B), make_f_table(base.I_p)
+    sp = make_sp_quadrature(static, make_mesh((1, 2), devices=[dev, dev]), n_y=SP_N_Y)
+    yb = float(sp(pp, table))
+    one = float(integrate_YB_quadrature_tabulated(
+        point_params_from_numpy(pp, dev), static.chi_stats, table_to_device(table, dev),
+        n_y=SP_N_Y)[0])
+    cpu = float(make_sp_quadrature(static, make_mesh((1, 2), devices=["cpu", "cpu"]),
+                                   n_y=SP_N_Y)(pp, table))
+    r_one, r_cpu = abs(yb / one - 1.0), abs(yb / cpu - 1.0)
+    check(r_one <= SP_RTOL and r_cpu <= SP_RTOL,
+          f"sp Y_B {yb!r}: one device {r_one:.3e}, CPU {r_cpu:.3e} <= {SP_RTOL:g}")
+    sp_ms = _cuda_ms(lambda: sp(pp, table), reps=1, repeats=5)
+    one_ms = _cuda_ms(lambda: integrate_YB_quadrature_tabulated(
+        point_params_from_numpy(pp, dev), static.chi_stats, table_to_device(table, dev),
+        n_y=SP_N_Y), reps=1, repeats=5)
+    sp_row = {"n_y": SP_N_Y, "mesh": [1, 2], "Y_B": yb, "rel_vs_one_device": r_one,
+              "rel_vs_cpu": r_cpu, "ms_median": float(np.median(sp_ms)), "ms": sp_ms,
+              "one_device_ms_median": float(np.median(one_ms))}
+
+    # ---- (c) two processes on the card ---------------------------------
+    work = tempfile.mkdtemp(prefix="bdlz_mesh_")
+    try:
+        cfg = os.path.join(work, "cfg.json")
+        with open(cfg, "w") as f:
+            json.dump(ARCHIVED, f)
+        out_dir = os.path.join(work, "sweep")
+
+        def sweep_argv(tag, digest="-"):
+            return lambda pid: [
+                sys.executable, "-c", SWEEP_PROBE, os.path.join(work, f"{tag}_p{pid}.npz"),
+                digest if pid == 1 else "-", "--config", cfg, *MAIN_AXIS_FLAGS,
+                "--impl", "kernel", "--device", "cuda", "--out", out_dir, "--multihost"]
+
+        t1 = time.perf_counter()
+        cold = _two_processes(sweep_argv("cold"))
+        cold_s = time.perf_counter() - t1
+        check(all(rc == 0 for rc, _, _ in cold),
+              f"sweep_cli --multihost: {[err[-1500:] for rc, _, err in cold if rc]}")
+        probes = [_probe(out) for _, out, _ in cold]
+        for pid, pr in enumerate(probes):
+            check(pr["launches"]["reduce"] == 4 and pr["rows"] == [4096] * 4,
+                  f"process {pid}: 4 K1 launches of 4096 points, got {pr}")
+            with np.load(os.path.join(work, f"cold_p{pid}.npz")) as data:
+                check(_bitwise(dict(data), plain.outputs),
+                      f"process {pid} gathered the one-process result bitwise")
+        check(probes[0]["writes"] == 8 and probes[1]["writes"] == 0,
+              f"only the coordinator writes: {[p['writes'] for p in probes]}")
+        check(sorted(os.listdir(out_dir)) == [f"chunk_{i:05d}.npz" for i in range(4)]
+              + ["manifest.json"], f"the directory: {sorted(os.listdir(out_dir))}")
+        summaries = [next(json.loads(line) for line in out.splitlines()
+                          if line.startswith('{"n_points"')) for _, out, _ in cold]
+        check(summaries[0]["closest_to_planck"] == summaries[1]["closest_to_planck"],
+              "both processes print the same closest point")
+        t1 = time.perf_counter()
+        warm = _two_processes(sweep_argv("warm"))
+        warm_s = time.perf_counter() - t1
+        check(all(rc == 0 for rc, _, _ in warm),
+              f"resumed sweep_cli --multihost: {[err[-1500:] for rc, _, err in warm if rc]}")
+        for pid, (_, out, _) in enumerate(warm):
+            pr = _probe(out)
+            check(pr["resumed"] == 4 and pr["launches"]["reduce"] == 0,
+                  f"process {pid} resumed every chunk: {pr}")
+        multihost_launches = sum(p["launches"]["reduce"] for p in probes)
+
+        mcmc_dir = os.path.join(work, "chain")
+
+        def mcmc_argv(tag):
+            return lambda pid: [
+                sys.executable, "-m", "bdlz_tpu_torch.mcmc_cli", "--config", cfg,
+                "--param", "m_chi_GeV=0.05:20", "--param", "P_chi_to_B=1e-4:1",
+                "--checkpoint-dir", mcmc_dir, "--out", os.path.join(work, f"{tag}.npz"),
+                "--multihost"]
+
+        t1 = time.perf_counter()
+        first = _two_processes(mcmc_argv("chain1"))
+        mcmc_s = time.perf_counter() - t1
+        check(all(rc == 0 for rc, _, _ in first),
+              f"mcmc_cli --multihost: {[err[-1500:] for rc, _, err in first if rc]}")
+        again = _two_processes(mcmc_argv("chain2"))
+        check(all(rc == 0 for rc, _, _ in again),
+              f"resumed mcmc_cli --multihost: {[err[-1500:] for rc, _, err in again if rc]}")
+        s1, s2 = (json.loads(o[0][1].strip().splitlines()[-1]) for o in (first, again))
+        check(first[1][1].strip() == "" and again[1][1].strip() == "",
+              "only the coordinator prints the summary")
+        with np.load(os.path.join(work, "chain1.npz")) as a, \
+                np.load(os.path.join(work, "chain2.npz")) as b:
+            chain_same = bool(np.array_equal(a["chain"], b["chain"])
+                              and np.array_equal(a["logp"], b["logp"]))
+        check(s2["resumed_segments"] == 5 and chain_same and s1["walkers"] == 64,
+              f"mcmc resumed bitwise: {s2['resumed_segments']} segments, {chain_same}")
+
+        mixed = _two_processes(sweep_argv("mixed", digest="f" * 16))
+        refused = [rc != 0 and "kernel library digest differs across hosts" in err
+                   for rc, _, err in mixed]
+        check(all(refused), f"mixed digests refused on both: {[e[-800:] for _, _, e in mixed]}")
+
+        # ---- (d) a NCCL world of one --------------------------------------
+        nccl = subprocess.run([sys.executable, "-c", NCCL_PROBE, str(_free_port()),
+                               json.dumps(ARCHIVED)], capture_output=True, text=True,
+                              env=_subprocess_env(), timeout=MESH_CLI_TIMEOUT)
+        check(nccl.returncode == 0, f"NCCL world of one: {nccl.stderr[-1500:]}")
+        world = json.loads(nccl.stdout.strip().splitlines()[-1])["nccl"]
+        check(world["backends"] == {"host": "gloo", "device": "nccl"}
+              and world["host_min"] == [3, -3] and world["device_min"] == [7, -7]
+              and world["device_min_on"] == "cuda:0" and world["broadcast"] == [0.0, 1.0, 2.0, 3.0]
+              and world["sp_in_world"] == world["sp_alone"], f"NCCL world of one: {world}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "mesh_path", "seconds": time.perf_counter() - t0,
+          "mesh": {"shape": [2, 1], "members": [str(dev)] * 2}, "grid": grid, "sp": sp_row,
+          "multihost": {"processes": 2, "k1_launches": [p["launches"]["reduce"] for p in probes],
+                        "rows_per_launch": probes[0]["rows"][0], "bitwise": True,
+                        "coordinator_writes": probes[0]["writes"],
+                        "other_writes": probes[1]["writes"], "seconds": cold_s,
+                        "resume_seconds": warm_s, "resumed_chunks": 4},
+          "mcmc": {"processes": 2, "walkers": s1["walkers"], "steps": s1["steps"],
+                   "seconds": mcmc_s, "resumed_segments": s2["resumed_segments"],
+                   "bitwise": chain_same, "acceptance": s1["acceptance"]},
+          "mixed_digest_refused": [bool(r) for r in refused], "nccl_world_of_one": world})
+    return counts["reduce"] + multihost_launches
+
+
 #: Phases that can run on their own (``--only``); such a run prints no
 #: kernels line and no ok line.
 STANDALONE = {"robust_path": phase_robust_path, "emulator_path": phase_emulator_path,
               "sampling_path": phase_sampling_path, "host_planes": phase_host_planes,
               "serving_path": phase_serving_path, "elastic_path": phase_elastic_path,
-              "fabric_path": phase_fabric_path}
+              "fabric_path": phase_fabric_path, "mesh_path": phase_mesh_path}
 
 
 def main(argv=None) -> int:
@@ -2343,6 +2640,8 @@ def main(argv=None) -> int:
     for name, n in phase_elastic_path(dev).items():
         launches[name] += n
     launches["reduce"] += phase_fabric_path(dev, artifact)
+    # K1 on every mesh member and every process
+    launches["reduce"] += phase_mesh_path(dev)
     from bdlz_tpu_torch.ops import bounce_kernel as bk
 
     emit({"kernels": [{

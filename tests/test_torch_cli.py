@@ -24,7 +24,6 @@ from bdlz_tpu_torch.analysis import (
 )
 from bdlz_tpu_torch.cli import DEFERRED_FLAGS as CLI_DEFERRED
 from bdlz_tpu_torch.cli import main as t_main
-from bdlz_tpu_torch.sweep_cli import DEFERRED_FLAGS as SWEEP_DEFERRED
 from bdlz_tpu_torch.sweep_cli import main as t_sweep_main
 from bdlz_tpu_torch.utils.io import atomic_write_json
 
@@ -130,15 +129,40 @@ def test_cli_refuses_deferred_flags(flag, tmp_path, capsys):
     assert item in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("flag", sorted(SWEEP_DEFERRED))
-def test_sweep_cli_refuses_deferred_flags(flag, tmp_path, capsys):
-    takes_value, item = SWEEP_DEFERRED[flag]
-    argv = ["--config", str(tmp_path / "x.json"), "--axis", "m_chi_GeV=1.0", flag] + (
-        ["x"] if takes_value else [])
-    with pytest.raises(SystemExit) as exc:
-        t_sweep_main(argv)
-    assert exc.value.code == 2
-    assert item in capsys.readouterr().err
+@pytest.mark.parametrize("flag", ["--mesh-sp", "--multihost"])
+def test_sweep_cli_takes_the_mesh_flags(flag, tmp_path, capsys, monkeypatch):
+    """``--mesh-sp 2`` over eight host members and ``--multihost`` with no
+    process group configured run as the JAX CLI runs them (its eight
+    forced host devices): the same summary, the same results."""
+    from bdlz_tpu.sweep_cli import main as j_sweep_main
+
+    for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID",
+                "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(ARCHIVED))
+    extra = ["--mesh-sp", "2"] if flag == "--mesh-sp" else ["--multihost"]
+    argv = ["--config", str(path), "--axis", "m_chi_GeV=0.5,0.95,2.0", "--n-y", "2000",
+            "--quad", "off", "--chunk", "5", *extra]
+    j_sweep_main(argv + ["--out", str(tmp_path / "j")])
+    j_sum = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    t_sweep_main(argv + ["--out", str(tmp_path / "t"), "--device", ",".join(["cpu"] * 8)])
+    t_sum = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for k in ("seconds", "points_per_sec", "out_dir"):
+        j_sum.pop(k), t_sum.pop(k)
+    ref, got = j_sum.pop("closest_to_planck"), t_sum.pop("closest_to_planck")
+    assert t_sum == j_sum
+    assert got["index"] == ref["index"] and got["params"] == ref["params"]
+    assert got["DM_over_B"] == pytest.approx(ref["DM_over_B"], rel=1e-12)
+    with open(tmp_path / "j" / "manifest.json") as f, open(tmp_path / "t" / "manifest.json") as g:
+        j_man, t_man = json.load(f), json.load(g)
+    assert (t_man["hash"], t_man["chunk_size"]) == (j_man["hash"], j_man["chunk_size"]) == (
+        j_man["hash"], 8)
+    with np.load(tmp_path / "j" / "chunk_00000.npz") as j, \
+            np.load(tmp_path / "t" / "chunk_00000.npz") as t:
+        assert sorted(t.files) == sorted(j.files)
+        rel = np.max(np.abs(t["DM_over_B"] / j["DM_over_B"] - 1.0))
+        assert rel <= 1e-12
 
 
 def test_cli_without_a_card_raises(tmp_path, capsys, monkeypatch):

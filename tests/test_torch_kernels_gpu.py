@@ -522,3 +522,38 @@ def test_a_partitioned_host_answers_through_k1_on_the_card(cuda, tmp_path):
         assert kk.LAUNCHES["reduce"] >= 1 and np.isfinite(r.value)
     finally:
         host.close()
+
+
+def test_a_two_member_mesh_on_one_card_is_k1_bitwise_twice_per_chunk(setup, cuda):
+    """``[cuda:0, cuda:0]``: each member launches K1 on its own stream over
+    its half of every chunk; the sweep is bitwise the run without a mesh."""
+    from bdlz_tpu_torch.parallel import make_mesh
+
+    base, _, _ = setup
+    static = static_choices_from_config(base)._replace(quad_panel_gl=False)
+    axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 8),
+            "T_p_GeV": np.geomspace(30.0, 300.0, 4)}
+    plain = run_sweep(base, axes, static, chunk_size=16, n_y=2000, impl="kernel", device=cuda)
+    kk.reset_launches()
+    meshed = run_sweep(base, axes, static, chunk_size=16, n_y=2000, impl="kernel",
+                       mesh=make_mesh((2, 1), devices=[cuda, cuda]))
+    assert kk.LAUNCHES["reduce"] == 2 * meshed.chunks == 4
+    np.testing.assert_array_equal(meshed.outputs["DM_over_B"], plain.outputs["DM_over_B"])
+
+
+def test_sp_quadrature_on_the_card_matches_the_cpu(cuda):
+    """One point's 65536-node y-grid over two members of one card: within
+    1e-12 rel of the same quadrature on two host members."""
+    from bdlz_tpu_torch.config import point_params_from_config
+    from bdlz_tpu_torch.parallel import make_mesh
+    from bdlz_tpu_torch.parallel.gridshard import make_sp_quadrature
+
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    pp, table = point_params_from_config(base, base.P_chi_to_B), make_f_table(base.I_p)
+    got = make_sp_quadrature(static, make_mesh((1, 2), devices=[cuda, cuda]), n_y=65536)(
+        pp, table)
+    ref = make_sp_quadrature(static, make_mesh((1, 2), devices=["cpu", "cpu"]), n_y=65536)(
+        pp, table)
+    assert got.device.type == "cuda"
+    assert abs(float(got) / float(ref) - 1.0) <= 1e-12

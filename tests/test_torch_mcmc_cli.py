@@ -1,8 +1,8 @@
 """The port's MCMC command line against the JAX package's, on the CPU.
 
 * Flag and pairing refusals: the same ``SystemExit`` message, byte for
-  byte; ``--multihost`` and ``--sanitize`` are refused naming their
-  ROADMAP item.
+  byte.  ``--multihost`` with no process group configured runs as one
+  process, as the JAX CLI does.
 * The summary JSON has the JAX CLI's keys in the JAX CLI's order for both
   samplers, and ``--out`` writes the JAX CLI's npz schema.
 * The CLI's chain is the API's: the initial walkers from ``--seed``, the
@@ -17,7 +17,6 @@ import torch
 
 from bdlz_tpu.mcmc_cli import main as j_main
 
-from bdlz_tpu_torch.mcmc_cli import DEFERRED_FLAGS
 from bdlz_tpu_torch.mcmc_cli import main as t_main
 
 ARCHIVED = {
@@ -78,13 +77,18 @@ def test_refusals_are_byte_equal_to_jax(name, cfg, tmp_path):
     assert isinstance(ref.value.code, str) and got.value.code == ref.value.code
 
 
-@pytest.mark.parametrize("flag", list(DEFERRED_FLAGS))
-def test_unported_flags_name_their_roadmap_item(flag, cfg, capsys):
-    with pytest.raises(SystemExit) as exc:
-        t_main(["--config", cfg, *PARAMS, flag, "--device", "cpu"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flag} is not ported to bdlz_tpu_torch yet ({DEFERRED_FLAGS[flag][1]})" in err
+def test_multihost_flag_runs_as_one_process(cfg, capsys, monkeypatch):
+    """With no process group configured ``--multihost`` is the one-process
+    run: the same summary and chain as the run without the flag."""
+    for var in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID",
+                "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    args = ["--config", cfg, *PARAMS, "--walkers", "8", "--steps", "6", "--burn", "2",
+            "--device", "cpu"]
+    t_main(args)
+    plain = _summary(capsys)
+    t_main(args + ["--multihost"])
+    assert _summary(capsys) == plain
 
 
 def _summary(capsys):

@@ -445,14 +445,34 @@ def test_the_other_packages_chain_directory_is_refused(writer, tmp_path, capsys)
 def test_checkpoint_refusals():
     _, logp = _gauss_logps()
     kw = dict(n_steps=10, out_dir="unused", identity={"c": 1}, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP D9, multi-GPU"):
-        ts.run_ensemble_checkpointed(0, logp, np.zeros((8, 2)), mesh=object(), **kw)
     with pytest.raises(ValueError, match="sampler_opts only apply"):
         ts.run_ensemble_checkpointed(0, logp, np.zeros((8, 2)), sampler_opts={"n_warmup": 3},
                                      **kw)
     with pytest.raises(ValueError, match="unknown NUTS"):
         ts.run_ensemble_checkpointed(0, logp, np.zeros((8, 2)), sampler="nuts",
                                      sampler_opts={"step": 0.1}, **kw)
+
+
+def test_checkpointed_chain_on_a_mesh_is_the_chain_without_one(tmp_path):
+    """``mesh=`` splits the walkers of every logp evaluation over four host
+    members: the checkpointed chain, its files and its resume are the
+    chain without a mesh, bit for bit."""
+    from bdlz_tpu_torch.parallel import make_mesh
+
+    _, logp = _gauss_logps()
+    init = 1.0 + 0.1 * np.random.default_rng(3).normal(size=(8, 2))
+    kw = dict(n_steps=12, checkpoint_every=4, identity={"c": 1}, device="cpu")
+    plain = ts.run_ensemble_checkpointed(5, logp, init, out_dir=str(tmp_path / "p"), **kw)
+    mesh = make_mesh((4, 1), devices=["cpu"] * 4)
+    meshed = ts.run_ensemble_checkpointed(5, logp, init, out_dir=str(tmp_path / "m"),
+                                          mesh=mesh, **kw)
+    np.testing.assert_array_equal(meshed.chain, plain.chain)
+    np.testing.assert_array_equal(meshed.logp_chain, plain.logp_chain)
+    assert meshed.acceptance == plain.acceptance
+    again = ts.run_ensemble_checkpointed(5, logp, init, out_dir=str(tmp_path / "m"),
+                                         mesh=mesh, **kw)
+    assert again.resumed_segments == 3
+    np.testing.assert_array_equal(again.chain, plain.chain)
 
 
 def test_sampling_exposes_jax_all():

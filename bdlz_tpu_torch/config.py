@@ -207,6 +207,44 @@ _IDENTITY_EXCLUDED = frozenset(
 )
 
 
+#: R9 validation allowlist (bdlz-lint): fields ``validate()`` takes
+#: as-given, on purpose.  These are the reference-physics inputs the
+#: reference implementation trusts verbatim — any float is a legal
+#: model point (an MCMC walker may legitimately propose extreme masses,
+#: couplings or temperatures, and clamping them here would bias the
+#: posterior), the booleans/enums among them are exercised structurally
+#: (``deplete_DM_from_source`` routes the engine via
+#: ``needs_ode_path``; ``chi_stats`` selects the occupancy kernel and
+#: any unknown value fails loudly at kernel dispatch), and
+#: ``ode_reference_step_cap`` mirrors the reference's unchecked cap.
+#: Everything NOT listed here must be checked in ``validate()`` — the
+#: linter (rule R9) enforces the exact partition, both directions: an
+#: unlisted unchecked field is a finding, and so is a listed field
+#: that ``validate()`` later grows a check for (stale exemption).
+VALIDATION_EXEMPT_FIELDS = (
+    "m_chi_GeV",
+    "g_chi",
+    "chi_stats",
+    "sigma_v_chi_GeV_m2",
+    "T_p_GeV",
+    "beta_over_H",
+    "v_w",
+    "I_p",
+    "g_star",
+    "g_star_s",
+    "P_chi_to_B",
+    "source_shape_sigma_y",
+    "Gamma_wash_over_H",
+    "incident_flux_scale",
+    "deplete_DM_from_source",
+    "T_max_over_Tp",
+    "T_min_over_Tp",
+    "Y_chi_init",
+    "n_chi_at_Tp_GeV3",
+    "m_B_GeV",
+    "ode_reference_step_cap",
+)
+
 def config_identity_dict(cfg: Config) -> Dict[str, Any]:
     """The config as an identity payload: the reference keys always, the
     result-affecting extensions always, every other extension key that

@@ -97,7 +97,7 @@ def chain_populations(
     dev = resolve_device(device)
     H, dxi = _chain_hamiltonians(profile, n_levels, dev)
     v = torch.tensor([max(float(v_w), 1e-12)], dtype=F64, device=dev)
-    P = propagate_chain(H, dxi, v)[0].cpu().numpy()
+    P = propagate_chain(H, dxi, v)[0].cpu().numpy()  # bdlz-lint: disable=R3 — layer boundary
     return np.clip(P, 0.0, 1.0)
 
 
@@ -133,7 +133,7 @@ def chain_populations_for_speeds(
     per_speed = padded_segments(dxi.shape[0]) * 8 * (2 * n) ** 2
     P = over_speed_chunks(lambda sp: propagate_chain(H, dxi, sp, eig), speeds,
                           per_speed, speed_chunk_bytes)
-    return np.clip(P.cpu().numpy(), 0.0, 1.0)[inverse]
+    return np.clip(P.cpu().numpy(), 0.0, 1.0)[inverse]  # bdlz-lint: disable=R3 — layer boundary
 
 
 def chain_probabilities_for_points(

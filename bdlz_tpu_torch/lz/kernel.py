@@ -280,11 +280,13 @@ def transfer_matrix_propagation(
             [torch.stack([a, b], dim=-1), torch.stack([b, -a], dim=-1)], dim=-2
         ).to(torch.complex128)
         Us = torch.linalg.matrix_exp(-1j * H * tau[:, None, None])
-        U_total = _ordered_tree_product(
+        # layer boundary: U goes to the host
+        U_total = _ordered_tree_product(  # bdlz-lint: disable=R3
             Us[None], torch.matmul, np.eye(2, dtype=np.complex128)
         )[0].cpu().numpy()
         return U_total, float(np.abs(U_total[1, 0]) ** 2)
-    q = propagate_quaternion(a, b, dxi, _speed(v, dev))[0].cpu().numpy()
+    # layer boundary: one speed's quaternion goes to the host
+    q = propagate_quaternion(a, b, dxi, _speed(v, dev))[0].cpu().numpy()  # bdlz-lint: disable=R3
     return _quat_to_matrix(q), float(q[1] ** 2 + q[2] ** 2)
 
 

@@ -159,7 +159,8 @@ def momentum_averaged_probability(
 
     w2d = t(wk_np)[:, None] * mu_jac * fk[:, None] * flux
     norm = torch.sum(w2d)
-    P_avg = float(torch.sum(w2d * P_nodes) / torch.clamp_min(norm, 1e-300))
+    # layer boundary: the averaged P is returned as a host float
+    P_avg = float(torch.sum(w2d * P_nodes) / torch.clamp_min(norm, 1e-300))  # bdlz-lint: disable=R3
 
     P_wall = float(P_of_speed(t([v_w]))[0])
     F_k = P_avg / P_wall if P_wall > 0.0 else float("nan")
@@ -220,4 +221,4 @@ def local_momentum_average_batch(
     w3d = wk[..., None] * mu_jac * fk[..., None] * flux
     norm = torch.sum(w3d, dim=(1, 2))
     out = torch.sum(w3d * P, dim=(1, 2)) / torch.clamp_min(norm, 1e-300)
-    return np.clip(out.cpu().numpy(), 0.0, 1.0)
+    return np.clip(out.cpu().numpy(), 0.0, 1.0)  # bdlz-lint: disable=R3 — layer boundary

@@ -62,7 +62,8 @@ def _propagated(profile: BounceProfile, speeds_np: np.ndarray, method: str,
     P_of_speed = make_P_of_speed(method, a, b, dxi, gamma_phi)
     per_speed = padded_segments(a.shape[0]) * 8 * (9 if method == "dephased" else 4)
     speeds = torch.as_tensor(speeds_np, dtype=F64, device=dev)
-    return over_speed_chunks(P_of_speed, speeds, per_speed).cpu().numpy()
+    # layer boundary: the P table goes to the sweep's host grid
+    return over_speed_chunks(P_of_speed, speeds, per_speed).cpu().numpy()  # bdlz-lint: disable=R3
 
 
 def probabilities_for_points(

@@ -179,7 +179,9 @@ def shard_global_chunk(chunk, sharding) -> list:
     out = []
     for dev, (lo, hi) in zip(mesh.local_devices, sharding.local_bounds(n)):
         out.append(_tree_map(
-            lambda a, lo=lo, hi=hi, dev=dev: torch.as_tensor(np.asarray(a)[lo:hi], device=dev),
+            # each leaf keeps its own dtype (float64 values, bool masks, int64 indices)
+            lambda a, lo=lo, hi=hi, dev=dev: torch.as_tensor(  # bdlz-lint: disable=R13
+                np.asarray(a)[lo:hi], device=dev),
             chunk))
     return out
 

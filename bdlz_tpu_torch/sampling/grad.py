@@ -83,7 +83,7 @@ def central_fd_grad(fn: Callable, theta, rel_step: float = 1e-6) -> np.ndarray:
     for i in range(D):
         pts[2 * i, i] += h[i]
         pts[2 * i + 1, i] -= h[i]
-    vals = np.asarray(torch.as_tensor(fn(pts)).detach().cpu(), dtype=np.float64)
+    vals = np.asarray(torch.as_tensor(fn(pts), dtype=F64).detach().cpu(), dtype=np.float64)
     out = np.empty(D)
     for i in range(D):
         out[i] = (float(vals[2 * i]) - float(vals[2 * i + 1])) / (2.0 * h[i])

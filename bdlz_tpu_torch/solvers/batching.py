@@ -129,7 +129,8 @@ def solve_boltzmann_esdirk_batch(
     n = int(pp.m_chi_GeV.shape[0])
     if n == 0:
         raise ValueError("empty batch")
-    host = PointParams(*(f.detach().cpu().numpy() for f in pp))
+    # the repacking plan is made on the host from the chunk's parameters
+    host = PointParams(*(f.detach().cpu().numpy() for f in pp))  # bdlz-lint: disable=R3
     if knobs is None:
         knobs = resolve_engine_knobs(static, host.I_p)
     elif knobs["tabulated_av"] and np.unique(host.I_p).size != 1:
@@ -227,7 +228,7 @@ def solve_boltzmann_esdirk_batch(
     unsort[order_t] = torch.arange(n, dtype=torch.int64, device=dev)
     sol = solution_from_state(_take(state, unsort))
     if stats is not None:
-        stats.lane_steps = sol.n_steps.cpu().numpy()
+        stats.lane_steps = sol.n_steps.cpu().numpy()  # bdlz-lint: disable=R3 — stats sink, host
     return sol
 
 

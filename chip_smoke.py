@@ -40,12 +40,16 @@ against the card's K1 engine, ``sweep_cli --sanitize --profile-dir`` and
 artifact served by the single service under 65,536 queries, mixed
 requests whose exact fallback runs K1, the 2-replica fleet with its fault
 drills, a rollout cutover under load, and ``python -m bdlz_tpu_torch.serve``
-in subprocesses).  Last the mesh (``mesh_path``): the main grid on two
+in subprocesses).  Then the mesh (``mesh_path``): the main grid on two
 members of the one card through K1 and the tabulated engine, bitwise the
 runs without a mesh; one point's sp quadrature at n_y 1,048,576;
 ``sweep_cli --multihost`` and ``mcmc_cli --multihost`` in two processes on
 the card (gloo carries their agreements), resumed; a fleet with mixed
-kernel builds refused on both processes; and a NCCL world of one.
+kernel builds refused on both processes; and a NCCL world of one.  Last
+the compile-check entry points (``graft_path``): ``entry()``'s forward step on
+the card against the CPU, timed, and ``dryrun_multichip`` on meshes of 2
+and 4 members of the one card against the same dry runs on the host, K1
+launched on every member.
 
 Every phase prints one JSON line; the card's name and power limit as
 ``nvidia-smi`` reports them and a ``kernels`` line come before the last
@@ -53,7 +57,7 @@ line, which is ``{"ok": true, "device": {...}}``.  Any failed check ends
 the script with a non-zero exit and no ``ok`` line; so does a machine
 without a CUDA device, or a directory without the port.  Imports nothing
 of JAX or of the JAX package.  ``--only host_planes,serving_path`` (or any
-of robust_path, emulator_path, sampling_path, mesh_path) runs just those phases
+of robust_path, emulator_path, sampling_path, mesh_path, graft_path) runs just those phases
 (after the build) and prints no ``ok`` line.
 """
 from __future__ import annotations
@@ -2586,12 +2590,71 @@ def phase_mesh_path(dev) -> int:
     return counts["reduce"] + multihost_launches
 
 
+# ---- graft_path: the compile-check entry points on the card ----------------
+GRAFT_RTOL = 1e-12       # the card against the host on the same call
+GRAFT_MESHES = (2, 4)    # members, all on the one card: meshes (1, 2) and (2, 2)
+
+
+def phase_graft_path(dev) -> int:
+    """The compile-check entry points (``bdlz_tpu_torch/graft_entry.py``) on the
+    card: ``entry()``'s forward step on cuda:0 against the same step on
+    the CPU and its time per call (CUDA events, median of 5); then
+    ``dryrun_multichip(n)`` for n = 2 and 4 with every member on the one
+    card, each step against the same call on host members (χ², ratios,
+    K1 ratios and the sp Y_B ≤1e-12 rel; the ESDIRK Y_B at the stiff
+    engine's card-vs-CPU tolerance) and K1 launched once per member.
+    Returns K1's launches."""
+    from bdlz_tpu_torch import graft_entry as ge
+
+    t0 = time.perf_counter()
+    fn, (pp, table) = ge.entry()
+    check(pp.m_chi_GeV.device == dev and table.values.device == dev,
+          f"entry() on the card, got {pp.m_chi_GeV.device}")
+    got = fn(pp, table)
+    cpu_fn, cpu_args = ge.entry(device="cpu")
+    r_entry = _max_rel(got.cpu().numpy(), cpu_fn(*cpu_args).numpy())
+    check(got.shape == (8,) and got.dtype == torch.float64 and r_entry <= GRAFT_RTOL,
+          f"entry() fn on the card vs the CPU {r_entry:.3e} <= {GRAFT_RTOL:g}")
+    entry_ms = _cuda_ms(lambda: fn(pp, table), reps=1, repeats=5)
+
+    runs, k1 = {}, 0
+    for n in GRAFT_MESHES:
+        t1 = time.perf_counter()
+        card, counts = _launches_around(lambda: ge.dryrun_multichip(n))
+        card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        host = ge.dryrun_multichip(n, devices="cpu")
+        host_s = time.perf_counter() - t1
+        check(counts["reduce"] == n and sum(counts.values()) == n,
+              f"dryrun({n}): one K1 launch per member and no other kernel, got {counts}")
+        check(card["mesh"] == host["mesh"] == {"dp": n // 2, "sp": 2}
+              and card["engines"] == host["engines"], f"dryrun({n}): {card['engines']}")
+        rel = {key: _max_rel(card[key], host[key])
+               for key in ("chi2", "ratios", "ratios_kernel", "YB_sp", "Y_B_esdirk")}
+        tabulated = _max_rel(card["ratios_kernel"], card["ratios"])
+        check(max(v for k, v in rel.items() if k != "Y_B_esdirk") <= GRAFT_RTOL
+              and rel["Y_B_esdirk"] <= CARD_CPU_RTOL and tabulated <= ge.KERNEL_RTOL,
+              f"dryrun({n}) card vs host {rel}, K1 vs tabulated {tabulated:.3e}")
+        k1 += counts["reduce"]
+        runs[n] = {"mesh": card["mesh"], "members": [str(dev)] * n, "batch": card["batch"],
+                   "chi2": card["chi2"], "k1_launches": counts["reduce"],
+                   "card_vs_host_max_rel": rel, "k1_vs_tabulated_max_rel": tabulated,
+                   "seconds": card_s, "host_seconds": host_s}
+    emit({"phase": "graft_path", "seconds": time.perf_counter() - t0,
+          "entry": {"points": int(got.shape[0]), "n_y": ge.ENTRY_N_Y,
+                    "table_n": ge.ENTRY_TABLE_N, "card_vs_cpu_max_rel": r_entry,
+                    "ms_median": float(np.median(entry_ms)), "ms": entry_ms},
+          "dryrun": runs, "k1_launches": k1})
+    return k1
+
+
 #: Phases that can run on their own (``--only``); such a run prints no
 #: kernels line and no ok line.
 STANDALONE = {"robust_path": phase_robust_path, "emulator_path": phase_emulator_path,
               "sampling_path": phase_sampling_path, "host_planes": phase_host_planes,
               "serving_path": phase_serving_path, "elastic_path": phase_elastic_path,
-              "fabric_path": phase_fabric_path, "mesh_path": phase_mesh_path}
+              "fabric_path": phase_fabric_path, "mesh_path": phase_mesh_path,
+              "graft_path": phase_graft_path}
 
 
 def main(argv=None) -> int:
@@ -2642,6 +2705,8 @@ def main(argv=None) -> int:
     launches["reduce"] += phase_fabric_path(dev, artifact)
     # K1 on every mesh member and every process
     launches["reduce"] += phase_mesh_path(dev)
+    # K1 on every member of the mesh dry runs
+    launches["reduce"] += phase_graft_path(dev)
     from bdlz_tpu_torch.ops import bounce_kernel as bk
 
     emit({"kernels": [{

@@ -279,3 +279,29 @@ def test_a_jax_role_and_a_port_role_refuse_each_other_s_job(tmp_path, first):
     mod1.ensure_job_record(store1(root), plan1)
     with pytest.raises(mod2.ElasticError, match="does not match"):
         mod2.ensure_job_record(store2(root), plan2)
+
+
+def _graft_call(entry, device):
+    from bdlz_tpu_torch import graft_entry
+
+    if entry == "entry":
+        fn, args = graft_entry.entry(**({} if device is None else {"device": device}))
+        return fn(*args)
+    if entry == "dryrun_multichip":
+        return graft_entry.dryrun_multichip(1, **({} if device is None else {"devices": device}))
+    proc = subprocess.run([sys.executable, "-m", "bdlz_tpu_torch.graft_entry", "1"],
+                          cwd=REPO, env=dict(_clean_env(), CUDA_VISIBLE_DEVICES=""),
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0 and "no CUDA device" in proc.stderr:
+        raise RuntimeError(proc.stderr.strip().splitlines()[-1])
+    return proc
+
+
+@pytest.mark.parametrize("entry", ["entry", "dryrun_multichip", "python -m"])
+def test_the_graft_entry_points_without_a_card_raise_unless_asked_for_the_cpu(
+        monkeypatch, capsys, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _graft_call(entry, None)
+    if entry != "python -m":  # the module's own run takes the cards only
+        assert _graft_call(entry, "cpu") is not None

@@ -27,6 +27,15 @@ With a bounce profile (``lz_profile``) or a potential (``bounce``, shot
 once into a profile), every point's P is derived from its own wall speed
 through the LZ layer on the run's device before the chunk loop.
 
+The chunk loop double-buffers, as JAX's does (``overlap_chunks``): each
+chunk is shipped from pinned host staging, enqueued, and its results'
+copies back started with one CUDA event per member
+(:meth:`SweepPlan.dispatch_local`); the host waits on those events only
+when it collects the chunk (:meth:`SweepPlan.collect_local`), after the
+next chunk has been enqueued.  :func:`make_chunk_runner` is the padded,
+clamped chunk runner the measurement tools and the tiered population
+gate stand on.
+
 Robustness, as in the JAX engine: resume directories (``manifest.json``
 and ``chunk_{ci:05d}.npz``, the JAX package's format), retry → bisect →
 quarantine under deterministic fault injection, the content-addressed
@@ -43,6 +52,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence
@@ -60,6 +70,7 @@ from bdlz_tpu_torch.config import (
 )
 from bdlz_tpu_torch.constants import GEV_TO_KG
 from bdlz_tpu_torch.ops.kjma_kernel import REDUCE_DEFAULT
+from bdlz_tpu_torch.utils.profiling import nan_debugging_enabled
 
 #: Config-key → PointParams-field mapping for sweep axes.
 AXIS_MAP: Dict[str, str] = {
@@ -388,46 +399,151 @@ def make_sweep_step(
                                   esdirk_stats_sink, mesh)
     if mesh is None:
         return step
-    return _mesh_step(step, mesh, one_call=(impl == "esdirk"))
+    return _MeshStep(step, mesh, one_call=(impl == "esdirk"))
 
 
-def _mesh_step(step, mesh, one_call: bool):
-    """``mstep(pp_np, auxes) -> YieldsResult`` of this process's rows as
-    host arrays: each local member's contiguous rows (the batch plan of
-    ``batch_sharding``) prepared and launched on its device and stream,
-    then brought back in member order.  ``one_call`` hands the whole
-    chunk to ``step`` on the first member (the repacked stiff engine,
-    which splits its rounds over the mesh itself; single-process only)."""
-    from bdlz_tpu_torch.interop import point_params_from_numpy
-    from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
-    from bdlz_tpu_torch.parallel.mesh import batch_sharding, on_stream
+class _MeshStep:
+    """The mesh step: ``mstep(pp_np, auxes) -> YieldsResult`` of this
+    process's rows as host arrays, split into :meth:`dispatch` and
+    :meth:`collect`.  Each local member's contiguous rows (the batch plan
+    of ``batch_sharding``) are shipped, launched and copied back on its
+    device and stream, with one event per member; collection waits on
+    those events in member order.  ``one_call`` hands the whole chunk to
+    ``step`` on the first member (the repacked stiff engine, which splits
+    its rounds over the mesh itself; single-process only)."""
 
-    sharding = batch_sharding(mesh)
-    flat = mesh.devices.reshape(-1)
+    def __init__(self, step, mesh, one_call: bool):
+        from bdlz_tpu_torch.parallel.mesh import batch_sharding
 
-    def mstep(pp_np, auxes):
+        self.step, self.mesh, self.one_call = step, mesh, one_call
+        self.sharding = batch_sharding(mesh)
+
+    def dispatch(self, pp_np, auxes) -> list:
+        from bdlz_tpu_torch.parallel.mesh import on_stream
+
         n = len(np.asarray(pp_np.m_chi_GeV))
-        if one_call:
-            home = mesh.local_devices[0]
-            res = step(point_params_from_numpy(pp_np, home), auxes[home])
-            return YieldsResult(*(f.cpu().numpy() for f in res))
-        launched = []
-        for k, (lo, hi) in zip(mesh.local_members, sharding.local_bounds(n)):
-            dev, s = flat[k], mesh.stream(k)
+        if self.one_call:
+            home = self.mesh.local_devices[0]
+            ppd = ship_point_params(pp_np, home)
+            return [fetch_rows(self.step(ppd, auxes[home]), n, home, ppd)]
+        flat = self.mesh.devices.reshape(-1)
+        parts = []
+        for k, (lo, hi) in zip(self.mesh.local_members, self.sharding.local_bounds(n)):
+            dev, s = flat[k], self.mesh.stream(k)
             if s is not None:
                 s.wait_stream(torch.cuda.current_stream(dev))
             with on_stream(s):
-                ppm = point_params_from_numpy(
+                ppm = ship_point_params(
                     PointParams(*(np.asarray(f)[lo:hi] for f in pp_np)), dev)
-                launched.append((s, step(ppm, auxes[dev])))
-        parts = []
-        for s, res in launched:
-            with on_stream(s):
-                parts.append([f.cpu().numpy() for f in res])
-        return YieldsResult(*(np.concatenate([p[i] for p in parts])
-                              for i in range(len(YieldsResult._fields))))
+                parts.append(fetch_rows(self.step(ppm, auxes[dev]), hi - lo, dev, ppm))
+        return parts
 
-    return mstep
+    def collect(self, pending: list):
+        from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
+
+        return YieldsResult(*collect_chunk(pending).values())
+
+    def __call__(self, pp_np, auxes):
+        return self.collect(self.dispatch(pp_np, auxes))
+
+
+class _PinnedStaging:
+    """Two pinned host slots for one device's chunk inputs: the
+    PointParams rows as one (17, n) float64 block, shipped by one
+    non-blocking copy.  A slot is refilled only after the event of its
+    last host-to-device copy has passed, so the next chunk's inputs never
+    overwrite what an earlier copy still reads."""
+
+    def __init__(self):
+        self._slots: List[list] = [[None, None], [None, None]]  # [buffer, event]
+        self._turn = 0
+
+    def ship(self, pp_np, device: torch.device) -> PointParams:
+        cols = [np.asarray(getattr(pp_np, f), dtype=np.float64).reshape(-1)
+                for f in PointParams._fields]
+        shape = (len(cols), len(cols[0]))
+        slot = self._slots[self._turn]
+        self._turn ^= 1
+        if slot[1] is not None:
+            slot[1].synchronize()
+        if slot[0] is None or tuple(slot[0].shape) != shape:
+            slot[0] = torch.empty(shape, dtype=torch.float64, pin_memory=True)
+        rows = slot[0].numpy()
+        for i, c in enumerate(cols):
+            rows[i] = c
+        on_device = slot[0].to(device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record(torch.cuda.current_stream(device))
+        return PointParams(*on_device.unbind(0))
+
+
+_STAGING = threading.local()
+
+
+def ship_point_params(pp_np, device) -> PointParams:
+    """A host chunk's PointParams on ``device``: on the card through this
+    thread's two pinned staging slots of that device, asynchronously on
+    the current stream; on the CPU as ``interop.point_params_from_numpy``."""
+    device = torch.device(device)
+    if device.type != "cuda" or nan_debugging_enabled():
+        from bdlz_tpu_torch.interop import point_params_from_numpy
+
+        return point_params_from_numpy(pp_np, device)
+    per_device = getattr(_STAGING, "slots", None)
+    if per_device is None:
+        per_device = _STAGING.slots = {}
+    staging = per_device.get(device)
+    if staging is None:
+        staging = per_device[device] = _PinnedStaging()
+    return staging.ship(pp_np, device)
+
+
+def fetch_rows(res, n_keep: int, device, keep=None):
+    """Start bringing the first ``n_keep`` rows of a step's YieldsResult
+    back: ``(rows, event, keep)``, one member's part of a dispatched
+    chunk.  On the card ``rows`` is a pinned (5, n) host block that a
+    non-blocking copy fills and ``event`` marks its end, and ``keep``
+    holds the member's device tensors until then; on the CPU ``rows``
+    are the result tensors and ``event`` is None."""
+    rows = [f[:n_keep] for f in res]
+    if torch.device(device).type != "cuda":
+        return rows, None, None
+    out = torch.stack(rows)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    # under NaN debugging every op scans its output: a pinned block still
+    # being filled must not be scanned
+    host.copy_(out, non_blocking=not nan_debugging_enabled())
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return host, event, (out, keep)
+
+
+def dispatch_chunk(engine, pp_np: PointParams, n_valid: int, device, mesh=None) -> list:
+    """Launch one engine evaluation of a padded host chunk and start
+    copying its first ``n_valid`` rows back (with a ``mesh``, this
+    process's rows of the whole padded chunk): the pending chunk, one
+    :func:`fetch_rows` part per member, which :func:`collect_chunk`
+    waits for.  On the CPU the work is done on return."""
+    if mesh is not None:
+        return engine[0].dispatch(pp_np, engine[1])
+    ppd = ship_point_params(pp_np, device)
+    return [fetch_rows(engine[0](ppd, engine[1]), n_valid, device, ppd)]
+
+
+def collect_chunk(pending: list) -> Dict[str, np.ndarray]:
+    """A dispatched chunk's rows as fresh host arrays, members in order:
+    waits on each member's event only, never on the device."""
+    from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
+
+    parts = []
+    for rows, event, _keep in pending:
+        if event is not None:
+            event.synchronize()
+        parts.append([r.numpy().copy() for r in rows])
+    if len(parts) == 1:
+        return dict(zip(YieldsResult._fields, parts[0]))
+    return {f: np.concatenate([p[i] for p in parts])
+            for i, f in enumerate(YieldsResult._fields)}
 
 
 def sweep_step(pp_chunk: PointParams, static: StaticChoices, table, mesh=None,
@@ -453,16 +569,12 @@ def evaluate_chunk(engine, pp_np: PointParams, n_valid: int, device, mesh=None
     rows as host arrays.  ``engine`` is :func:`build_chunk_engine`'s;
     with a ``mesh`` the rows are split over the members and gathered
     across processes (a collective)."""
-    from bdlz_tpu_torch.interop import point_params_from_numpy
-    from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
-
+    local = collect_chunk(dispatch_chunk(engine, pp_np, n_valid, device, mesh))
     if mesh is None:
-        res = engine[0](point_params_from_numpy(pp_np, device), engine[1])
-        return {f: getattr(res, f)[:n_valid].cpu().numpy() for f in YieldsResult._fields}
+        return local
     from bdlz_tpu_torch.parallel.multihost import gather_to_host
 
-    full = gather_to_host(dict(zip(YieldsResult._fields, engine[0](pp_np, engine[1]))))
-    return {f: v[:n_valid] for f, v in full.items()}
+    return {f: v[:n_valid] for f, v in gather_to_host(local).items()}
 
 
 def mesh_pad(n: int, mesh) -> int:
@@ -520,7 +632,7 @@ def _sweep_step_one_device(static, n_y, impl, fuse_exp, reduce, esdirk_knobs,
 
 def _clamp_chunk_to_memory(
     chunk_size: int, n_y: int, device: torch.device, impl: str,
-    quad_nodes: Optional[int] = None, mesh=None,
+    quad_nodes: Optional[int] = None, mesh=None, double_buffer: bool = False,
 ) -> int:
     """Clamp the chunk so its temporaries fit the device's free memory.
 
@@ -531,6 +643,12 @@ def _clamp_chunk_to_memory(
     is 90% of what ``torch.cuda.mem_get_info`` reports free.  CPU runs
     are never clamped.  On a mesh each member holds ``1/size`` of the
     chunk, and members that share a card share its budget.
+
+    ``double_buffer``: the overlapped chunk loop keeps a second chunk's
+    input and output rows (17 PointParams and 5 YieldsResult fields) in
+    flight while the current chunk computes, so each point costs 22 more
+    float64 values; the working set itself is not doubled, since the
+    device runs the chunks one after the other.
     """
     if device.type != "cuda":
         return chunk_size
@@ -548,6 +666,8 @@ def _clamp_chunk_to_memory(
         per_point_bytes = 20 * max(int(quad_nodes), 1) * 8
     else:
         per_point_bytes = 20 * max(int(n_y), 1) * 8
+    if double_buffer:
+        per_point_bytes += (len(PointParams._fields) + 5) * 8
     max_chunk = max(int(0.9 * free) // per_point_bytes // share, 1) * n_dev
     if chunk_size > max_chunk:
         print(
@@ -639,6 +759,54 @@ def build_chunk_engine(
     return step, (auxes[devices[0]] if mesh is None else auxes)
 
 
+def make_chunk_runner(
+    pp_all: PointParams,
+    chunk: int,
+    static: StaticChoices,
+    table,
+    impl: str = "tabulated",
+    n_y: int = 8000,
+    fuse_exp: bool = False,
+    reduce: bool = REDUCE_DEFAULT,
+    device=None,
+    mesh=None,
+):
+    """``(run_chunk, chunk)``: padded chunk evaluation over ``pp_all``, the
+    engine runner behind the measurement tools and the tiered population
+    gate, so what they measure is what the sweep runs.
+
+    ``chunk`` is memory-clamped as in :func:`run_sweep` (and, with a
+    ``mesh``, rounded up to a multiple of its members): callers step
+    their loops by the returned size.  ``table`` is a ``KJMATable`` on any
+    device (shipped to each member's device; unused by ``direct`` and the
+    stiff engines, which build the KJMA z-grid) or, with a ``mesh``,
+    ``{device: aux}`` as :func:`build_chunk_engine` builds it.
+    ``impl="kernel"`` (the JAX ``"pallas"``) runs the kernel tier of
+    ``fuse_exp``/``reduce``.  ``run_chunk(lo, hi)`` pads [lo, hi) to the
+    chunk, splits it over the members, and returns the padded
+    ``DM_over_B`` as a host array.  ``device`` defaults to the card."""
+    from bdlz_tpu_torch.solvers.panels import N_PANELS_DEFAULT, NODES_PER_PANEL_DEFAULT
+
+    dev = resolve_device(device) if mesh is None else mesh.local_devices[0]
+    quad_nodes = (N_PANELS_DEFAULT * NODES_PER_PANEL_DEFAULT
+                  if impl == "tabulated" and static.quad_panel_gl is True else None)
+    chunk = mesh_pad(_clamp_chunk_to_memory(int(chunk), n_y, dev, impl, quad_nodes, mesh),
+                     mesh)
+    if isinstance(table, dict):
+        engine = (make_sweep_step(static, n_y, impl, fuse_exp, reduce, mesh=mesh), table)
+    else:
+        # the table is given, so the engine needs no config to build one
+        engine = build_chunk_engine(None, static, n_y=n_y, impl=impl, device=dev,
+                                    fuse_exp=fuse_exp, reduce=reduce, table_np=table,
+                                    mesh=mesh)
+
+    def run_chunk(lo: int, hi: int) -> np.ndarray:
+        padded = _pad_chunk(pp_all, lo, hi, chunk)
+        return evaluate_chunk(engine, padded, chunk, dev, mesh)["DM_over_B"]
+
+    return run_chunk, chunk
+
+
 @dataclass
 class SweepPlan:
     """The resolved spec of one sweep: the engine after routing, the
@@ -675,6 +843,9 @@ class SweepPlan:
     hash: str
     #: The device mesh the chunks are split over, or None (one device).
     mesh: Any = None
+    #: Whether the chunk loop double-buffers (the clamp then counts a
+    #: second chunk's input and output rows).
+    overlap: bool = False
 
     @property
     def pad_size(self) -> int:
@@ -731,22 +902,33 @@ class SweepPlan:
             table_nodes=self.table_nodes, esdirk_knobs=self.esdirk_knobs,
             esdirk_stats_sink=esdirk_stats_sink, mesh=self.mesh)
 
+    def dispatch_local(self, engine, lo: int, hi: int) -> list:
+        """Launch this process's share of one engine evaluation over
+        [lo, hi), padded to :attr:`pad_size`: the inputs shipped from
+        pinned staging, the step enqueued, and the results' copies back
+        started, one event per member (:func:`dispatch_chunk`).  The
+        chunk step is the JAX engine's jitted program: no sanitizer
+        checkpoint inside it."""
+        from bdlz_tpu_torch import sanitize
+
+        padded = _pad_chunk(self.pp_all, lo, hi, self.pad_size)
+        with sanitize.opaque():
+            return dispatch_chunk(engine, padded, hi - lo, self.device, self.mesh)
+
+    def collect_local(self, pending: list) -> Dict[str, np.ndarray]:
+        """A dispatched chunk's rows as host arrays (:func:`collect_chunk`):
+        without a mesh the valid rows, with one the process's rows of the
+        padded chunk (:meth:`gather` brings the rest)."""
+        return collect_chunk(pending)
+
     def compute_local(self, engine, lo: int, hi: int, trace_dir: Optional[str] = None
                       ) -> Dict[str, np.ndarray]:
-        """This process's share of one engine evaluation over [lo, hi),
-        padded to :attr:`pad_size`, as host arrays: without a mesh the
-        valid rows, with one the process's rows of the padded chunk
-        (:meth:`gather` brings the rest).  The chunk step is the JAX
-        engine's jitted program: no sanitizer checkpoint inside it, one
+        """:meth:`dispatch_local` then :meth:`collect_local`, inside one
         profiler trace per call."""
-        from bdlz_tpu_torch import sanitize
         from bdlz_tpu_torch.utils.profiling import trace as profiler_trace
 
-        with profiler_trace(trace_dir), sanitize.opaque():
-            padded = _pad_chunk(self.pp_all, lo, hi, self.pad_size)
-            if self.mesh is not None:
-                return dict(zip(self.fields, engine[0](padded, engine[1])))
-            return evaluate_chunk(engine, padded, hi - lo, self.device)
+        with profiler_trace(trace_dir):
+            return self.collect_local(self.dispatch_local(engine, lo, hi))
 
     def gather(self, local: Dict[str, np.ndarray], lo: int, hi: int
                ) -> Dict[str, np.ndarray]:
@@ -799,6 +981,7 @@ def plan_sweep(
     retry=None,
     label: str = "sweep",
     mesh=None,
+    overlap_chunks: bool = True,
 ) -> SweepPlan:
     """Resolve a sweep as :func:`run_sweep` runs it: the device, the fault
     plan and retry policy, the grid (with each point's P from the LZ layer
@@ -809,7 +992,9 @@ def plan_sweep(
     With a ``mesh`` the chunk size is rounded up to a multiple of its
     members and the device is its first local member.  Across processes
     the chunk size is the coordinator's and the kernels' library digest
-    is agreed (:func:`agree_kernel_digest`)."""
+    is agreed (:func:`agree_kernel_digest`).  ``overlap_chunks`` asks
+    for the double-buffered loop, which every engine but ``esdirk`` runs
+    (the clamp then adds one chunk's IO rows)."""
     from bdlz_tpu_torch.faults import FaultPlan
     from bdlz_tpu_torch.ops.kjma_table import make_f_table
     from bdlz_tpu_torch.solvers.panels import N_PANELS_DEFAULT, NODES_PER_PANEL_DEFAULT
@@ -841,7 +1026,9 @@ def plan_sweep(
     static = static._replace(quad_panel_gl=quad_on)
     quad_nodes = N_PANELS_DEFAULT * NODES_PER_PANEL_DEFAULT if quad_on else None
     esdirk_knobs = _engine_knobs(static, pp_all) if impl == "esdirk" else None
-    chunk_size = _clamp_chunk_to_memory(int(chunk_size), n_y, dev, impl, quad_nodes, mesh)
+    overlap = bool(overlap_chunks) and impl != "esdirk"
+    chunk_size = _clamp_chunk_to_memory(int(chunk_size), n_y, dev, impl, quad_nodes, mesh,
+                                        double_buffer=overlap)
     # a per-host clamp must not split the fleet on chunk counts
     chunk_size = int(np.asarray(broadcast_from_coordinator(np.array([chunk_size])))[0])
     if impl == "kernel":
@@ -859,6 +1046,7 @@ def plan_sweep(
         quad_nodes=quad_nodes, esdirk_knobs=esdirk_knobs, fuse_exp=bool(fuse_exp),
         reduce=bool(reduce), hash_extra=hash_extra,
         hash=grid_hash(base, axes, n_y, impl, extra=hash_extra or None), mesh=mesh,
+        overlap=overlap,
     )
 
 
@@ -907,10 +1095,23 @@ def run_sweep(
     cache=None,
     trace_dir: Optional[str] = None,
     mesh=None,
+    overlap_chunks: bool = True,
 ) -> SweepResult:
     """Run a full sweep on one device or a mesh: route the engine, resolve
     the quadrature, then evaluate chunk by chunk — resuming, healing and
     caching as the JAX engine does.
+
+    **Double buffering.** With ``overlap_chunks`` (the default, as in the
+    JAX engine) chunk k+1 is padded, shipped from pinned staging and
+    enqueued while chunk k still runs; the host blocks only when it
+    collects chunk k, on that chunk's events.  At most one chunk is in
+    flight and chunks are collected in index order, so events, fault
+    hooks, chunk files, the manifest, the store and the counters are the
+    serial loop's.  A resumed or cached chunk drains the buffer first; a
+    failed dispatch drains it and heals the chunk serially; a failure
+    that surfaces at collection (an asynchronous device error) is healed
+    there.  ``trace_dir`` and ``impl="esdirk"`` run the serial loop.  The
+    argument does not join the grid hash.
 
     ``mesh`` (``parallel/mesh.make_mesh``) splits every chunk over its
     members: the chunk size is rounded up to a multiple of them, each
@@ -986,8 +1187,10 @@ def run_sweep(
         base, axes, static, chunk_size=chunk_size, n_y=n_y, impl=impl, fuse_exp=fuse_exp,
         reduce=reduce, device=device, table_nodes=table_nodes, lz_profile=lz_profile,
         lz_method=lz_method, lz_gamma_phi=lz_gamma_phi, bounce=bounce,
-        fault_plan=fault_plan, retry=retry, mesh=mesh)
+        fault_plan=fault_plan, retry=retry, mesh=mesh,
+        overlap_chunks=overlap_chunks and trace_dir is None)
     dev, faults, impl = plan.device, plan.faults, plan.impl
+    overlap = plan.overlap
     n_total, chunk_size, n_chunks = plan.n_total, plan.chunk_size, plan.n_chunks
     fields = plan.fields
     h = plan.hash
@@ -1190,11 +1393,50 @@ def run_sweep(
         masks.append(bad)
         qmasks.append(q)
 
+    def _heal(ci, lo, hi, err, paid):
+        return heal_range(
+            ci, lo, hi, err, attempt=_attempt, quarantine=_quarantine,
+            policy=retry_policy, budget=[heal_budget(hi - lo, retry_policy.max_attempts)],
+            paid=paid, fields=fields, on_retry=_on_retry)
+
+    def _finish(entry):
+        """Collect one dispatched chunk (healing a failure that surfaces
+        here, agreed fleet-wide first), then count, log and keep it."""
+        ci, lo, hi = entry["ci"], entry["lo"], entry["hi"]
+        paid = entry["paid"]
+        host, q = entry.get("host"), entry.get("q")
+        if host is None:
+            local, err = entry.get("local"), None
+            if local is None:
+                try:
+                    local = plan.collect_local(entry.pop("pending"))
+                except Exception as exc:  # noqa: BLE001 — healed below
+                    if not heal_on or isinstance(exc, FloatingPointError):
+                        raise
+                    err = exc
+                if heal_on and multiproc and not _agree_ok(err is None) and err is None:
+                    err = RuntimeError("chunk gather failed on another process")
+            if err is None:
+                host = plan.gather(local, lo, hi)
+            else:
+                host, q = _heal(ci, lo, hi, err, paid)
+        if q is None:
+            q = np.zeros(hi - lo, dtype=bool)
+        _collect(ci, lo, hi, host, q, entry["t0"], paid=paid[0])
+
+    # at most one dispatched, uncollected chunk; collected in index order
+    inflight: List[Dict[str, Any]] = []
+
+    def _drain():
+        while inflight:
+            _finish(inflight.pop())
+
     resumed = 0
     t0 = time.perf_counter()
     for ci in range(n_chunks):
         lo, hi = plan.chunk_bounds(ci)
         if ci in resumed_data:
+            _drain()
             got = resumed_data[ci]
             resumed += 1
             totals["failed"] += got["n_failed"]
@@ -1207,34 +1449,40 @@ def run_sweep(
             continue
         t_chunk = time.time()
         if ci in cache_data:
+            _drain()
             ent = cache_data[ci]
             qm = ent.get("quarantined")
             _collect(ci, lo, hi, {f: ent[f] for f in fields},
                      np.zeros(hi - lo, bool) if qm is None else np.asarray(qm, bool),
                      t_chunk, paid=int(ent.get("n_retries", 0)), cached=True)
             continue
-        q = np.zeros(hi - lo, dtype=bool)
-        paid = [0]
-        local, err = None, None
+        entry: Dict[str, Any] = {"ci": ci, "lo": lo, "hi": hi, "t0": t_chunk, "paid": [0]}
+        err = None
         try:
             if faults is not None:
                 faults.fire("step", ci)
                 faults.check_range("step", lo, hi)
-            local = plan.compute_local(engine, lo, hi, trace_dir=trace_dir)
+            if overlap:
+                entry["pending"] = plan.dispatch_local(engine, lo, hi)
+            else:
+                entry["local"] = plan.compute_local(engine, lo, hi, trace_dir=trace_dir)
         except Exception as exc:  # noqa: BLE001 — healed below
             if not heal_on or isinstance(exc, FloatingPointError):
                 raise
             err = exc
         if heal_on and multiproc and not _agree_ok(err is None) and err is None:
             err = RuntimeError("chunk dispatch failed on another process")
-        if err is None:
-            host = plan.gather(local, lo, hi)
+        # chunk k-1 is collected while chunk k runs; a failed dispatch
+        # drains the buffer to serial before its chunk heals
+        _drain()
+        if err is not None:
+            entry.pop("pending", None)
+            entry["host"], entry["q"] = _heal(ci, lo, hi, err, entry["paid"])
+        if overlap and err is None:
+            inflight.append(entry)
         else:
-            host, q = heal_range(
-                ci, lo, hi, err, attempt=_attempt, quarantine=_quarantine,
-                policy=retry_policy, budget=[heal_budget(hi - lo, retry_policy.max_attempts)],
-                paid=paid, fields=fields, on_retry=_on_retry)
-        _collect(ci, lo, hi, host, q, t_chunk, paid=paid[0])
+            _finish(entry)
+    _drain()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0

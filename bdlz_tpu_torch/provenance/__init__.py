@@ -5,10 +5,12 @@ from bdlz_tpu_torch.provenance.identity import (  # noqa: F401
     SCHEMA_VERSION,
     Identity,
     array_part,
+    bench_leg_identity,
     config_payload,
     emulator_artifact_identity,
     mcmc_segment_identity,
     multidomain_artifact_identity,
+    package_source_fingerprint,
     refcache_identity,
     reference_code_fingerprint,
     static_payload,

@@ -18,8 +18,8 @@ The ``kind`` tag is not hashed.  The MCMC segment identity carries one
 key of the port's own, the random stream, so that a chain directory of one
 package is never resumed by the other.  The traffic-snapshot identity is
 byte-equal to the JAX package's, so a snapshot saved by either package
-loads in the other.  The JAX package's bench-leg and package-source
-fingerprints have no counterpart (the port has no bench script yet).
+loads in the other, and so is the bench-leg identity.  The package-source
+fingerprint hashes the port's own sources, its CUDA kernels included.
 """
 from __future__ import annotations
 
@@ -220,6 +220,18 @@ def mcmc_segment_identity(
     return Identity("mcmc_segment", (("json", payload),))
 
 
+def bench_leg_identity(leg: str, context: Mapping[str, Any]) -> Identity:
+    """One bench leg's result key: the leg name and the measurement
+    context (platform, device count, the ``BDLZ_*`` environment and a
+    source fingerprint, so that a code change re-measures everything).
+    The JAX package's payload, so equal inputs give its digest."""
+    return Identity(
+        "bench_leg",
+        (("json", {"schema": SCHEMA_VERSION, "leg": str(leg),
+                   "context": dict(context)}),),
+    )
+
+
 def traffic_snapshot_identity(
     axis_names: Sequence[str],
     locations: Any,
@@ -273,6 +285,32 @@ def reference_code_fingerprint() -> str:
         bdlz_tpu_torch.physics.source, bdlz_tpu_torch.physics.thermo,
         bdlz_tpu_torch.solvers.panels, bdlz_tpu_torch.solvers.quadrature,
     ))
+
+
+def package_source_fingerprint(*extra_paths: str) -> str:
+    """Hash (16 hex chars) of every ``*.py`` under ``bdlz_tpu_torch/``
+    and every CUDA source in its ``csrc/``, plus the existing
+    ``extra_paths`` files: paths relative to the package root, then the
+    bytes, in sorted order.  For identities that must go stale on any code
+    change; the kernels are ``.cu`` files here, so they are hashed too."""
+    import os
+
+    import bdlz_tpu_torch
+
+    pkg_root = os.path.dirname(os.path.abspath(bdlz_tpu_torch.__file__))
+    files = []
+    for dirpath, _dirnames, filenames in os.walk(pkg_root):
+        files.extend(os.path.join(dirpath, fn) for fn in filenames
+                     if fn.endswith(".py")
+                     or (fn.endswith(".cu") and os.path.basename(dirpath) == "csrc"))
+    files.sort()
+    files.extend(p for p in extra_paths if os.path.exists(p))
+    h = hashlib.sha256()
+    for path in files:
+        h.update(os.path.relpath(path, pkg_root).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
 
 
 def refcache_identity(grid, static, n_y: "int | None",

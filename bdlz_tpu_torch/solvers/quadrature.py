@@ -129,3 +129,59 @@ def integrate_YB_quadrature_tabulated(
     return _integrate(
         pp, n_y, lambda ys: yb_integrand_tabulated(ys, pp, chi_stats, table)
     )
+
+
+def integrand_stream_probe(pp: PointParams, static, table, n_y: int = 8000, device=None):
+    """Per-stage intermediates of the tabulated fast path, for error
+    attribution (``bdlz_tpu/solvers/quadrature.py:147``): the same pieces
+    as :func:`yb_integrand_tabulated` on the same y-grid, returned apart
+    under the JAX probe's keys — ``thermo_prefactor`` (J/(s·H·T)·|dT/dy|),
+    ``source_window``, ``area_over_volume``, ``integrand`` (from the real
+    fast-path function) and ``trapezoid_YB`` — as float64 tensors on
+    ``device``, (P, n_y) per stage and (P,) for the sum.  ``pp`` holds
+    scalars or (P,) columns (host or device); ``table`` is a
+    ``KJMATable`` on any device.  ``device`` defaults to the card.  A
+    re-derivation that drifts from the fast path by more than 1e-12
+    raises."""
+    from bdlz_tpu_torch.backend import resolve_device
+    from bdlz_tpu_torch.ops.kjma_table import area_over_volume_tabulated, table_to_device
+
+    dev = resolve_device(device)
+    pp = PointParams(*(torch.atleast_1d(torch.as_tensor(f, dtype=F64, device=dev))
+                       for f in pp))
+    table = table_to_device(table, dev)
+    n_y = max(int(n_y), 2000)
+    y_lo, y_hi = quadrature_bounds(pp)
+    ys = linspace_rows(y_lo, y_hi, n_y)
+    c = _columns(pp)
+
+    B_safe = torch.clamp_min(c.beta_over_H, 1e-30)
+    denom = torch.clamp_min(1.0 + 2.0 * ys / B_safe, 1e-12)
+    Ts = c.T_p_GeV / torch.sqrt(denom)
+    dTdy = -(c.T_p_GeV / B_safe) * denom ** (-1.5)
+    Hs = hubble_rate(Ts, c.g_star)
+    ss = entropy_density(Ts, c.g_star_s)
+    Js = (
+        c.flux_scale
+        * 0.25
+        * n_chi_equilibrium(Ts, c.m_chi_GeV, c.g_chi, static.chi_stats)
+        * mean_speed_chi(Ts, c.m_chi_GeV)
+    )
+    Av = area_over_volume_tabulated(ys, c.beta_over_H, c.T_p_GeV, c.v_w, c.g_star, table)
+    W = source_window(ys, c.sigma_y)
+    integrand = yb_integrand_tabulated(ys, pp, static.chi_stats, table)
+    recombined = c.P * Js * Av * W / (ss * Hs * Ts) * torch.abs(dTdy)
+    scale = torch.clamp_min(torch.amax(torch.abs(integrand)), 1e-300)
+    mismatch = float(torch.amax(torch.abs(recombined - integrand)) / scale)  # bdlz-lint: disable=R3 — probe-only consistency guard
+    if mismatch > 1e-12:
+        raise RuntimeError(
+            f"probe stages diverged from yb_integrand_tabulated by "
+            f"{mismatch:.3e} — update integrand_stream_probe to match"
+        )
+    return {
+        "thermo_prefactor": Js / (ss * Hs * Ts) * torch.abs(dTdy),
+        "source_window": W,
+        "area_over_volume": Av,
+        "integrand": integrand,
+        "trapezoid_YB": trapezoid(integrand, ys),
+    }

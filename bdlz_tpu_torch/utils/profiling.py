@@ -340,6 +340,11 @@ def enable_nan_debugging(enable: bool = True) -> None:
         mode.__exit__(None, None, None)
 
 
+def nan_debugging_enabled() -> bool:
+    """Whether :func:`enable_nan_debugging` is armed in this thread."""
+    return _NAN_MODE["mode"] is not None
+
+
 def check_kernel_output(kernel: str, out: torch.Tensor) -> None:
     """Under :func:`enable_nan_debugging`, raise when a hand kernel wrote
     a NaN (its launch bypasses the dispatcher, so the mode cannot see

@@ -21,6 +21,8 @@ from typing import Any, Dict, NamedTuple
 
 import numpy as np
 
+from bdlz_tpu_torch.ops.kjma_kernel import REDUCE_DEFAULT
+
 
 class AuditPopulation(NamedTuple):
     grid: Any                     # PointParams, product=False flat grid
@@ -352,31 +354,22 @@ def population_max_rel(run_chunk, chunk: int, ref: np.ndarray) -> float:
 
 
 def engine_population_max_rel(
-    pop_grid, ref: np.ndarray, static, table, *, impl: str, n_y: int, device=None,
-    mesh=None,
+    pop_grid, ref: np.ndarray, static, table, *, impl: str, n_y: int, fuse_exp: bool = False,
+    reduce: bool = REDUCE_DEFAULT, device=None, mesh=None,
 ) -> float:
-    """Run the sweep engine ``impl`` over the population grid in one
-    chunk on ``device`` (``table`` is its aux: the device F-table, or the
-    KJMA z-grid for ``direct``) and measure :func:`population_max_rel`.
-    With a ``mesh`` the chunk is padded to a multiple of its members and
-    split over them (``table`` is then ``{device: aux}``, as
-    ``parallel.sweep.build_chunk_engine`` builds it)."""
-    from bdlz_tpu_torch.backend import resolve_device
-    from bdlz_tpu_torch.interop import point_params_from_numpy
-    from bdlz_tpu_torch.parallel.sweep import _pad_chunk, evaluate_chunk, make_sweep_step, mesh_pad
+    """Build the engine's chunk runner over the population grid
+    (``parallel.sweep.make_chunk_runner``: the whole population in one
+    chunk, padded to a multiple of the mesh's members, unless the memory
+    clamp cuts it) and measure :func:`population_max_rel`.  ``impl`` with
+    ``fuse_exp``/``reduce`` picks the engine and, for ``"kernel"``, its
+    tier (K1–K4); ``table`` is the F-table on any device, or with a
+    ``mesh`` ``{device: aux}`` as ``build_chunk_engine`` builds it."""
+    from bdlz_tpu_torch.parallel.sweep import make_chunk_runner, mesh_pad
 
-    dev = resolve_device(device) if mesh is None else mesh.local_devices[0]
-    step = make_sweep_step(static, n_y, impl, mesh=mesh)
-    n = int(ref.shape[0])
-
-    def run_chunk(lo, hi):
-        if mesh is not None:
-            padded = _pad_chunk(pop_grid, lo, hi, mesh_pad(hi - lo, mesh))
-            return evaluate_chunk((step, table), padded, hi - lo, dev, mesh)["DM_over_B"]
-        pp = type(pop_grid)(*(np.asarray(f)[lo:hi] for f in pop_grid))
-        return step(point_params_from_numpy(pp, dev), table).DM_over_B.cpu().numpy()
-
-    return population_max_rel(run_chunk, n, ref)
+    run_chunk, chunk = make_chunk_runner(
+        pop_grid, mesh_pad(int(ref.shape[0]), mesh), static, table, impl=impl, n_y=n_y,
+        fuse_exp=fuse_exp, reduce=reduce, device=device, mesh=mesh)
+    return population_max_rel(run_chunk, chunk, ref)
 
 
 def reference_ratios(grid, static, n_y: "int | None" = None) -> np.ndarray:

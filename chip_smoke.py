@@ -12,7 +12,12 @@ Then it drives the paths that hold no hand kernel: the stiff Boltzmann
 sweep (the lane-repacking ESDIRK engine on a 1024-point washout grid),
 the audited panel Gauss–Legendre quadrature of the tabulated sweep, and
 the single-point CLI (``python -m bdlz_tpu_torch``) in a subprocess.
-Last come the bounce solver, whose shoot is one hand-written kernel
+Before those, ``overlap_path`` runs the main grid through K1 with the
+sweep's double-buffered chunk loop and with the serial loop, in turns
+(bitwise equal outputs, points/s, and under the profiler each side's
+device busy share, idle gaps between chunks and peak memory), and the
+tiered population gate through ``make_chunk_runner`` for K1-K4.
+Then come the bounce solver, whose shoot is one hand-written kernel
 (``bounce_path``: a depth-k bisection tree per lane, against its plain
 version, against the JAX package's reference shoot and bit for bit
 against the one-thread-per-lane kernel; the audit, batch against loop,
@@ -57,7 +62,8 @@ line, which is ``{"ok": true, "device": {...}}``.  Any failed check ends
 the script with a non-zero exit and no ``ok`` line; so does a machine
 without a CUDA device, or a directory without the port.  Imports nothing
 of JAX or of the JAX package.  ``--only host_planes,serving_path`` (or any
-of robust_path, emulator_path, sampling_path, mesh_path, graft_path) runs just those phases
+of overlap_path, robust_path, emulator_path, sampling_path, mesh_path,
+graft_path, elastic_path, fabric_path) runs just those phases
 (after the build) and prints no ``ok`` line.
 """
 from __future__ import annotations
@@ -2648,9 +2654,146 @@ def phase_graft_path(dev) -> int:
     return k1
 
 
+OVERLAP_RUNS = 5           # main-grid runs per side, taken in turns
+N_GATE = 1024              # the tiered gate's audit population
+GATE_RTOL = 1e-10          # each kernel tier against the tabulated engine
+
+
+def _device_timeline(prof) -> dict:
+    """Device activity of a ``torch.profiler`` run: busy time, the idle
+    gaps between merged device intervals (the three largest, with where
+    they fall and the device work on either side), and at each
+    device-to-host copy but the last (the chunk boundaries) the gap to
+    the next device work and how many kernels the host had already
+    launched that had not yet started on the device."""
+    from torch.autograd import DeviceType
+
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    launches = sorted(e.time_range.start for e in prof.events()
+                      if e.device_type == DeviceType.CPU and e.name.startswith("cudaLaunchKernel"))
+    kernel_starts = sorted(start for start, _, name in events
+                           if "Memcpy" not in name and "Memset" not in name)
+    merged = []
+    for start, end, name in events:
+        if merged and start <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], end)
+            merged[-1][3] = name
+        else:
+            merged.append([start, end, name, name])
+    gaps = sorted(((b[0] - a[1], a[1], a[3], b[2]) for a, b in zip(merged, merged[1:])),
+                  reverse=True)
+    t_first = merged[0][0] if merged else 0.0
+    boundary, ahead = [], []
+    d2h = [end for _, end, name in events if "DtoH" in name]
+    for end in d2h[:-1]:
+        later = [m[0] for m in merged if m[0] >= end]
+        if later:
+            boundary.append((later[0] - end) / 1e3)
+        ahead.append(sum(1 for t in launches if t < end)
+                     - sum(1 for t in kernel_starts if t < end))
+    return {"busy_ms": sum(m[1] - m[0] for m in merged) / 1e3,
+            "span_ms": (merged[-1][1] - t_first) / 1e3 if merged else 0.0,
+            "largest_idle_gap_ms": gaps[0][0] / 1e3 if gaps else 0.0,
+            "idle_ms": sum(g[0] for g in gaps) / 1e3, "d2h_copies": len(d2h),
+            "largest_gaps": [{"ms": g / 1e3, "at_ms": (t - t_first) / 1e3,
+                              "after": a[:64], "before": b[:64]} for g, t, a, b in gaps[:3]],
+            "chunk_boundary_gaps_ms": boundary,
+            "kernels_enqueued_ahead_at_d2h_end": ahead}
+
+
+def phase_overlap_path(dev) -> dict:
+    """The sweep's double-buffered chunk loop on the main grid (32768
+    points in 4 chunks of 8192, n_y 8000, K1) against the serial loop,
+    in turns, 5 runs each: outputs bitwise equal, points/s per side, and
+    under ``torch.profiler`` each side's device busy share, largest idle
+    gap, chunk-boundary gaps and peak memory.  Then the tiered population
+    gate (``validation.engine_population_max_rel`` through
+    ``parallel.sweep.make_chunk_runner``) for K1-K4 on 1024 audit points
+    against the tabulated engine.  Returns each kernel's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
+    from bdlz_tpu_torch.ops import kjma_kernel as kk
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table, table_to_device
+    from bdlz_tpu_torch.parallel.sweep import make_chunk_runner, run_sweep
+    from bdlz_tpu_torch.validation import build_audit_population, engine_population_max_rel
+
+    t0 = time.perf_counter()
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    kw = dict(impl="kernel", chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev)
+    launches = dict.fromkeys(kk.LAUNCHES, 0)
+
+    def run(overlap):
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, counts = _launches_around(lambda: run_sweep(base, MAIN_AXES, static,
+                                                         overlap_chunks=overlap, **kw))
+        check(counts["reduce"] == 4 and sum(counts.values()) == 4,
+              f"overlap={overlap}: 4 K1 launches and no other kernel, got {counts}")
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+        return res, counts["reduce"], torch.cuda.max_memory_allocated(dev)
+
+    first, _, _ = run(False)
+    ref = first.outputs
+    sides = {True: {"pps": [], "k1": [], "peak": []}, False: {"pps": [], "k1": [], "peak": []}}
+    for _ in range(OVERLAP_RUNS):
+        for overlap in (True, False):
+            res, k1, peak = run(overlap)
+            check(res.n_failed == 0 and res.chunks == 4, f"overlap={overlap}: 4 chunks, finite")
+            check(all(res.outputs[f].tobytes() == ref[f].tobytes() for f in ref),
+                  f"overlap={overlap}: outputs bitwise the first serial run's")
+            sides[overlap]["pps"].append(res.points_per_sec)
+            sides[overlap]["k1"].append(k1)
+            sides[overlap]["peak"].append(peak)
+    out = {}
+    for overlap in (True, False):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res, _, peak = run(overlap)
+        tl = _device_timeline(prof)
+        side = sides[overlap]
+        out["overlap" if overlap else "serial"] = {
+            "points_per_sec_median": float(np.median(side["pps"])),
+            "points_per_sec_samples": side["pps"], "k1_launches_per_run": side["k1"],
+            "peak_mem_bytes": max(side["peak"]),
+            "profiled": {"wall_ms": res.seconds * 1e3,
+                         "device_busy_share": tl["busy_ms"] / (res.seconds * 1e3),
+                         "peak_mem_bytes": peak, **tl}}
+    gain = (out["overlap"]["points_per_sec_median"] / out["serial"]["points_per_sec_median"])
+
+    # the tiered gate through the chunk runner, against the tabulated engine
+    pop = build_audit_population(base, N_GATE)
+    gstatic = static._replace(quad_panel_gl=False)
+    table = table_to_device(make_f_table(base.I_p, n=TABLE_N), dev)
+    ref_run, ref_chunk = make_chunk_runner(pop.grid, N_GATE, gstatic, table,
+                                           impl="tabulated", n_y=N_Y, device=dev)
+    check(ref_chunk == N_GATE, f"tabulated runner chunk {ref_chunk}")
+    ref_pop = ref_run(0, N_GATE)
+    gates = {}
+    for name, (fuse_exp, reduce) in TIERS.items():
+        t1 = time.perf_counter()
+        rel, counts = _launches_around(lambda: engine_population_max_rel(
+            pop.grid, ref_pop, gstatic, table, impl="kernel", n_y=N_Y, fuse_exp=fuse_exp,
+            reduce=reduce, device=dev))
+        check(counts[name] == 1 and sum(counts.values()) == 1,
+              f"gate {name}: one launch of its kernel, got {counts}")
+        check(rel <= GATE_RTOL, f"gate {name}: {rel:.3e} <= {GATE_RTOL:g}")
+        launches[name] += counts[name]
+        gates[name] = {"max_rel_vs_tabulated": rel, "launches": counts[name],
+                       "seconds": time.perf_counter() - t1}
+    emit({"phase": "overlap_path", "points": first.n_points, "chunk": N_POINTS, "n_y": N_Y,
+          "table_n": TABLE_N, "runs_per_side": OVERLAP_RUNS, "outputs_bitwise": True,
+          "sides": out, "rate_ratio_overlap_over_serial": gain,
+          "gate": {"population": N_GATE, "tiers": gates},
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 #: Phases that can run on their own (``--only``); such a run prints no
 #: kernels line and no ok line.
-STANDALONE = {"robust_path": phase_robust_path, "emulator_path": phase_emulator_path,
+STANDALONE = {"overlap_path": phase_overlap_path,
+              "robust_path": phase_robust_path, "emulator_path": phase_emulator_path,
               "sampling_path": phase_sampling_path, "host_planes": phase_host_planes,
               "serving_path": phase_serving_path, "elastic_path": phase_elastic_path,
               "fabric_path": phase_fabric_path, "mesh_path": phase_mesh_path,
@@ -2687,6 +2830,10 @@ def main(argv=None) -> int:
     timing, sweep_pps = phase_timing(dev, streams, table)
     del streams
     phase_profile(dev)
+    # K1 through the double-buffered and the serial loop, K1-K4 through
+    # the chunk runner's tiered gate
+    for name, n in phase_overlap_path(dev).items():
+        launches[name] += n
     phase_stiff_path(dev)
     phase_panel_path(dev, sweep_pps)
     phase_cli(dev)

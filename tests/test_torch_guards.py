@@ -18,6 +18,19 @@ PORT_FILES = sorted((REPO / "bdlz_tpu_torch").rglob("*.py")) + [
 FORBIDDEN = ("jax", "jaxlib", "bdlz_tpu")
 
 
+@pytest.fixture(autouse=True)
+def _disarm():
+    """A CLI called with ``--sanitize`` or ``--debug-nans`` that raises
+    (no card) leaves the port's sanitizer or NaN check armed in this
+    process; later tests in the same worker must not inherit it."""
+    yield
+    from bdlz_tpu_torch import sanitize
+    from bdlz_tpu_torch.utils.profiling import enable_nan_debugging
+
+    sanitize.disable()
+    enable_nan_debugging(False)
+
+
 def _imported_roots(path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -305,3 +318,33 @@ def test_the_graft_entry_points_without_a_card_raise_unless_asked_for_the_cpu(
         _graft_call(entry, None)
     if entry != "python -m":  # the module's own run takes the cards only
         assert _graft_call(entry, "cpu") is not None
+
+
+def _measurement_call(name, device):
+    from bdlz_tpu_torch.config import (
+        config_from_dict,
+        point_params_from_config,
+        static_choices_from_config,
+    )
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table
+    from bdlz_tpu_torch.parallel.sweep import build_grid, make_chunk_runner
+    from bdlz_tpu_torch.solvers.quadrature import integrand_stream_probe
+
+    base = config_from_dict({"P_chi_to_B": 0.15})
+    static = static_choices_from_config(base)._replace(quad_panel_gl=False)
+    table = make_f_table(base.I_p, n=4096)
+    if name == "make_chunk_runner":
+        run, chunk = make_chunk_runner(build_grid(base, {"m_chi_GeV": [0.5, 1.0]}), 2,
+                                       static, table, impl="kernel", n_y=2000, device=device)
+        return run(0, chunk)
+    return integrand_stream_probe(point_params_from_config(base, base.P_chi_to_B), static,
+                                  table, n_y=2000, device=device)
+
+
+@pytest.mark.parametrize("name", ["make_chunk_runner", "integrand_stream_probe"])
+def test_the_measurement_entry_points_without_a_card_raise_unless_asked_for_the_cpu(
+        monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _measurement_call(name, None)
+    assert _measurement_call(name, "cpu") is not None

@@ -557,3 +557,49 @@ def test_sp_quadrature_on_the_card_matches_the_cpu(cuda):
         pp, table)
     assert got.device.type == "cuda"
     assert abs(float(got) / float(ref) - 1.0) <= 1e-12
+
+
+def test_the_overlapped_k1_sweep_is_bitwise_the_serial_one_on_the_card(cuda):
+    """The double-buffered loop (pinned staging, one chunk in flight, one
+    event per chunk) against the serial loop on the main grid's axes at a
+    reduced size: 4096 points in 4 chunks, K1 once per chunk on each."""
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 64), "T_p_GeV": np.geomspace(30.0, 300.0, 32),
+            "v_w": np.linspace(0.05, 0.95, 2)}
+    kw = dict(chunk_size=1024, n_y=N_Y, impl="kernel", device=cuda)
+    runs = []
+    for overlap in (True, False, True):
+        kk.reset_launches()
+        runs.append(run_sweep(base, axes, static, overlap_chunks=overlap, **kw))
+        assert kk.LAUNCHES == {k: (4 if k == "reduce" else 0) for k in kk.LAUNCHES}
+    assert runs[0].n_failed == 0 and runs[0].chunks == 4
+    for f, v in runs[1].outputs.items():
+        assert runs[0].outputs[f].tobytes() == v.tobytes() == runs[2].outputs[f].tobytes(), f
+
+
+@pytest.mark.parametrize("tier", sorted(TIER_ARGS))
+def test_make_chunk_runner_launches_exactly_its_tier_s_kernel(tier, setup, cuda):
+    """One launch of the tier's kernel per chunk and none of the others;
+    the tiered gate through the runner does the same over its population."""
+    from bdlz_tpu_torch.parallel.sweep import make_chunk_runner
+    from bdlz_tpu_torch.validation import engine_population_max_rel
+
+    base, table, _ = setup
+    static = static_choices_from_config(base)
+    fuse_exp, reduce = TIER_ARGS[tier]
+    grid = build_grid(base, {"m_chi_GeV": np.geomspace(0.1, 10.0, 48)})
+    kk.reset_launches()
+    run, chunk = make_chunk_runner(grid, 16, static, table, impl="kernel", n_y=N_Y,
+                                   fuse_exp=fuse_exp, reduce=reduce, device=cuda)
+    got = np.concatenate([run(lo, lo + chunk) for lo in range(0, 48, chunk)])
+    assert chunk == 16 and got.shape == (48,) and np.isfinite(got).all()
+    assert kk.LAUNCHES == {k: (3 if k == tier else 0) for k in kk.LAUNCHES}
+    ref_run, _ = make_chunk_runner(grid, 48, static, table, impl="tabulated", n_y=N_Y,
+                                   device=cuda)
+    ref = ref_run(0, 48)
+    kk.reset_launches()
+    gate = engine_population_max_rel(grid, ref, static, table, impl="kernel", n_y=N_Y,
+                                     fuse_exp=fuse_exp, reduce=reduce, device=cuda)
+    assert kk.LAUNCHES == {k: (1 if k == tier else 0) for k in kk.LAUNCHES}
+    assert gate <= 1e-10

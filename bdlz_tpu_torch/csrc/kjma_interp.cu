@@ -44,9 +44,15 @@
 // ~25 flop/node (plus one exp in the fused kernels), is far below the
 // FP64 peak.  One block per SM walks the points grid-stride, so the table
 // is loaded 132 times rather than P times; 1024 threads per block stride
-// over the nodes with coalesced loads.  End to end, the host-side stream
-// prep in PyTorch (~20 f64 (P, n_y) passes), not this kernel, is expected
-// to dominate; fusing the prep into the kernel is later work.
+// over the nodes with coalesced loads.  That bound counts only the
+// streams, and the streams exist only because the TPU's design splits the
+// function in two: the host-side stream prep in PyTorch (~20 f64 (P, n_y)
+// passes) costs ~20x this kernel.  The reduce tiers therefore no longer
+// come here: csrc/kjma_point.cu computes the prep in registers from
+// per-point scalars (ops/kjma_kernel.point_reduce).  kjma_interp_reduce
+// and kjma_interp_fused_reduce stay as the stream-input forms of K1 and
+// K3, held against their plain versions; the sweep's stream tiers
+// (reduce=False) run the two stream kernels here.
 
 #include <cuda_runtime.h>
 

@@ -28,7 +28,7 @@ criterion by the served-query density of a ``traffic=`` snapshot
 port's ``run_sweep`` (the grid; ``elastic=`` routes it through the
 elastic fleet instead) or :func:`make_exact_evaluator` (the probes) with
 the build's fault plan, retry policy and store, and on the card with
-``impl="kernel"`` through the K1 kernel.
+``impl="kernel"`` through the point kernel P1.
 """
 from __future__ import annotations
 

@@ -10,7 +10,7 @@ one step of each engine on it:
 1. the tabulated sweep step over ``2n`` points, batch-split over the
    mesh, with the χ² against Planck reduced across it;
 2. the sp-split quadrature of the archived point (sp = 2 when n is even);
-3. the kernel engine (K1, where JAX runs its Pallas engine) on the mesh,
+3. the kernel engine (P1, where JAX runs its Pallas engine) on the mesh,
    within 1e-6 of step 1;
 4. the stiff ESDIRK engine on the batch-split washout config;
 5. the stretch sampler with its walkers split over the mesh, gathered
@@ -60,7 +60,7 @@ ARCHIVED = {
 ENTRY_AXES = {"m_chi_GeV": np.geomspace(0.2, 2.0, 4), "T_p_GeV": [80.0, 120.0]}
 ENTRY_TABLE_N, DRYRUN_TABLE_N = 4096, 2048
 ENTRY_N_Y, DRYRUN_N_Y, SP_N_Y = 2000, 2048, 2048
-KERNEL_RTOL = 1e-6  # K1 at n_y 2048 against the tabulated step at n_y 2000
+KERNEL_RTOL = 1e-6  # P1 at n_y 2048 against the tabulated step at n_y 2000
 
 
 def entry(device=None):
@@ -134,7 +134,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
         _check(np.isfinite(YB_sp) and YB_sp > 0.0, f"sp Y_B {YB_sp}")
         engines["gridshard(sp)"] = "ok"
 
-    # ---- the kernel engine (K1) on the mesh; the key is JAX's name of the
+    # ---- the kernel engine (P1) on the mesh; the key is JAX's name of the
     # step, whose engine there is the Pallas kernel under shard_map
     step_k = make_sweep_step(static, n_y=DRYRUN_N_Y, impl="kernel", mesh=mesh)
     ratios_kernel = gather_to_host(step_k(pp, tables).DM_over_B)

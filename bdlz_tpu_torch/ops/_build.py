@@ -27,10 +27,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 )
 
-#: Flags one source adds to ``NVCC_FLAGS``.  The bounce shoot repeats the
-#: plain version's arithmetic operation by operation, so a*b+c must not be
-#: contracted into one rounding.
-SOURCE_FLAGS = {"bounce_shoot.cu": ("-fmad=false",)}
+#: Flags one source adds to ``NVCC_FLAGS``.  The bounce shoot and the point
+#: kernels repeat their plain versions' arithmetic operation by operation,
+#: so a*b+c must not be contracted into one rounding.
+SOURCE_FLAGS = {"bounce_shoot.cu": ("-fmad=false",), "kjma_point.cu": ("-fmad=false",)}
 
 
 class Built(NamedTuple):

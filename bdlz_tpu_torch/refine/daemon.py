@@ -10,7 +10,7 @@ out-of-domain rate over ``drift_gated_rate``) runs one cycle:
 1. freeze and persist the traffic snapshot (content-hashed, atomic);
 2. rebuild the emulator over a box widened to cover the observed traffic,
    steered by ``refine_signal="traffic"`` (the snapshot's train split),
-   on the service's device (through K1 for an ``impl="kernel"``
+   on the service's device (through P1 for an ``impl="kernel"``
    artifact), optionally as elastic chunks (``parallel/scheduler.py``);
 3. hand the candidate to the
    :class:`~bdlz_tpu_torch.refine.delivery.DeliveryPipeline` (held-out

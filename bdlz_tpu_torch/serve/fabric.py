@@ -22,7 +22,7 @@ surface, over the shared provenance store.
   that cannot reach the store after a bounded retry marks itself
   partitioned, stops heartbeating, and answers what it still receives
   through the pool's retained exact pipeline on the pool's device (the
-  card; K1 for an ``impl="kernel"`` artifact): ``degraded=True``, reason
+  card; P1 for an ``impl="kernel"`` artifact): ``degraded=True``, reason
   ``"store_partition"``, replica ``-1``.  The first heartbeat that lands
   clears the partition.
 * **idle-host chunk stealing**: a host whose serving plane is idle leases

@@ -461,7 +461,7 @@ class FleetService:
             retry=retry, fault_plan=fault_plan, lz_profile=lz_profile,
             device=devices[0], mesh=mesh,
         )
-        #: The engine the exact fallback runs ("kernel" = the CUDA K1).
+        #: The engine the exact fallback runs ("kernel" = the CUDA point kernel P1).
         self.exact_engine = self._fallback.engine
         self._faults = self._fallback.fault_plan
         #: The retry policy the registry-facing paths share.

@@ -9,7 +9,7 @@ owns the evaluation paths a query can take:
 * **exact fallback** — the exact pipeline through the engine the
   artifact was built with (``emulator.build.make_exact_evaluator``, the
   sweep's chunk engine: under ``impl="kernel"`` that is the CUDA
-  interpolate-and-reduce kernel K1), taken for a query outside every
+  point kernel P1), taken for a query outside every
   domain (reason ``"ood"``) or one whose cell's predicted error exceeds
   the error gate (reason ``"predicted_error"``).  Non-finite exact output
   passes through as NaN per request.
@@ -329,7 +329,7 @@ class YieldService:
             retry=retry, fault_plan=fault_plan, lz_profile=lz_profile,
             device=self.device, mesh=mesh,
         )
-        #: The engine the exact fallback runs ("kernel" = the CUDA K1).
+        #: The engine the exact fallback runs ("kernel" = the CUDA point kernel P1).
         self.exact_engine = self._exact_guarded.engine
         self._faults = self._exact_guarded.fault_plan
         self.stats = ServeStats()

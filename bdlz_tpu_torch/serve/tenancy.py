@@ -25,7 +25,7 @@ On top of the pools:
   bytes LRU-evicts idle pools; an evicted pool's requests are answered
   by the loud degraded exact path (``degraded=True``, reason
   ``"pool_evicted"``, replica ``-1``) on the pool's device — the card,
-  through K1 for an ``impl="kernel"`` artifact — until :meth:`readmit`;
+  through P1 for an ``impl="kernel"`` artifact — until :meth:`readmit`;
 * **typed skew rejection** — a request whose stated ``lz_mode``
   disagrees with its pool's is refused with :class:`TenancyError`.
 

@@ -5,18 +5,21 @@
 
 It builds the port's CUDA kernels from ``bdlz_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a), holds each kernel against its plain PyTorch version at
-the production shapes, drives the port's sweep — the system's main path —
+the production shapes (``point_parity``: the point kernels P1 and P3, which
+compute the reduce tiers' whole function from per-point scalars, over the
+main grid's first chunk, the audit population and edge cases), drives the
+port's sweep — the system's main path —
 at full width through each kernel tier, checks the results against the
 plain tabulated engine and the archived point, and times the kernels.
 Then it drives the paths that hold no hand kernel: the stiff Boltzmann
 sweep (the lane-repacking ESDIRK engine on a 1024-point washout grid),
 the audited panel Gauss–Legendre quadrature of the tabulated sweep, and
 the single-point CLI (``python -m bdlz_tpu_torch``) in a subprocess.
-Before those, ``overlap_path`` runs the main grid through K1 with the
+Before those, ``overlap_path`` runs the main grid through P1 with the
 sweep's double-buffered chunk loop and with the serial loop, in turns
 (bitwise equal outputs, points/s, and under the profiler each side's
 device busy share, idle gaps between chunks and peak memory), and the
-tiered population gate through ``make_chunk_runner`` for K1-K4.
+tiered population gate through ``make_chunk_runner`` for P1/K2/P3/K4.
 Then come the bounce solver, whose shoot is one hand-written kernel
 (``bounce_path``: a depth-k bisection tree per lane, against its plain
 version, against the JAX package's reference shoot and bit for bit
@@ -25,12 +28,12 @@ the measured f64 latencies, times and bounds), and
 the LZ layer at full width (``lz_path``: P-tables at their default sizes,
 one of them over a 1,000,001-sample profile, and the sweep with a shot
 bounce through each estimator and scenario).  Then the sweep's
-robustness on the main grid through K1 (``robust_path``: resume, a torn
+robustness on the main grid through P1 (``robust_path``: resume, a torn
 chunk file, a transient fault, a poison point bisected into quarantine,
 a NaN point, the chunk store cold and warm) and the emulator
-(``emulator_path``: the bench's 4-D box built through K1 and checked
+(``emulator_path``: the bench's 4-D box built through P1 and checked
 against the plain engine, saved and reloaded, 65,536 queries timed on
-the card against the CPU, a spot check against exact K1 points, a warm
+the card against the CPU, a spot check against exact P1 points, a warm
 rebuild through one store, and the seam-split bundle).  Last the sampling
 layer (``sampling_path``, no hand kernel on it): the stretch sampler at the
 MCMC CLI's defaults over (m_chi, P) of the archived config, NUTS from its
@@ -40,20 +43,20 @@ finite-difference parity, a checkpointed NUTS chain cut and resumed, and
 ``python -m bdlz_tpu_torch.mcmc_cli`` in a subprocess.  Then the host
 planes (``host_planes``: the g++-built CSV parser against NumPy on a
 1,000,001-sample profile, the per-point CPU reference on 64 audit points
-against the card's K1 engine, ``sweep_cli --sanitize --profile-dir`` and
+against the card's P1 engine, ``sweep_cli --sanitize --profile-dir`` and
 ``--debug-nans``) and the serving plane (``serving_path``: the emulator_path
 artifact served by the single service under 65,536 queries, mixed
-requests whose exact fallback runs K1, the 2-replica fleet with its fault
+requests whose exact fallback runs P1, the 2-replica fleet with its fault
 drills, a rollout cutover under load, and ``python -m bdlz_tpu_torch.serve``
 in subprocesses).  Then the mesh (``mesh_path``): the main grid on two
-members of the one card through K1 and the tabulated engine, bitwise the
+members of the one card through P1 and the tabulated engine, bitwise the
 runs without a mesh; one point's sp quadrature at n_y 1,048,576;
 ``sweep_cli --multihost`` and ``mcmc_cli --multihost`` in two processes on
 the card (gloo carries their agreements), resumed; a fleet with mixed
 kernel builds refused on both processes; and a NCCL world of one.  Last
 the compile-check entry points (``graft_path``): ``entry()``'s forward step on
 the card against the CPU, timed, and ``dryrun_multichip`` on meshes of 2
-and 4 members of the one card against the same dry runs on the host, K1
+and 4 members of the one card against the same dry runs on the host, P1
 launched on every member.
 
 Every phase prints one JSON line; the card's name and power limit as
@@ -97,10 +100,22 @@ MAIN_AXES = {  # 64 x 32 x 16 = 32768 points, 4 chunks of 8192
     "T_p_GeV": np.geomspace(30.0, 300.0, 32),
     "v_w": np.linspace(0.05, 0.95, 16),
 }
-# (fuse_exp, reduce) of each kernel tier of the sweep
+# (fuse_exp, reduce) of each kernel tier of the sweep, and the kernel each
+# tier launches: the reduce tiers run the point kernels (P1, P3) of
+# csrc/kjma_point.cu, the stream tiers K2 and K4 of csrc/kjma_interp.cu.
+# The stream-input K1 and K3 are held against their plain versions and
+# timed here, but no path of the port launches them.
 TIERS = {"reduce": (False, True), "fused_reduce": (True, True),
          "stream": (False, False), "fused_stream": (True, False)}
+TIER_KERNEL = {"reduce": "point_reduce", "fused_reduce": "point_fused_reduce",
+               "stream": "stream", "fused_stream": "fused_stream"}
+POINT_KERNELS = ("point_reduce", "point_fused_reduce")
+MAIN_KERNEL = TIER_KERNEL["reduce"]  # P1, the default tier's kernel
 REDUCE_RTOL, STREAM_RTOL, SWEEP_RTOL, ARCHIVED_RTOL = 1e-12, 1e-13, 1e-10, 1e-9
+# a point kernel against its plain version per point (the summation order
+# differs), and the point route's Y_B against the stream route's (the
+# stream's peak normalisation adds two roundings per node)
+POINT_RTOL, ROUTE_RTOL = 1e-13, 1e-12
 # The stiff grid: the archived point with washout on and the window cut at
 # T_p/20, over m_chi x Gamma_wash/H = 32 x 32 = 1024 points, nothing cut.
 STIFF = dict(ARCHIVED, Gamma_wash_over_H=0.01, T_min_over_Tp=0.05)
@@ -148,6 +163,19 @@ FLOPS_PER_NODE = {"reduce": 24, "stream": 23,
                   "fused_reduce": 25 + EXP_FLOPS, "fused_stream": 24 + EXP_FLOPS}
 # bytes per node: g 8 + i1 4 + sfrac 8 (+ a 8), + 8 written by the stream kernels
 BYTES_PER_NODE = {"reduce": 20, "stream": 28, "fused_reduce": 28, "fused_stream": 36}
+# The point kernels are bound by operations: f64 instructions per node of
+# a non-empty window, counted from csrc/kjma_point.cu (both tiers do the
+# same operations in another order).  49 adds, multiplies, compares and
+# conversions (the node's y 4, d 3, the clamp 2, aw 2, the seam 2, A 2,
+# bf 1, w 1, the exponent's argument and two products 3, t, floor and i1
+# 6, the cubic's offsets, weights and taps 20, the product, the cut and
+# the sum 3), 4 IEEE divisions (2y/B, y^2/(2 sigma^2) and the cubic's two
+# /6) at ~9 instructions each (a reciprocal estimate and its Newton
+# steps), a square root at ~8 and an exp at ~20 (EXP_FLOPS).  The H100's
+# 34 TFLOP/s FP64 peak counts an FMA as two operations: it issues one f64
+# instruction per FP64 lane and clock, 17e12 a second.
+POINT_F64_INSTR_PER_NODE = 49 + 4 * 9 + 8 + EXP_FLOPS
+FP64_INSTR_PER_S = FP64_FLOP_PER_S / 2
 
 
 def emit(obj) -> None:
@@ -179,10 +207,15 @@ def _ptxas_kernels(log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             tmpl = re.search(r"kjma_interp_kernelILb([01])ELb([01])E", m.group(1))
+            point = re.search(r"kjma_point_kernelILb([01])E", m.group(1))
             plain = re.search(r"(bounce_[a-z_]+?_kernel)", m.group(1))
-            name = {("0", "1"): "reduce", ("0", "0"): "stream", ("1", "1"): "fused_reduce",
-                    ("1", "0"): "fused_stream"}[tmpl.groups()] if tmpl else (
-                        plain.group(1) if plain else m.group(1))
+            if tmpl:
+                name = {("0", "1"): "reduce", ("0", "0"): "stream", ("1", "1"): "fused_reduce",
+                        ("1", "0"): "fused_stream"}[tmpl.groups()]
+            elif point:
+                name = POINT_KERNELS[int(point.group(1))]
+            else:
+                name = plain.group(1) if plain else m.group(1)
             kernels.append({"kernel": name})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and kernels:
@@ -195,20 +228,57 @@ def _ptxas_kernels(log: str) -> list:
     return kernels
 
 
+#: f64 instructions in SASS (the FP64 pipe's arithmetic, compares,
+#: conversions and the reciprocal and root estimates).
+SASS_F64 = re.compile(r"\b(DADD|DMUL|DFMA|DSETP|DMNMX|FRND\.F64\S*|F2I\S*\.F64\S*|"
+                      r"I2F\.F64\S*|F2F\.F64\S*|MUFU\.(RCP|RSQ)64H)\b")
+
+
+def _sass_f64_counts(lib_path) -> dict:
+    """Per kernel, the f64 instructions in its SASS (``cuobjdump -sass``):
+    a static count of the whole function, its division and exp slow paths
+    included, beside the per-node count from the source; None where the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and SASS_F64.search(line):
+            counts[name] += 1
+    return counts
+
+
 def phase_build() -> None:
-    """Both sources at once, one nvcc each."""
+    """The three sources at once, one nvcc each."""
     from concurrent.futures import ThreadPoolExecutor
 
     from bdlz_tpu_torch.ops import _build, bounce_kernel, kjma_kernel
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        kjma, bounce = pool.map(_build.build, (kjma_kernel.SOURCE, bounce_kernel.SOURCE))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        kjma, point, bounce = pool.map(_build.build, (
+            kjma_kernel.SOURCE, kjma_kernel.POINT_SOURCE, bounce_kernel.SOURCE))
     wall = time.perf_counter() - t0
     kjma_kernel.load_library()
+    kjma_kernel.load_point_library()
     bounce_kernel.load_library()
     kk_kernels, bk_kernels = _ptxas_kernels(kjma.ptxas_log), _ptxas_kernels(bounce.ptxas_log)
+    pk_kernels = _ptxas_kernels(point.ptxas_log)
     check(len(kk_kernels) == 4, f"ptxas reported 4 KJMA kernels, got {kk_kernels}")
+    check(sorted(k["kernel"] for k in pk_kernels) == sorted(POINT_KERNELS),
+          f"ptxas reported the two point kernels, got {pk_kernels}")
+    sass = _sass_f64_counts(point.path)
+    for k in pk_kernels:
+        k["sass_f64_instructions"] = None if sass is None else next(
+            (n for f, n in sass.items()
+             if f"kjma_point_kernelILb{POINT_KERNELS.index(k['kernel'])}E" in f), None)
     check(sorted(k["kernel"] for k in bk_kernels)
           == ["bounce_classify_kernel", "bounce_latency_probe_kernel",
               "bounce_shoot_serial_kernel", "bounce_tree_kernel"],
@@ -217,6 +287,10 @@ def phase_build() -> None:
         {"source": "bdlz_tpu_torch/csrc/" + kjma_kernel.SOURCE, "seconds": kjma.seconds,
          "cached": kjma.cached, "dynamic_smem_bytes": TABLE_N * 8 + 32 * 8,
          "kernels": kk_kernels},
+        {"source": "bdlz_tpu_torch/csrc/" + kjma_kernel.POINT_SOURCE, "seconds": point.seconds,
+         "cached": point.cached, "dynamic_smem_bytes": TABLE_N * 8 + 32 * 8,
+         "f64_instructions_per_node_counted": POINT_F64_INSTR_PER_NODE,
+         "kernels": pk_kernels},
         {"source": "bdlz_tpu_torch/csrc/" + bounce_kernel.SOURCE, "seconds": bounce.seconds,
          "cached": bounce.cached, "kernels": bk_kernels}]})
 
@@ -284,7 +358,125 @@ def phase_parity(dev) -> tuple:
     emit({"phase": "parity", "points": N_POINTS, "n_y": N_Y, "table_n": TABLE_N,
           "points_with_seam_in_window": both, "reduce_bitwise_reproducible": True,
           "kernels": errs})
-    return streams, table, errs
+    return streams, table, errs, pp
+
+
+def _main_chunk(dev):
+    """The main grid's first chunk (8192 points) as device PointParams."""
+    from bdlz_tpu_torch.config import config_from_dict
+    from bdlz_tpu_torch.interop import point_params_from_numpy
+    from bdlz_tpu_torch.parallel.sweep import build_grid
+
+    grid = build_grid(config_from_dict(ARCHIVED), MAIN_AXES)
+    return point_params_from_numpy(type(grid)(*(f[:N_POINTS] for f in grid)), dev)
+
+
+def _set_window(s, lo, hi):
+    """The scalar rows ``s`` with every window set to [lo, hi] by hand."""
+    from bdlz_tpu_torch.ops import kjma_kernel as kk
+
+    s = s.clone()
+    s[:, kk._COL["y_lo"]], s[:, kk._COL["y_hi"]] = lo, hi
+    return s
+
+
+def _point_rel(got, ref) -> float:
+    """Largest relative error per point; rows whose plain sum is 0 (empty
+    windows, nodes past the cut) must be exactly 0 in the kernel too."""
+    zero = ref == 0
+    check(torch.equal(got[zero], ref[zero]), "the kernel's zeros are the plain version's")
+    if bool(zero.all()):
+        return 0.0
+    return ((got - ref).abs() / ref.abs())[~zero].max().item()
+
+
+def phase_point_parity(dev, parity_pp, table) -> dict:
+    """The point kernels P1 and P3 against their plain versions on the
+    card: over the main grid's first chunk (8192 x 8000), the parity grid
+    (seam-crossing windows), the 1024-point audit population, and edge
+    cases (empty, reversed and clipped windows; windows across and above
+    y = 50 on the F table and on a table of ones; n_y at its floor of
+    2000; P = 1, P = 0 and P = 133); bitwise reproducible run to run; and
+    the point route's Y_B against the stream route's (prepare_streams,
+    the stream-input kernel, finish).  Returns each kernel's errors on
+    the main chunk."""
+    import dataclasses
+
+    from bdlz_tpu_torch.config import config_from_dict
+    from bdlz_tpu_torch.interop import point_params_from_numpy
+    from bdlz_tpu_torch.ops import kjma_kernel as kk
+    from bdlz_tpu_torch.parallel.sweep import build_grid
+    from bdlz_tpu_torch.validation import build_audit_population
+
+    t0 = time.perf_counter()
+    base = config_from_dict(ARCHIVED)
+    main = kk.point_scalars(_main_chunk(dev), base.chi_stats, table, N_Y)
+    parity = kk.point_scalars(parity_pp, base.chi_stats, table, N_Y)
+    audit = kk.point_scalars(point_params_from_numpy(
+        build_audit_population(base, N_GATE).grid, dev), base.chi_stats, table, N_Y)
+    empty = []
+    for lo, hi, B in ((5.0, 4.0, 100.0), (4.0, 5.0, 400.0), (1.0, 1.0, 100.0),
+                      (0.01, 0.05, 100.0)):
+        cfg = dataclasses.replace(base, T_min_over_Tp=lo, T_max_over_Tp=hi, beta_over_H=B)
+        empty.append(kk.point_scalars(point_params_from_numpy(
+            build_grid(cfg, {"m_chi_GeV": [0.95, 3.0, 500.0]}), dev), cfg.chi_stats, table, N_Y))
+    empty = torch.cat(empty)
+    check(not bool((empty[:, kk._COL["y_hi"]] > empty[:, kk._COL["y_lo"]]).any()),
+          "the empty-window rows are empty")
+    ones = table._replace(values=torch.ones_like(table.values))
+    edges = torch.cat([empty, _set_window(parity[:64], 40.0, 60.0),
+                       _set_window(parity[:64], 51.0, 60.0)]).contiguous()
+    floor = kk.point_scalars(parity_pp, base.chi_stats, table, 2000)
+    cases = {  # name: (scalars, table, n_y)
+        "main_chunk": (main, table, N_Y), "parity_grid": (parity, table, N_Y),
+        "audit_population": (audit, table, N_Y), "edges": (edges, table, N_Y),
+        "edges_table_of_ones": (edges, ones, N_Y), "n_y_floor": (floor, table, 2000),
+        "one_point": (main[:1], table, N_Y), "no_point": (main[:0], table, N_Y),
+        "133_points": (parity[:133], table, N_Y)}
+    out, errs = {}, {}
+    for name in POINT_KERNELS:
+        fn, plain = getattr(kk, name), getattr(kk, name + "_plain")
+        rows = {}
+        for case, (sc, tab, n_y) in cases.items():
+            kk.reset_launches()
+            got = fn(sc, tab, n_y)
+            torch.cuda.synchronize()
+            check(kk.LAUNCHES[name] == (1 if sc.shape[0] else 0),
+                  f"{name} {case}: one launch, got {kk.LAUNCHES}")
+            ref = plain(sc, tab, n_y)
+            check(got.shape == ref.shape == (sc.shape[0],) and bool(torch.isfinite(got).all()),
+                  f"{name} {case}: finite, shape {tuple(got.shape)}")
+            rel = _point_rel(got, ref) if sc.shape[0] else 0.0
+            check(rel <= POINT_RTOL, f"{name} {case}: kernel vs plain {rel:.3e} <= {POINT_RTOL:g}")
+            rows[case] = {"points": int(sc.shape[0]), "n_y": n_y, "max_rel_err": rel,
+                          "zeros": int((ref == 0).sum()),
+                          "max_abs_err": (got - ref).abs().max().item() if sc.shape[0] else 0.0}
+            if case == "main_chunk":
+                errs[name] = rows[case]
+        check(torch.equal(fn(main, table, N_Y), fn(main, table, N_Y)),
+              f"{name} bitwise reproducible run to run")
+        check(rows["edges_table_of_ones"]["zeros"] == empty.shape[0] + 64,
+              f"{name}: the empty windows and the windows above y = 50 sum to 0 "
+              f"on the table of ones, got {rows['edges_table_of_ones']['zeros']} zeros")
+        out[name] = rows
+    # the point route against the stream route, Y_B on the main chunk
+    pp = _main_chunk(dev)
+    route = {}
+    for fuse_exp in (False, True):
+        got = kk.integrate_YB_kernel(pp, base.chi_stats, table, N_Y, fuse_exp=fuse_exp)
+        st = kk.prepare_streams(pp, base.chi_stats, table, N_Y, fuse_exp=fuse_exp)
+        total = (kk.interp_fused_reduce(st.g, st.a, st.i1, st.sfrac, table.values) if fuse_exp
+                 else kk.interp_reduce(st.g, st.i1, st.sfrac, table.values))
+        ref = kk.finish(st, total)
+        rel = ((got - ref).abs() / ref.abs()).max().item()
+        check(rel <= ROUTE_RTOL, f"point route vs stream route (fuse_exp={fuse_exp}) "
+              f"{rel:.3e} <= {ROUTE_RTOL:g}")
+        route[f"fuse_exp={fuse_exp}"] = rel
+        del st
+    emit({"phase": "point_parity", "rtol": POINT_RTOL, "kernels": out,
+          "point_route_vs_stream_route_max_rel": route, "bitwise_reproducible": True,
+          "seconds": time.perf_counter() - t0})
+    return errs
 
 
 def phase_main_path(dev) -> dict:
@@ -302,22 +494,23 @@ def phase_main_path(dev) -> dict:
                     impl="tabulated", **kw)
     check(ref.n_failed == 0, "tabulated sweep all finite")
     ref_ratio = ref.outputs["DM_over_B"]
-    launches, runs = {}, {}
+    launches, runs = dict.fromkeys(kk.LAUNCHES, 0), {}
     for name, (fuse_exp, reduce) in TIERS.items():
+        kernel = TIER_KERNEL[name]
         torch.cuda.reset_peak_memory_stats(dev)
         kk.reset_launches()
         res = run_sweep(base, MAIN_AXES, static, impl="kernel", fuse_exp=fuse_exp,
                         reduce=reduce, **kw)
         counts = dict(kk.LAUNCHES)
-        launches[name] = counts[name]
+        launches[kernel] = counts[kernel]
         ratio = res.outputs["DM_over_B"]
         check(res.n_points == 32768 and res.chunks == 4, f"{name}: 32768 points in 4 chunks")
         check(bool(np.isfinite(ratio).all()) and res.n_failed == 0, f"{name}: all finite")
-        check(counts == {k: (4 if k == name else 0) for k in counts},
-              f"{name}: 4 launches of its kernel and none of the others, got {counts}")
+        check(counts == {k: (4 if k == kernel else 0) for k in counts},
+              f"{name}: 4 launches of {kernel} and none of the others, got {counts}")
         rel = float(np.max(np.abs(ratio - ref_ratio) / np.abs(ref_ratio)))
         check(rel <= SWEEP_RTOL, f"{name}: sweep vs tabulated {rel:.3e} <= {SWEEP_RTOL:g}")
-        runs[name] = {"launches": counts[name], "seconds": res.seconds,
+        runs[name] = {"kernel": kernel, "launches": counts[kernel], "seconds": res.seconds,
                       "points_per_sec": res.points_per_sec, "max_rel_vs_tabulated": rel,
                       "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
     one = run_sweep(base, {"m_chi_GeV": [0.95]}, static, impl="kernel",
@@ -349,9 +542,29 @@ def _cuda_ms(fn, reps: int, repeats: int = 5) -> list:
     return out
 
 
+def _point_bound(scalars, n_y) -> dict:
+    """The least time of a point kernel on these rows: the operations of
+    the nodes of non-empty windows (empty ones compute nothing) over the
+    FP64 instruction rate, against the bytes (scalars and table read once,
+    one sum per point written) over HBM's rate."""
+    from bdlz_tpu_torch.ops import kjma_kernel as kk
+
+    P = int(scalars.shape[0])
+    nonempty = int((scalars[:, kk._COL["y_hi"]] > scalars[:, kk._COL["y_lo"]]).sum())
+    n_bytes = P * len(kk.POINT_COLUMNS) * 8 + TABLE_N * 8 + P * 8
+    instr = nonempty * n_y * POINT_F64_INSTR_PER_NODE
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = instr / FP64_INSTR_PER_S * 1e3
+    return {"bytes": n_bytes, "f64_instructions": instr, "nonempty_points": nonempty,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def phase_timing(dev, streams, table) -> dict:
     """Kernel and plain times at the production shapes (CUDA events), each
-    kernel's bound, and the host prep's time for one chunk."""
+    kernel's bound, the host prep's time for one chunk (point_scalars for
+    the point kernels, prepare_streams for the stream kernels) and the
+    main grid's rate through the default tier."""
     from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
     from bdlz_tpu_torch.interop import point_params_from_numpy
     from bdlz_tpu_torch.ops import kjma_kernel as kk
@@ -380,14 +593,37 @@ def phase_timing(dev, streams, table) -> dict:
     prep_ms = {f"fuse_exp={f}": float(np.median(_cuda_ms(
         lambda f=f: kk.prepare_streams(chunk, base.chi_stats, table, N_Y, fuse_exp=f), 3)))
         for f in (False, True)}
+    # the point kernels on the main grid's first chunk
+    scalars = kk.point_scalars(chunk, base.chi_stats, table, N_Y)
+    scalars_ms = float(np.median(_cuda_ms(
+        lambda: kk.point_scalars(chunk, base.chi_stats, table, N_Y), 20)))
+    bound = _point_bound(scalars, N_Y)
+    for name in POINT_KERNELS:
+        fn, plain = getattr(kk, name), getattr(kk, name + "_plain")
+        samples = _cuda_ms(lambda: fn(scalars, table, N_Y), 20)
+        ms = float(np.median(samples))
+        out[name] = {"ms": ms, "ms_samples": samples,
+                     "plain_ms": float(np.median(_cuda_ms(lambda: plain(scalars, table, N_Y), 3))),
+                     **bound, "bound_share": bound["bound_ms"] / ms,
+                     "achieved_f64_instr_per_s": bound["f64_instructions"] / (ms * 1e-3),
+                     "device_ms_per_chunk_with_prep": scalars_ms + ms}
+    # each stream kernel's tier against the whole function's work: the
+    # point kernel's operations (plus the stream's write for K2 and K4)
+    for name in TIERS:
+        write_ms = (N_POINTS * N_Y * 8 / HBM_BYTES_PER_S * 1e3
+                    if not name.endswith("reduce") else 0.0)
+        out[name]["function_bound_ms"] = max(bound["bound_ms"], write_ms)
+        out[name]["device_ms_per_chunk_with_prep"] = out[name]["ms"] + prep_ms[
+            f"fuse_exp={'fused' in name}"]
     static = static_choices_from_config(base)
     kw = dict(impl="kernel", chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev)
     sweep_pps = [run_sweep(base, MAIN_AXES, static, **kw).points_per_sec for _ in range(5)]
     emit({"phase": "timing", "points": N_POINTS, "n_y": N_Y, "kernels": out,
-          "prep_ms_per_chunk": prep_ms,
+          "prep_ms_per_chunk": prep_ms, "point_scalars_ms_per_chunk": scalars_ms,
           "sweep_points_per_sec_median": float(np.median(sweep_pps)),
           "sweep_points_per_sec_samples": sweep_pps,
-          "peak_hbm_bytes_per_s": HBM_BYTES_PER_S, "peak_fp64_flop_per_s": FP64_FLOP_PER_S})
+          "peak_hbm_bytes_per_s": HBM_BYTES_PER_S, "peak_fp64_flop_per_s": FP64_FLOP_PER_S,
+          "fp64_instr_per_s": FP64_INSTR_PER_S})
     return out, float(np.median(sweep_pps))
 
 
@@ -419,7 +655,8 @@ def phase_profile(dev) -> None:
                         n_y=N_Y, table_nodes=TABLE_N, device=dev)
     device_ms = _device_ms(prof)
     busy_ms = sum(device_ms.values())
-    kjma_ms = sum(v for k, v in device_ms.items() if "kjma_interp_kernel" in k)
+    kjma_ms = sum(v for k, v in device_ms.items()
+                  if "kjma_interp_kernel" in k or "kjma_point_kernel" in k)
     copy_ms = sum(v for k, v in device_ms.items() if "Memcpy" in k or "Memset" in k)
     wall_ms = res.seconds * 1e3
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
@@ -850,7 +1087,7 @@ def phase_bounce_path(dev) -> dict:
 
 
 # The local-momentum pre-pass is a host loop over every (v_w, T_p, m_chi)
-# point (~44 s per 32768-point sweep, paid by the K1 run and by its
+# point (~44 s per 32768-point sweep, paid by the P1 run and by its
 # tabulated reference); its sweeps run every fourth m_chi, one 8192-point
 # chunk, to keep the whole script near ten minutes.
 LM_AXES = dict(MAIN_AXES, m_chi_GeV=MAIN_AXES["m_chi_GeV"][::4])
@@ -938,8 +1175,8 @@ def phase_lz_path(dev, sol, kernel_pps: float) -> None:
                                                          impl="kernel", **common))
         check(res.n_points == n_points and res.n_failed == 0,
               f"{name}: {n_points} finite points")
-        check(counts["reduce"] == n_points // N_POINTS and counts["bounce_shoot"] == 1,
-              f"{name}: K1 launched once per chunk and the shoot once, got {counts}")
+        check(counts[MAIN_KERNEL] == n_points // N_POINTS and counts["bounce_shoot"] == 1,
+              f"{name}: P1 launched once per chunk and the shoot once, got {counts}")
         ref = run_sweep(base, axes, static._replace(quad_panel_gl=False),
                         impl="tabulated", **common)
         rel = _max_rel(res.outputs["DM_over_B"], ref.outputs["DM_over_B"])
@@ -973,7 +1210,7 @@ POISON_POINT, NAN_POINT = 12345, 777  # global grid indices of the injected faul
 
 
 def phase_robust_path(dev) -> None:
-    """The main grid at full width through K1 into a sweep directory with
+    """The main grid at full width through P1 into a sweep directory with
     an event log: a clean run and its resume; a torn chunk file and its
     resume; a transient step fault; a poison point bisected into
     quarantine; a NaN point; a chunk store run cold, then warm."""
@@ -997,22 +1234,22 @@ def phase_robust_path(dev) -> None:
         t1 = time.perf_counter()
         res, counts = _launches_around(lambda: run_sweep(base, MAIN_AXES, static, **kw, **extra))
         wall[name] = time.perf_counter() - t1
-        return res, counts["reduce"]
+        return res, counts[MAIN_KERNEL]
 
     try:
         d = os.path.join(work, "sweep")
-        clean, k1 = run("clean", out_dir=d,
+        clean, p1 = run("clean", out_dir=d,
                         event_log=EventLog(path=os.path.join(work, "clean.jsonl")))
-        check(clean.n_points == n_total and clean.chunks == n_chunks == 4 and k1 == 4,
-              f"clean: {n_total} points in 4 chunks, 4 K1 launches, got {k1}")
+        check(clean.n_points == n_total and clean.chunks == n_chunks == 4 and p1 == 4,
+              f"clean: {n_total} points in 4 chunks, 4 P1 launches, got {p1}")
         check(clean.n_failed == 0 and clean.n_quarantined == 0 and clean.n_retries == 0,
               "clean: no failure, quarantine or retry")
         ev = [e["event"] for e in _events(os.path.join(work, "clean.jsonl"))]
         check(ev == ["sweep_start"] + ["chunk_done"] * 4, f"clean events {ev}")
-        resumed, k1 = run("resume", out_dir=d)
-        check(resumed.resumed_chunks == 4 and k1 == 0, f"resume: 4 chunks, 0 K1, got {k1}")
+        resumed, p1 = run("resume", out_dir=d)
+        check(resumed.resumed_chunks == 4 and p1 == 0, f"resume: 4 chunks, 0 P1, got {p1}")
         check(_bitwise(resumed.outputs, clean.outputs), "resume: bitwise the clean run")
-        out["resume"] = {"resumed_chunks": resumed.resumed_chunks, "k1_launches": k1}
+        out["resume"] = {"resumed_chunks": resumed.resumed_chunks, "p1_launches": p1}
 
         # a torn chunk file, then a resume under the same (spent) plan
         torn = FaultPlan.from_obj([{"site": "chunk_write", "kind": "torn", "key": 2}])
@@ -1024,26 +1261,26 @@ def phase_robust_path(dev) -> None:
         except Exception:  # noqa: BLE001 — a torn zip fails to load
             was_torn = True
         check(was_torn, "chunk 2's file is torn")
-        healed, k1 = run("torn_resume", out_dir=d2, fault_plan=torn)
-        check(healed.resumed_chunks == 3 and k1 == 1,
-              f"torn resume: 3 chunks resumed, chunk 2 recomputed (1 K1), got {k1}")
+        healed, p1 = run("torn_resume", out_dir=d2, fault_plan=torn)
+        check(healed.resumed_chunks == 3 and p1 == 1,
+              f"torn resume: 3 chunks resumed, chunk 2 recomputed (1 P1), got {p1}")
         check(_bitwise(healed.outputs, clean.outputs), "torn resume: bitwise the clean run")
-        out["torn"] = {"resumed_chunks": healed.resumed_chunks, "k1_launches": k1}
+        out["torn"] = {"resumed_chunks": healed.resumed_chunks, "p1_launches": p1}
 
         # a transient step fault on chunk 1, twice
         ev_path = os.path.join(work, "transient.jsonl")
-        tr, k1 = run("transient", event_log=EventLog(path=ev_path), fault_plan=FaultPlan.from_obj(
+        tr, p1 = run("transient", event_log=EventLog(path=ev_path), fault_plan=FaultPlan.from_obj(
             [{"site": "step", "kind": "transient", "key": 1, "times": 2}]))
         retries = [e for e in _events(ev_path) if e["event"] == "chunk_retry"]
         check(tr.n_retries == 2 and len(retries) == 2 and all(e["chunk"] == 1 for e in retries),
               f"transient: 2 retries of chunk 1, got {tr.n_retries} / {len(retries)} events")
         check(tr.n_quarantined == 0 and _bitwise(tr.outputs, clean.outputs),
               "transient: bitwise the clean run")
-        out["transient"] = {"n_retries": tr.n_retries, "k1_launches": k1}
+        out["transient"] = {"n_retries": tr.n_retries, "p1_launches": p1}
 
         # a poison point, bisected down to itself
         ev_path = os.path.join(work, "poison.jsonl")
-        po, k1 = run("poison", event_log=EventLog(path=ev_path), fault_plan=FaultPlan.from_obj(
+        po, p1 = run("poison", event_log=EventLog(path=ev_path), fault_plan=FaultPlan.from_obj(
             [{"site": "step", "kind": "poison", "point": POISON_POINT}]))
         attempts = resolve_engine_retry(None, base, static).max_attempts
         want = np.zeros(n_total, dtype=bool)
@@ -1058,10 +1295,10 @@ def phase_robust_path(dev) -> None:
         check(len(q_ev) == 1 and (q_ev[0]["lo"], q_ev[0]["hi"]) == (POISON_POINT, POISON_POINT + 1),
               f"poison: one chunk_quarantine event at {POISON_POINT}, got {q_ev}")
         out["poison"] = {"n_retries": po.n_retries, "heal_budget": heal_budget(N_POINTS, attempts),
-                         "k1_launches": k1}
+                         "p1_launches": p1}
 
         # a NaN point: an ordinary failure, not a quarantine
-        nan, k1 = run("nan", fault_plan=FaultPlan.from_obj(
+        nan, p1 = run("nan", fault_plan=FaultPlan.from_obj(
             [{"site": "step", "kind": "nan", "point": NAN_POINT}]))
         want = np.zeros(n_total, dtype=bool)
         want[NAN_POINT] = True
@@ -1071,16 +1308,16 @@ def phase_robust_path(dev) -> None:
 
         # the chunk store, cold then warm
         root = os.path.join(work, "store")
-        cold, k1_cold = run("cache_cold", cache=Store(root))
-        warm, k1 = run("cache_warm", cache=Store(root))
-        check(cold.cache_misses == 4 and cold.cache_hits == 0 and k1_cold == 4,
+        cold, p1_cold = run("cache_cold", cache=Store(root))
+        warm, p1 = run("cache_warm", cache=Store(root))
+        check(cold.cache_misses == 4 and cold.cache_hits == 0 and p1_cold == 4,
               f"cold: 4 misses, got {cold.cache_hits}/{cold.cache_misses}")
-        check(warm.cache_hits == 4 and warm.cache_misses == 0 and k1 == 0,
-              f"warm: 4 hits, 0 K1, got {warm.cache_hits}/{warm.cache_misses}, {k1}")
+        check(warm.cache_hits == 4 and warm.cache_misses == 0 and p1 == 0,
+              f"warm: 4 hits, 0 P1, got {warm.cache_hits}/{warm.cache_misses}, {p1}")
         check(_bitwise(warm.outputs, cold.outputs) and _bitwise(cold.outputs, clean.outputs),
               "warm == cold == clean bitwise")
         out["cache"] = {"cold": [cold.cache_hits, cold.cache_misses],
-                        "warm": [warm.cache_hits, warm.cache_misses], "k1_warm": k1}
+                        "warm": [warm.cache_hits, warm.cache_misses], "p1_warm": p1}
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "robust_path", "seconds": time.perf_counter() - t0, "points": n_total,
@@ -1101,7 +1338,7 @@ EMU_TABLE_RTOL, QUERY_RTOL, BAND_ATOL = 1e-10, 1e-14, 1e-12
 
 
 def _build_emu_box(dev):
-    """The bench's 4-D box built through K1: ((artifact, report), the
+    """The bench's 4-D box built through P1: ((artifact, report), the
     build's launch counts, seconds)."""
     from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
     from bdlz_tpu_torch.emulator import AxisSpec, build_emulator
@@ -1116,10 +1353,10 @@ def _build_emu_box(dev):
 
 
 def phase_emulator_path(dev):
-    """The emulator: the bench's 4-D box built through K1, 512 of its
+    """The emulator: the bench's 4-D box built through P1, 512 of its
     nodes against the plain tabulated engine on the CPU, save and reload,
     65,536 queries on the card (timed, against the CPU query), a spot
-    check against an exact K1 sweep, the warm rebuild of the sweep-cache
+    check against an exact P1 sweep, the warm rebuild of the sweep-cache
     box through one store, and the seam-split bundle.  Returns the 4-D
     artifact."""
     from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
@@ -1142,8 +1379,8 @@ def phase_emulator_path(dev):
     base = config_from_dict(ARCHIVED)
     static = static_choices_from_config(base)
     (art, rep), counts, build_s = _build_emu_box(dev)
-    build_k1 = counts["reduce"]
-    check(build_k1 > 0, f"the build launched K1, got {counts}")
+    build_p1 = counts[MAIN_KERNEL]
+    check(build_p1 > 0, f"the build launched P1, got {counts}")
     shape = tuple(len(n) for n in art.axis_nodes)
     check(all(bool(np.all(np.isfinite(art.values[f]))) for f in FIELDS), "finite table")
 
@@ -1180,12 +1417,12 @@ def phase_emulator_path(dev):
         check(q_rel <= QUERY_RTOL, f"card queries vs CPU {q_rel:.3e} <= {QUERY_RTOL:g}")
         check(bool(make_domain_fn(loaded, device=dev)(th_dev).all()), "every query in the box")
 
-        # the exact path the queries replace, through K1
+        # the exact path the queries replace, through P1
         spot = {name: thetas[:N_SPOT, k] for k, name in enumerate(art.axis_names)}
         evaluate = make_exact_evaluator(base, static, n_y=N_Y, impl="kernel",
                                         chunk_size=N_SPOT, device=dev)
         _, counts = _launches_around(lambda: evaluate(spot))  # builds the engine
-        check(counts["reduce"] == 1, f"one K1 launch for the spot check, got {counts}")
+        check(counts[MAIN_KERNEL] == 1, f"one P1 launch for the spot check, got {counts}")
         exact_samples = []
         for _ in range(3):
             t1 = time.perf_counter()
@@ -1212,8 +1449,8 @@ def phase_emulator_path(dev):
         check(all(np.array_equal(cold.values[f], warm.values[f]) for f in FIELDS)
               and all(np.array_equal(a, b) for a, b in zip(cold.axis_nodes, warm.axis_nodes)),
               "warm rebuild bitwise the cold one")
-        check(hit_rate == 1.0 and counts["reduce"] == 0,
-              f"warm: hit rate {hit_rate}, K1 launches {counts['reduce']}")
+        check(hit_rate == 1.0 and counts[MAIN_KERNEL] == 0,
+              f"warm: hit rate {hit_rate}, P1 launches {counts[MAIN_KERNEL]}")
 
         # the seam-split bundle, default engine, on the card
         sbase = config_from_dict(dict(ARCHIVED, source_shape_sigma_y=1.5))
@@ -1237,7 +1474,7 @@ def phase_emulator_path(dev):
           "build": {"seconds": build_s, "rounds": len(rep.rounds),
                     "n_exact_evals": rep.n_exact_evals, "grid_shape": list(shape),
                     "grid_points": art.n_points, "converged": bool(rep.converged),
-                    "max_rel_err": rep.max_rel_err, "k1_launches": build_k1},
+                    "max_rel_err": rep.max_rel_err, "p1_launches": build_p1},
           "table_vs_cpu_tabulated_512_max_rel": table_rel,
           "query": {"n": N_QUERIES, "ms_per_batch": q_ms, "ms_samples": samples,
                     "queries_per_sec": N_QUERIES / (q_ms * 1e-3),
@@ -1482,7 +1719,7 @@ def phase_sampling_path(dev, artifact=None) -> None:
 
 
 # The host planes: the native CSV parser on the lz_path profile size, the
-# engine gate's reference on 64 audit points against the card's K1 sweep,
+# engine gate's reference on 64 audit points against the card's P1 sweep,
 # and the sweep CLI's debugging flags in subprocesses.
 N_PROFILE, N_AUDIT, REF_RTOL = 1_000_001, 64, 1e-9
 
@@ -1496,7 +1733,7 @@ def _subprocess_env() -> dict:
 def phase_host_planes(dev) -> None:
     """The native parser against NumPy on a 1,000,001-sample profile
     (bitwise, both timed; the card's machine must build and use it), the
-    per-point CPU reference on 64 audit points against the card's K1
+    per-point CPU reference on 64 audit points against the card's P1
     sweep engine, ``sweep_cli --sanitize --profile-dir`` (a trace per
     chunk, the summary unchanged) and ``--debug-nans`` on a NaN grid
     (a non-zero exit naming the op)."""
@@ -1531,7 +1768,7 @@ def phase_host_planes(dev) -> None:
         check(n_names == p_names and n_data.tobytes() == p_data.tobytes()
               and n_data.tobytes() == prof.tobytes(), "native parse bitwise NumPy's")
 
-        # the engine gate: per-point CPU reference against K1 on the card
+        # the engine gate: per-point CPU reference against P1 on the card
         base = config_from_dict(ARCHIVED)
         static = static_choices_from_config(base)._replace(quad_panel_gl=False, n_y=N_Y)
         pop = build_audit_population(base, N_AUDIT)
@@ -1541,7 +1778,7 @@ def phase_host_planes(dev) -> None:
         table = table_to_device(make_f_table(base.I_p, n=TABLE_N), dev)
         ref_rel = engine_population_max_rel(pop.grid, ref, static, table, impl="kernel",
                                             n_y=N_Y, device=dev)
-        check(ref_rel <= REF_RTOL, f"reference vs card K1 {ref_rel:.3e} <= {REF_RTOL:g}")
+        check(ref_rel <= REF_RTOL, f"reference vs card P1 {ref_rel:.3e} <= {REF_RTOL:g}")
 
         # the sweep CLI's debugging flags
         cfg = os.path.join(work, "cfg.json")
@@ -1587,7 +1824,7 @@ def phase_host_planes(dev) -> None:
           "native": {"rows": N_PROFILE, "native_seconds": native_s, "numpy_seconds": numpy_s,
                      "bitwise": True},
           "reference": {"n": N_AUDIT, "n_y": N_Y, "cpu_seconds": ref_s,
-                        "k1_vs_reference_max_rel": ref_rel},
+                        "p1_vs_reference_max_rel": ref_rel},
           "sweep_cli": {"sanitize_profile_seconds": checked_s, "traces": n_traces,
                         "summary_equals_in_process": same},
           "debug_nans": {"exit": nan_run.returncode, "seconds": nan_s, "error": nan_op}})
@@ -1647,11 +1884,11 @@ def _pump_fleet(fleet, thetas):
 def phase_serving_path(dev, artifact=None):
     """The serving plane on the emulator_path artifact (built here when
     run alone): the single service under 65,536 in-domain queries (q/s,
-    p50/p99), the mixed requests whose exact fallback runs K1 (against
+    p50/p99), the mixed requests whose exact fallback runs P1 (against
     the plain tabulated engine on the CPU), the 2-replica fleet (bitwise
     the 1-replica one, a replica fault re-answered, every breaker open
-    answered through K1), a rollout cutover under load, and the serve
-    CLI (``--bench``, ``--requests``) in subprocesses.  Returns the K1
+    answered through P1), a rollout cutover under load, and the serve
+    CLI (``--bench``, ``--requests``) in subprocesses.  Returns the P1
     launches of the serving run."""
     from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
     from bdlz_tpu_torch.emulator import load_artifact, make_exact_evaluator, save_artifact
@@ -1686,7 +1923,7 @@ def phase_serving_path(dev, artifact=None):
             return svc, inside, np.asarray(values), lat, wall, mixed, res
 
         (svc, inside, values, lat, wall, mixed, res), counts = _launches_around(serving_run)
-        k1 = counts["reduce"]
+        p1 = counts[MAIN_KERNEL]
         summary = svc.stats.summary()
         check(bool(np.all(np.isfinite(values))) and summary["requests"] == N_SERVE,
               "every in-domain query answered, finite")
@@ -1694,8 +1931,8 @@ def phase_serving_path(dev, artifact=None):
         reasons = sum((list(r.reasons) for r in res), [])
         fb = np.array([r is not None for r in reasons])
         n_ood = sum(r == "ood" for r in reasons)
-        check(n_ood == N_MIXED // 10 and k1 >= 1,
-              f"{n_ood} out-of-domain requests, {k1} K1 launches by the fallback")
+        check(n_ood == N_MIXED // 10 and p1 >= 1,
+              f"{n_ood} out-of-domain requests, {p1} P1 launches by the fallback")
         static = static_choices_from_config(base)._replace(quad_panel_gl=False)
         cols = {n: mixed[fb, k] for k, n in enumerate(art.axis_names)}
         plain = make_exact_evaluator(base, static, n_y=N_Y, impl="tabulated",
@@ -1754,9 +1991,9 @@ def phase_serving_path(dev, artifact=None):
                                                 chunk_size=256, device="cpu")(
                                {n: fleet_th[:256, k] for k, n in enumerate(art.axis_names)}
                            )["DM_over_B"])
-        check(all(r.degraded for r in degraded) and dcounts["reduce"] >= 1
+        check(all(r.degraded for r in degraded) and dcounts[MAIN_KERNEL] >= 1
               and deg_rel <= FALLBACK_RTOL,
-              f"every breaker open: degraded through K1 ({dcounts['reduce']}), {deg_rel:.3e}")
+              f"every breaker open: degraded through P1 ({dcounts[MAIN_KERNEL]}), {deg_rel:.3e}")
 
         # a rollout cutover under load
         art2_dir = os.path.join(work, "art2")
@@ -1820,19 +2057,19 @@ def phase_serving_path(dev, artifact=None):
                       "fallbacks": summary["fallbacks"], "gated": summary["gated_fallbacks"],
                       "warmup_seconds": summary["warmup_seconds"]},
           "mixed": {"n": N_MIXED, "ood": n_ood, "fallbacks": int(fb.sum()),
-                    "gated": int(sum(r.n_gated for r in res)), "k1_launches": k1,
+                    "gated": int(sum(r.n_gated for r in res)), "p1_launches": p1,
                     "fallback_vs_cpu_tabulated_max_rel": fb_rel},
           "per_batch": hot,
           "fleet": {"replicas": 2, "n": len(fleet_th), "seconds": fleet_s,
                     "bitwise_vs_one_replica": bitwise, "fault_reanswered_bitwise": healed_ok,
-                    "health": faulty.health.summary(), "degraded_k1_launches": dcounts["reduce"],
+                    "health": faulty.health.summary(), "degraded_p1_launches": dcounts[MAIN_KERNEL],
                     "degraded_vs_cpu_tabulated_max_rel": deg_rel},
           "rollout": {"requests": len(rolled), "dropped": 0, "answered_by_old": n_old,
                       "hashes": [old_hash, new_hash]},
           "cli": {"bench_queries_per_sec": brec["value"], "bench_wall_seconds": bench_s,
                   "bench_fallbacks": brec["fallbacks"],
                   "requests_equal_in_process": cli_same}})
-    return k1
+    return p1
 
 
 ELASTIC_WORKERS = 3
@@ -1883,13 +2120,14 @@ def phase_elastic_path(dev) -> dict:
                 n_workers=ELASTIC_WORKERS, clock=ManualClock(), **tier))
             check(res.n_points == 32768 and res.n_failed == 0, f"elastic {name}: all finite")
             check(_bitwise(res.outputs, ref.outputs), f"elastic {name}: bitwise run_sweep")
-            check(counts[name] == 4 and sum(counts.values()) == 4,
-                  f"elastic {name}: 4 launches of its kernel only, got {counts}")
-            launches[name] = counts[name]
-            tiers[name] = {"launches": counts[name], "seconds": res.seconds,
+            kernel = TIER_KERNEL[name]
+            check(counts[kernel] == 4 and sum(counts.values()) == 4,
+                  f"elastic {name}: 4 launches of {kernel} only, got {counts}")
+            launches[kernel] = counts[kernel]
+            tiers[name] = {"kernel": kernel, "launches": counts[kernel], "seconds": res.seconds,
                            "serial_seconds": ref.seconds, "points_per_sec": res.points_per_sec}
             if name == "reduce":
-                k1_ref = ref
+                p1_ref = ref
 
         churn = FaultPlan.from_obj([
             {"site": "worker_crash", "kind": "transient", "chunk": 1, "times": 1},
@@ -1900,12 +2138,12 @@ def phase_elastic_path(dev) -> dict:
             lease_ttl_s=5.0, churn_plan=churn, clock=ManualClock(), **kw))
         plan = plan_elastic_sweep(base, MAIN_AXES, static, **kw)
         recs = [read_lease(Store(churn_store), plan.job, ci) for ci in range(plan.n_chunks)]
-        check(_bitwise(res.outputs, k1_ref.outputs) and res.n_quarantined == 0,
+        check(_bitwise(res.outputs, p1_ref.outputs) and res.n_quarantined == 0,
               "elastic under churn: bitwise run_sweep")
         check(recs[1]["failures"] and all(r["state"] == "done" for r in recs),
               f"the crashed worker's chunk was stolen: {recs[1]}")
-        launches["reduce"] += counts["reduce"]
-        churn_row = {"k1_launches": counts["reduce"], "seconds": res.seconds,
+        launches[MAIN_KERNEL] += counts[MAIN_KERNEL]
+        churn_row = {"p1_launches": counts[MAIN_KERNEL], "seconds": res.seconds,
                      "stolen_generation": recs[1]["generation"],
                      "failure_credit": recs[1]["failures"],
                      "generations": [r["generation"] for r in recs]}
@@ -1940,12 +2178,12 @@ def phase_elastic_path(dev) -> dict:
         check(sorted(roles) == ["coordinator", "worker"], f"elected roles {roles}")
         coord = json.loads(outs[roles.index("coordinator")][1].strip().splitlines()[-1])
         worker = json.loads(outs[roles.index("worker")][1].strip().splitlines()[-1])
-        want = _sweep_summary(k1_ref.outputs["DM_over_B"])
+        want = _sweep_summary(p1_ref.outputs["DM_over_B"])
         got = {k: coord["closest_to_planck"][k] for k in want}
         check(coord["n_points"] == 32768 and coord["n_failed"] == 0 and got == want,
               f"coordinator summary {got} against in-process {want}")
         folded = run_sweep_elastic(base, MAIN_AXES, static, store=cli_store, **kw)
-        check(folded.cache_hits == 4 and _bitwise(folded.outputs, k1_ref.outputs),
+        check(folded.cache_hits == 4 and _bitwise(folded.outputs, p1_ref.outputs),
               "the CLI fleet's committed chunks are the in-process bits")
 
         # a CPU role against the card's job is refused by the job record
@@ -1966,7 +2204,7 @@ def phase_elastic_path(dev) -> dict:
 
 
 #: The chain tenant: N = 3 over a (m_chi, v_w) box, P from an analytic
-#: profile (the tests' tanh wall), at the main path's n_y through K1.
+#: profile (the tests' tanh wall), at the main path's n_y through P1.
 CHAIN_SPEC = {"m_chi_GeV": (0.5, 2.0, 5, "log"), "v_w": (0.2, 0.4, 5, "lin")}
 AUTOSCALE_S, FAR_M_CHI = 1.0, 40.0
 
@@ -2004,9 +2242,9 @@ def _drift_queries(artifact, n, seed):
 def _refine_cycle(artifact, base, stream, dev, root):
     """The refinement daemon on a 1-replica fleet of ``artifact``: serve
     ``stream`` in 256-query batches until the daemon sees drift and runs
-    its cycle (snapshot, traffic-weighted rebuild through K1, delivery),
+    its cycle (snapshot, traffic-weighted rebuild through P1, delivery),
     then serve the stream again on whatever surface serves.  Returns
-    (record, K1 launches of the cycle)."""
+    (record, P1 launches of the cycle)."""
     from bdlz_tpu_torch.emulator import artifact_hull
     from bdlz_tpu_torch.parallel import ManualClock
     from bdlz_tpu_torch.provenance import Store
@@ -2039,7 +2277,7 @@ def _refine_cycle(artifact, base, stream, dev, root):
         return sum(r.n_fallback for r in rows) / sum(r.size for r in rows)
 
     far_before = serve([far])[0]
-    rebuild_s, k1, steps, rows = None, 0, 0, []
+    rebuild_s, p1, steps, rows = None, 0, 0, []
     for i in range(0, len(stream), SERVE_BATCH):  # until the daemon sees drift
         serve(stream[i:i + SERVE_BATCH])
         rows = list(fleet.stats.rows[1:])  # served by the seed surface
@@ -2047,10 +2285,10 @@ def _refine_cycle(artifact, base, stream, dev, root):
         status, counts = _launches_around(daemon.step)
         steps += 1
         if status.get("drifted"):
-            rebuild_s, k1 = time.perf_counter() - t1, counts["reduce"]
+            rebuild_s, p1 = time.perf_counter() - t1, counts[MAIN_KERNEL]
             break
-    check(rebuild_s is not None and daemon.cycles == 1 and k1 >= 1,
-          f"the daemon saw the drift and rebuilt through K1 ({k1} launches)")
+    check(rebuild_s is not None and daemon.cycles == 1 and p1 >= 1,
+          f"the daemon saw the drift and rebuilt through P1 ({p1} launches)")
     far_after = serve([far])[0]
     n2 = len(fleet.stats.rows)
     for i in range(0, len(stream), SERVE_BATCH):
@@ -2063,7 +2301,7 @@ def _refine_cycle(artifact, base, stream, dev, root):
     check((decision["outcome"] == "promoted") == published
           and (fleet.artifact_hash != artifact.content_hash) == published,
           f"promoted iff published and serving: {decision}")
-    row = {"drift_at_step": steps, "rebuild_seconds": rebuild_s, "rebuild_k1_launches": k1,
+    row = {"drift_at_step": steps, "rebuild_seconds": rebuild_s, "rebuild_p1_launches": p1,
            "snapshot_ood_rate": daemon.history[0]["snapshot_ood_rate"],
            "snapshot_gated_rate": daemon.history[0]["snapshot_gated_rate"],
            "fallback_rate_before": fallback_rate(rows),
@@ -2071,21 +2309,21 @@ def _refine_cycle(artifact, base, stream, dev, root):
            "far_ood_bitwise": far_bitwise, "decision": decision, "published": published,
            "rollbacks": fleet.stats.extras.get("rollbacks", [])}
     fleet.close()
-    return row, k1
+    return row, p1
 
 
 def phase_fabric_path(dev, artifact=None) -> int:
     """Tenancy, refinement and the fabric on the card.  Two tenants (the
-    emulator_path box and an N=3 chain surface built here through K1)
+    emulator_path box and an N=3 chain surface built here through P1)
     behind one ``MultiTenantService`` at the serve CLI's defaults under a
     steady load on its clock (the autoscaler grows and shrinks the pools),
     answers bitwise a single-tenant fleet's, an eviction answered through
-    K1 and a readmission bitwise the pre-eviction answers; the refinement
+    P1 and a readmission bitwise the pre-eviction answers; the refinement
     daemon on a 1-replica fleet fed the 1,024-request mix until it
-    rebuilds through K1 and cuts over; two fabric hosts over one store: a
-    host crash failed over bitwise, a store partition answered through K1,
-    and an idle host stealing the main grid's chunks through K1, bitwise
-    ``run_sweep``.  Returns the K1 launches of the phase."""
+    rebuilds through P1 and cuts over; two fabric hosts over one store: a
+    host crash failed over bitwise, a store partition answered through P1,
+    and an idle host stealing the main grid's chunks through P1, bitwise
+    ``run_sweep``.  Returns the P1 launches of the phase."""
     import dataclasses
 
     from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
@@ -2122,8 +2360,8 @@ def phase_fabric_path(dev, artifact=None) -> int:
         base_chain, {k: AxisSpec(*v) for k, v in CHAIN_SPEC.items()},
         static_choices_from_config(base_chain), rtol=1e-3, n_probe=16, max_rounds=6,
         n_y=N_Y, chunk_size=N_POINTS, impl="kernel", lz_profile=prof, device=dev))
-    k1 = chain_counts["reduce"]
-    check(k1 >= 1, "the chain tenant was built through K1")
+    p1 = chain_counts[MAIN_KERNEL]
+    check(p1 >= 1, "the chain tenant was built through P1")
     work = tempfile.mkdtemp(prefix="bdlz_fabric_")
     try:
         store = Store(os.path.join(work, "store"))
@@ -2198,10 +2436,10 @@ def phase_fabric_path(dev, artifact=None) -> int:
                 {n: probe[:, k] for k, n in enumerate(artifact.axis_names)})["DM_over_B"]
         deg_rel = _max_rel([r.value for r in deg_resp], plain)
         check(all(r.degraded and r.fallback_reason == "pool_evicted" and r.replica == -1
-                  for r in deg_resp) and deg_counts["reduce"] >= 1
+                  for r in deg_resp) and deg_counts[MAIN_KERNEL] >= 1
               and deg_rel <= FALLBACK_RTOL,
-              f"evicted pool answered through K1 ({deg_counts['reduce']}), {deg_rel:.3e}")
-        k1 += deg_counts["reduce"]
+              f"evicted pool answered through P1 ({deg_counts[MAIN_KERNEL]}), {deg_rel:.3e}")
+        p1 += deg_counts[MAIN_KERNEL]
         svc.memory_budget_bytes = None
         svc.readmit("box")
         post = [svc.submit(t, scenario="box") for t in blocks["box"]]
@@ -2211,13 +2449,13 @@ def phase_fabric_path(dev, artifact=None) -> int:
         tenancy = {"replicas_per_pass": replicas, "wall_ms_per_batch": host_ms,
                    "memory_allocated_bytes": mem, "pool_bytes_per_replica": bytes_est,
                    "bitwise_single_tenant": bitwise_single,
-                   "evicted_k1_launches": deg_counts["reduce"],
+                   "evicted_p1_launches": deg_counts[MAIN_KERNEL],
                    "evicted_vs_cpu_tabulated_max_rel": deg_rel,
                    "readmit_bitwise": readmit_bitwise, "summary": {
                        k: v for k, v in svc.summary().items() if k != "pools"}}
         svc.close()
 
-        # ---- refinement: drift, a traffic-weighted rebuild through K1, delivery
+        # ---- refinement: drift, a traffic-weighted rebuild through P1, delivery
         log_axes = [k for k, sc in enumerate(artifact.axis_scales) if sc == "log"]
         streams = {"mix": _mixed_queries(lo, hi, N_MIXED, 22, log_axes=log_axes),
                    "drift": _drift_queries(artifact, N_MIXED, 23)}
@@ -2225,7 +2463,7 @@ def phase_fabric_path(dev, artifact=None) -> int:
         for name, stream in streams.items():
             row, counts = _refine_cycle(artifact, base, stream, dev,
                                         os.path.join(work, f"refine_{name}"))
-            k1 += counts
+            p1 += counts
             refine[name] = row
         mix, drift = refine["mix"], refine["drift"]
         check(drift["decision"]["outcome"] == "promoted"
@@ -2272,8 +2510,8 @@ def phase_fabric_path(dev, artifact=None) -> int:
         pres, pcounts = _launches_around(
             lambda: hosts[1].submit(trace[0], scenario="box").result(timeout=0))
         check(pres.degraded and pres.fallback_reason == "store_partition"
-              and pcounts["reduce"] >= 1, f"partition answered through K1 ({pcounts})")
-        k1 += pcounts["reduce"]
+              and pcounts[MAIN_KERNEL] >= 1, f"partition answered through P1 ({pcounts})")
+        p1 += pcounts[MAIN_KERNEL]
         check(hosts[1].heartbeat() and not hosts[1].partitioned, "the partition healed")
 
         kw = dict(impl="kernel", chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev)
@@ -2284,24 +2522,24 @@ def phase_fabric_path(dev, artifact=None) -> int:
         hosts[1].attach_sweep(plan, leases)
         _, scounts = _launches_around(lambda: [fab.tick() for _ in range(2)])
         folded = run_sweep_elastic(base, MAIN_AXES, static, store=store, **kw)
-        check(hosts[1].chunks_stolen == 4 and scounts["reduce"] == 4
+        check(hosts[1].chunks_stolen == 4 and scounts[MAIN_KERNEL] == 4
               and folded.cache_hits == 4 and _bitwise(folded.outputs, ref.outputs),
-              f"host 1 stole 4 chunks through K1, bitwise run_sweep ({scounts})")
-        k1 += scounts["reduce"]
+              f"host 1 stole 4 chunks through P1, bitwise run_sweep ({scounts})")
+        p1 += scounts[MAIN_KERNEL]
         fabric = {"failover_bitwise": failover_bitwise, "typed_failures": n_typed,
-                  "failovers": fab.failovers, "partition_k1_launches": pcounts["reduce"],
+                  "failovers": fab.failovers, "partition_p1_launches": pcounts[MAIN_KERNEL],
                   "stolen_chunks": hosts[1].chunks_stolen,
-                  "stolen_k1_launches": scounts["reduce"],
+                  "stolen_p1_launches": scounts[MAIN_KERNEL],
                   "artifact_cache": hosts[1].artifact_cache.counters()}
         fab.close()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "fabric_path", "seconds": time.perf_counter() - t0,
-          "chain_build": {"k1_launches": chain_counts["reduce"],
+          "chain_build": {"p1_launches": chain_counts[MAIN_KERNEL],
                           "converged": chain_rep.converged,
                           "seconds": chain_rep.build_seconds},
-          "tenancy": tenancy, "refine": refine, "fabric": fabric, "k1_launches": k1})
-    return k1
+          "tenancy": tenancy, "refine": refine, "fabric": fabric, "p1_launches": p1})
+    return p1
 
 
 # The mesh: the main grid split over two members of the one card, the sp
@@ -2310,7 +2548,7 @@ def phase_fabric_path(dev, artifact=None) -> int:
 SP_N_Y, SP_RTOL = 1_048_576, 1e-12
 MESH_CLI_TIMEOUT = 300
 #: Runs ``sweep_cli.main`` as ``python -m bdlz_tpu_torch.sweep_cli`` would,
-#: recording what the CLI does not print: each K1 launch's rows, the files
+#: recording what the CLI does not print: each P1 launch's rows, the files
 #: the process wrote and its gathered outputs.  ``argv[2]`` other than "-"
 #: makes this process report another kernel library digest.
 SWEEP_PROBE = r'''
@@ -2324,10 +2562,10 @@ out_npz, digest = sys.argv[1], sys.argv[2]
 if digest != "-":
     kk.kernel_digest = lambda: digest
 rows, writes, box = [], [0], {}
-launch, run_sweep = kk._launch, sw.run_sweep
-def counted_launch(name, reduce, g, *rest):
-    rows.append(int(g.shape[0]))
-    return launch(name, reduce, g, *rest)
+launch, run_sweep = kk._launch_point, sw.run_sweep
+def counted_launch(name, scalars, *rest):
+    rows.append(int(scalars.shape[0]))
+    return launch(name, scalars, *rest)
 def counted(fn):
     def inner(*a, **k):
         writes[0] += 1
@@ -2336,7 +2574,7 @@ def counted(fn):
 def kept(*a, **k):
     box["res"] = res = run_sweep(*a, **k)
     return res
-kk._launch, sw.run_sweep = counted_launch, kept
+kk._launch_point, sw.run_sweep = counted_launch, kept
 io.atomic_savez, io.atomic_write_json = counted(io.atomic_savez), counted(io.atomic_write_json)
 sweep_cli.main(sys.argv[3:])
 res = box["res"]
@@ -2411,16 +2649,16 @@ def _probe(out: str) -> dict:
 
 def phase_mesh_path(dev) -> int:
     """Meshes and processes at full width on the card: (a) the main grid
-    on a ``(2, 1)`` mesh of ``[cuda:0, cuda:0]`` through K1 (8 launches of
+    on a ``(2, 1)`` mesh of ``[cuda:0, cuda:0]`` through P1 (8 launches of
     4096 points) and through the tabulated engine, bitwise the runs
     without a mesh; (b) the archived point's Y_B at n_y 1,048,576 on a
     ``(1, 2)`` mesh against the one-device trapezoid and the CPU; (c)
-    ``sweep_cli --multihost`` in two processes on the card (4 K1 launches
+    ``sweep_cli --multihost`` in two processes on the card (4 P1 launches
     of 4096 points each, the one-process result gathered on both, only
     the coordinator writing, a second invocation resuming every chunk),
     a two-process ``mcmc_cli --multihost`` run with checkpoints resumed
     bitwise, and a run whose kernel digest differs on one process,
-    refused by both; (d) a NCCL world of one.  Returns K1's launches."""
+    refused by both; (d) a NCCL world of one.  Returns P1's launches."""
     from bdlz_tpu_torch.config import (
         config_from_dict,
         point_params_from_config,
@@ -2443,21 +2681,21 @@ def phase_mesh_path(dev) -> int:
     # (plain, mesh, mesh, plain) so that first-use costs fall on neither
     plain = run_sweep(base, MAIN_AXES, static, impl="kernel", device=dev, **kw)
     rows = []
-    launch = kk._launch
+    launch = kk._launch_point
 
-    def counted_launch(name, reduce, g, *rest):
-        rows.append(int(g.shape[0]))
-        return launch(name, reduce, g, *rest)
+    def counted_launch(name, scalars, *rest):
+        rows.append(int(scalars.shape[0]))
+        return launch(name, scalars, *rest)
 
-    kk._launch = counted_launch
+    kk._launch_point = counted_launch
     try:
         meshed, counts = _launches_around(
             lambda: run_sweep(base, MAIN_AXES, static, impl="kernel", mesh=mesh, **kw))
     finally:
-        kk._launch = launch
-    check(counts["reduce"] == 8 and sum(counts.values()) == 8 and rows == [4096] * 8,
-          f"meshed K1: 8 launches of 4096 points, got {counts} rows {rows}")
-    check(_bitwise(meshed.outputs, plain.outputs), "meshed K1 sweep bitwise the plain one")
+        kk._launch_point = launch
+    check(counts[MAIN_KERNEL] == 8 and sum(counts.values()) == 8 and rows == [4096] * 8,
+          f"meshed P1: 8 launches of 4096 points, got {counts} rows {rows}")
+    check(_bitwise(meshed.outputs, plain.outputs), "meshed P1 sweep bitwise the plain one")
     meshed2 = run_sweep(base, MAIN_AXES, static, impl="kernel", mesh=mesh, **kw)
     plain2 = run_sweep(base, MAIN_AXES, static, impl="kernel", device=dev, **kw)
     pinned = static._replace(quad_panel_gl=False)
@@ -2465,7 +2703,7 @@ def phase_mesh_path(dev) -> int:
            for where in ({"device": dev}, {"mesh": mesh}, {"mesh": mesh}, {"device": dev})]
     check(all(_bitwise(t.outputs, tab[0].outputs) for t in tab[1:]),
           "meshed tabulated sweep bitwise the plain one")
-    grid = {"k1": {"launches": counts["reduce"], "rows_per_launch": rows[0],
+    grid = {"p1": {"launches": counts[MAIN_KERNEL], "rows_per_launch": rows[0],
                    "seconds": [meshed.seconds, meshed2.seconds],
                    "plain_seconds": [plain.seconds, plain2.seconds],
                    "points_per_sec": [meshed.points_per_sec, meshed2.points_per_sec],
@@ -2514,8 +2752,8 @@ def phase_mesh_path(dev) -> int:
               f"sweep_cli --multihost: {[err[-1500:] for rc, _, err in cold if rc]}")
         probes = [_probe(out) for _, out, _ in cold]
         for pid, pr in enumerate(probes):
-            check(pr["launches"]["reduce"] == 4 and pr["rows"] == [4096] * 4,
-                  f"process {pid}: 4 K1 launches of 4096 points, got {pr}")
+            check(pr["launches"][MAIN_KERNEL] == 4 and pr["rows"] == [4096] * 4,
+                  f"process {pid}: 4 P1 launches of 4096 points, got {pr}")
             with np.load(os.path.join(work, f"cold_p{pid}.npz")) as data:
                 check(_bitwise(dict(data), plain.outputs),
                       f"process {pid} gathered the one-process result bitwise")
@@ -2534,9 +2772,9 @@ def phase_mesh_path(dev) -> int:
               f"resumed sweep_cli --multihost: {[err[-1500:] for rc, _, err in warm if rc]}")
         for pid, (_, out, _) in enumerate(warm):
             pr = _probe(out)
-            check(pr["resumed"] == 4 and pr["launches"]["reduce"] == 0,
+            check(pr["resumed"] == 4 and pr["launches"][MAIN_KERNEL] == 0,
                   f"process {pid} resumed every chunk: {pr}")
-        multihost_launches = sum(p["launches"]["reduce"] for p in probes)
+        multihost_launches = sum(p["launches"][MAIN_KERNEL] for p in probes)
 
         mcmc_dir = os.path.join(work, "chain")
 
@@ -2584,7 +2822,7 @@ def phase_mesh_path(dev) -> int:
         shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "mesh_path", "seconds": time.perf_counter() - t0,
           "mesh": {"shape": [2, 1], "members": [str(dev)] * 2}, "grid": grid, "sp": sp_row,
-          "multihost": {"processes": 2, "k1_launches": [p["launches"]["reduce"] for p in probes],
+          "multihost": {"processes": 2, "p1_launches": [p["launches"][MAIN_KERNEL] for p in probes],
                         "rows_per_launch": probes[0]["rows"][0], "bitwise": True,
                         "coordinator_writes": probes[0]["writes"],
                         "other_writes": probes[1]["writes"], "seconds": cold_s,
@@ -2593,7 +2831,7 @@ def phase_mesh_path(dev) -> int:
                    "seconds": mcmc_s, "resumed_segments": s2["resumed_segments"],
                    "bitwise": chain_same, "acceptance": s1["acceptance"]},
           "mixed_digest_refused": [bool(r) for r in refused], "nccl_world_of_one": world})
-    return counts["reduce"] + multihost_launches
+    return counts[MAIN_KERNEL] + multihost_launches
 
 
 # ---- graft_path: the compile-check entry points on the card ----------------
@@ -2607,9 +2845,9 @@ def phase_graft_path(dev) -> int:
     the CPU and its time per call (CUDA events, median of 5); then
     ``dryrun_multichip(n)`` for n = 2 and 4 with every member on the one
     card, each step against the same call on host members (χ², ratios,
-    K1 ratios and the sp Y_B ≤1e-12 rel; the ESDIRK Y_B at the stiff
-    engine's card-vs-CPU tolerance) and K1 launched once per member.
-    Returns K1's launches."""
+    P1 ratios and the sp Y_B ≤1e-12 rel; the ESDIRK Y_B at the stiff
+    engine's card-vs-CPU tolerance) and P1 launched once per member.
+    Returns P1's launches."""
     from bdlz_tpu_torch import graft_entry as ge
 
     t0 = time.perf_counter()
@@ -2623,7 +2861,7 @@ def phase_graft_path(dev) -> int:
           f"entry() fn on the card vs the CPU {r_entry:.3e} <= {GRAFT_RTOL:g}")
     entry_ms = _cuda_ms(lambda: fn(pp, table), reps=1, repeats=5)
 
-    runs, k1 = {}, 0
+    runs, p1 = {}, 0
     for n in GRAFT_MESHES:
         t1 = time.perf_counter()
         card, counts = _launches_around(lambda: ge.dryrun_multichip(n))
@@ -2631,8 +2869,8 @@ def phase_graft_path(dev) -> int:
         t1 = time.perf_counter()
         host = ge.dryrun_multichip(n, devices="cpu")
         host_s = time.perf_counter() - t1
-        check(counts["reduce"] == n and sum(counts.values()) == n,
-              f"dryrun({n}): one K1 launch per member and no other kernel, got {counts}")
+        check(counts[MAIN_KERNEL] == n and sum(counts.values()) == n,
+              f"dryrun({n}): one P1 launch per member and no other kernel, got {counts}")
         check(card["mesh"] == host["mesh"] == {"dp": n // 2, "sp": 2}
               and card["engines"] == host["engines"], f"dryrun({n}): {card['engines']}")
         rel = {key: _max_rel(card[key], host[key])
@@ -2640,18 +2878,18 @@ def phase_graft_path(dev) -> int:
         tabulated = _max_rel(card["ratios_kernel"], card["ratios"])
         check(max(v for k, v in rel.items() if k != "Y_B_esdirk") <= GRAFT_RTOL
               and rel["Y_B_esdirk"] <= CARD_CPU_RTOL and tabulated <= ge.KERNEL_RTOL,
-              f"dryrun({n}) card vs host {rel}, K1 vs tabulated {tabulated:.3e}")
-        k1 += counts["reduce"]
+              f"dryrun({n}) card vs host {rel}, P1 vs tabulated {tabulated:.3e}")
+        p1 += counts[MAIN_KERNEL]
         runs[n] = {"mesh": card["mesh"], "members": [str(dev)] * n, "batch": card["batch"],
-                   "chi2": card["chi2"], "k1_launches": counts["reduce"],
-                   "card_vs_host_max_rel": rel, "k1_vs_tabulated_max_rel": tabulated,
+                   "chi2": card["chi2"], "p1_launches": counts[MAIN_KERNEL],
+                   "card_vs_host_max_rel": rel, "p1_vs_tabulated_max_rel": tabulated,
                    "seconds": card_s, "host_seconds": host_s}
     emit({"phase": "graft_path", "seconds": time.perf_counter() - t0,
           "entry": {"points": int(got.shape[0]), "n_y": ge.ENTRY_N_Y,
                     "table_n": ge.ENTRY_TABLE_N, "card_vs_cpu_max_rel": r_entry,
                     "ms_median": float(np.median(entry_ms)), "ms": entry_ms},
-          "dryrun": runs, "k1_launches": k1})
-    return k1
+          "dryrun": runs, "p1_launches": p1})
+    return p1
 
 
 OVERLAP_RUNS = 5           # main-grid runs per side, taken in turns
@@ -2704,12 +2942,12 @@ def _device_timeline(prof) -> dict:
 
 def phase_overlap_path(dev) -> dict:
     """The sweep's double-buffered chunk loop on the main grid (32768
-    points in 4 chunks of 8192, n_y 8000, K1) against the serial loop,
+    points in 4 chunks of 8192, n_y 8000, P1) against the serial loop,
     in turns, 5 runs each: outputs bitwise equal, points/s per side, and
     under ``torch.profiler`` each side's device busy share, largest idle
     gap, chunk-boundary gaps and peak memory.  Then the tiered population
     gate (``validation.engine_population_max_rel`` through
-    ``parallel.sweep.make_chunk_runner``) for K1-K4 on 1024 audit points
+    ``parallel.sweep.make_chunk_runner``) for P1/K2/P3/K4 on 1024 audit points
     against the tabulated engine.  Returns each kernel's launches."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2729,23 +2967,23 @@ def phase_overlap_path(dev) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         res, counts = _launches_around(lambda: run_sweep(base, MAIN_AXES, static,
                                                          overlap_chunks=overlap, **kw))
-        check(counts["reduce"] == 4 and sum(counts.values()) == 4,
-              f"overlap={overlap}: 4 K1 launches and no other kernel, got {counts}")
+        check(counts[MAIN_KERNEL] == 4 and sum(counts.values()) == 4,
+              f"overlap={overlap}: 4 P1 launches and no other kernel, got {counts}")
         for k in launches:
             launches[k] += counts.get(k, 0)
-        return res, counts["reduce"], torch.cuda.max_memory_allocated(dev)
+        return res, counts[MAIN_KERNEL], torch.cuda.max_memory_allocated(dev)
 
     first, _, _ = run(False)
     ref = first.outputs
-    sides = {True: {"pps": [], "k1": [], "peak": []}, False: {"pps": [], "k1": [], "peak": []}}
+    sides = {True: {"pps": [], "p1": [], "peak": []}, False: {"pps": [], "p1": [], "peak": []}}
     for _ in range(OVERLAP_RUNS):
         for overlap in (True, False):
-            res, k1, peak = run(overlap)
+            res, p1, peak = run(overlap)
             check(res.n_failed == 0 and res.chunks == 4, f"overlap={overlap}: 4 chunks, finite")
             check(all(res.outputs[f].tobytes() == ref[f].tobytes() for f in ref),
                   f"overlap={overlap}: outputs bitwise the first serial run's")
             sides[overlap]["pps"].append(res.points_per_sec)
-            sides[overlap]["k1"].append(k1)
+            sides[overlap]["p1"].append(p1)
             sides[overlap]["peak"].append(peak)
     out = {}
     for overlap in (True, False):
@@ -2755,7 +2993,7 @@ def phase_overlap_path(dev) -> dict:
         side = sides[overlap]
         out["overlap" if overlap else "serial"] = {
             "points_per_sec_median": float(np.median(side["pps"])),
-            "points_per_sec_samples": side["pps"], "k1_launches_per_run": side["k1"],
+            "points_per_sec_samples": side["pps"], "p1_launches_per_run": side["p1"],
             "peak_mem_bytes": max(side["peak"]),
             "profiled": {"wall_ms": res.seconds * 1e3,
                          "device_busy_share": tl["busy_ms"] / (res.seconds * 1e3),
@@ -2776,11 +3014,12 @@ def phase_overlap_path(dev) -> dict:
         rel, counts = _launches_around(lambda: engine_population_max_rel(
             pop.grid, ref_pop, gstatic, table, impl="kernel", n_y=N_Y, fuse_exp=fuse_exp,
             reduce=reduce, device=dev))
-        check(counts[name] == 1 and sum(counts.values()) == 1,
-              f"gate {name}: one launch of its kernel, got {counts}")
+        kernel = TIER_KERNEL[name]
+        check(counts[kernel] == 1 and sum(counts.values()) == 1,
+              f"gate {name}: one launch of {kernel}, got {counts}")
         check(rel <= GATE_RTOL, f"gate {name}: {rel:.3e} <= {GATE_RTOL:g}")
-        launches[name] += counts[name]
-        gates[name] = {"max_rel_vs_tabulated": rel, "launches": counts[name],
+        launches[kernel] += counts[kernel]
+        gates[name] = {"kernel": kernel, "max_rel_vs_tabulated": rel, "launches": counts[kernel],
                        "seconds": time.perf_counter() - t1}
     emit({"phase": "overlap_path", "points": first.n_points, "chunk": N_POINTS, "n_y": N_Y,
           "table_n": TABLE_N, "runs_per_side": OVERLAP_RUNS, "outputs_bitwise": True,
@@ -2825,12 +3064,14 @@ def main(argv=None) -> int:
             STANDALONE[name](dev)
         emit({"phase": "done", "seconds": time.perf_counter() - t0, "only": only})
         return 0
-    streams, table, errs = phase_parity(dev)
+    streams, table, errs, parity_pp = phase_parity(dev)
+    errs.update(phase_point_parity(dev, parity_pp, table))
+    del parity_pp
     launches = phase_main_path(dev)
     timing, sweep_pps = phase_timing(dev, streams, table)
     del streams
     phase_profile(dev)
-    # K1 through the double-buffered and the serial loop, K1-K4 through
+    # P1 through the double-buffered and the serial loop, P1/K2/P3/K4 through
     # the chunk runner's tiered gate
     for name, n in phase_overlap_path(dev).items():
         launches[name] += n
@@ -2843,23 +3084,26 @@ def main(argv=None) -> int:
     artifact = phase_emulator_path(dev)
     phase_sampling_path(dev, artifact)
     phase_host_planes(dev)
-    # K1's row counts the main path's launches and the serving run's
-    launches["reduce"] += phase_serving_path(dev, artifact)
-    # K1-K4 on the elastic sweep, and K1 through tenancy, refinement and
+    # P1's row counts the main path's launches and the serving run's
+    launches[MAIN_KERNEL] += phase_serving_path(dev, artifact)
+    # P1/K2/P3/K4 on the elastic sweep, and P1 through tenancy, refinement and
     # the fabric
     for name, n in phase_elastic_path(dev).items():
         launches[name] += n
-    launches["reduce"] += phase_fabric_path(dev, artifact)
-    # K1 on every mesh member and every process
-    launches["reduce"] += phase_mesh_path(dev)
-    # K1 on every member of the mesh dry runs
-    launches["reduce"] += phase_graft_path(dev)
+    launches[MAIN_KERNEL] += phase_fabric_path(dev, artifact)
+    # P1 on every mesh member and every process
+    launches[MAIN_KERNEL] += phase_mesh_path(dev)
+    # P1 on every member of the mesh dry runs
+    launches[MAIN_KERNEL] += phase_graft_path(dev)
+    check(all(launches[k] > 0 for k in TIER_KERNEL.values()),
+          f"every tier's kernel launched on the main path, got {launches}")
     from bdlz_tpu_torch.ops import bounce_kernel as bk
 
     emit({"kernels": [{
         "name": kk.KERNELS[name][0],
         "route": "cuda",
-        "source": "bdlz_tpu_torch/csrc/" + kk.SOURCE,
+        "source": "bdlz_tpu_torch/csrc/" + (kk.POINT_SOURCE if name in POINT_KERNELS
+                                            else kk.SOURCE),
         "replaces": kk.KERNELS[name][1],
         "launches": launches[name],
         "max_abs_err": errs[name]["max_abs_err"],
@@ -2868,7 +3112,7 @@ def main(argv=None) -> int:
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
         "library_ms": None,  # no single PyTorch call computes interpolate-and-reduce
-    } for name in TIERS] + [{
+    } for name in POINT_KERNELS + tuple(TIERS)] + [{
         "name": bk.KERNELS["shoot"][0],
         "route": "cuda",
         "source": "bdlz_tpu_torch/csrc/" + bk.SOURCE,

@@ -100,7 +100,7 @@ def test_launch_counter_counts_kernel_launches_only(setup):
     kk.interp_reduce(st.g, st.i1, st.sfrac, table.values)
     kk.interp_reduce_plain(st.g, st.i1, st.sfrac, table.values)
     assert kk.LAUNCHES == {"reduce": 1, "stream": 0, "fused_reduce": 0,
-                           "fused_stream": 0}
+                           "fused_stream": 0, "point_reduce": 0, "point_fused_reduce": 0}
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(setup, cuda):
@@ -123,12 +123,108 @@ def test_kernel_sweep_matches_tabulated_sweep(setup, cuda):
             "T_p_GeV": np.geomspace(30.0, 300.0, 4)}
     kk.reset_launches()
     got = run_sweep(base, axes, static, chunk_size=16, n_y=2000, impl="kernel", device=cuda)
-    assert kk.LAUNCHES["reduce"] == 2
+    assert kk.LAUNCHES == {k: (2 if k == "point_reduce" else 0) for k in kk.LAUNCHES}
     ref = run_sweep(base, axes, static, chunk_size=16, n_y=2000,
                     impl="tabulated", device=cuda)
     g, r = got.outputs["DM_over_B"], ref.outputs["DM_over_B"]
     assert np.isfinite(g).all()
     assert np.max(np.abs(g - r) / np.abs(r)) <= 1e-10
+
+
+# ---- the point kernels (csrc/kjma_point.cu) ---------------------------------
+
+POINT_RTOL = 1e-13   # kernel vs plain per point: the summation order differs
+
+
+def _window(s, lo, hi):
+    """``s`` with every row's window set to [lo, hi] by hand."""
+    s = s.clone()
+    c = kk._COL
+    s[:, c["y_lo"]], s[:, c["y_hi"]] = lo, hi
+    return s
+
+
+def _edge_scalars(base, table, n_y, dev):
+    """Rows of every kind the point kernels take: the setup's seam-crossing
+    points, empty (reversed, clipped away, zero-width) windows, windows
+    across and above y = 50, stacked into one block."""
+    import dataclasses
+
+    rng = np.random.default_rng(3)
+    grid = build_grid(base, {
+        "m_chi_GeV": np.exp(rng.uniform(np.log(0.1), np.log(1000.0), 133)),
+        "T_p_GeV": rng.uniform(30.0, 300.0, 133),
+        "source_shape_sigma_y": rng.uniform(2.0, 20.0, 133)}, product=False)
+    parts = [kk.point_scalars(point_params_from_numpy(grid, dev), "fermion", table, n_y)]
+    for lo, hi, B in ((5.0, 4.0, 100.0), (4.0, 5.0, 400.0), (1.0, 1.0, 100.0)):
+        cfg = dataclasses.replace(base, T_min_over_Tp=lo, T_max_over_Tp=hi, beta_over_H=B)
+        pp = point_params_from_numpy(build_grid(cfg, {"m_chi_GeV": [0.95, 500.0]}), dev)
+        parts.append(kk.point_scalars(pp, "fermion", table, n_y))
+    parts.append(_window(parts[0][:4], 40.0, 60.0))
+    parts.append(_window(parts[0][:4], 51.0, 60.0))
+    return torch.cat(parts).contiguous()
+
+
+def _point_rel(got, ref):
+    zero = ref == 0
+    assert torch.equal(got[zero], ref[zero])  # empty windows: exactly 0 on both
+    return ((got - ref).abs() / ref.abs().clamp_min(1e-300))[~zero].max().item()
+
+
+@pytest.mark.parametrize("n_y", [2000, N_Y])
+@pytest.mark.parametrize("name", ["point_reduce", "point_fused_reduce"])
+def test_point_kernel_matches_plain_version(name, n_y, setup, cuda):
+    base, table, _ = setup
+    s = _edge_scalars(base, table, n_y, cuda)
+    fn, plain = getattr(kk, name), getattr(kk, name + "_plain")
+    # a table of ones too: the KJMA F underflows long before y = 50, so only
+    # there do the nodes above the cut carry weight until the select drops them
+    ones = table._replace(values=torch.ones_like(table.values))
+    for tab, rows in ((table, s), (table, s[:1]), (table, s[:0]), (table, s[:133]),
+                      (ones, s)):
+        kk.reset_launches()
+        got = fn(rows, tab, n_y)
+        torch.cuda.synchronize()
+        assert kk.LAUNCHES[name] == (1 if rows.shape[0] else 0)
+        ref = plain(rows, tab, n_y)
+        assert got.shape == ref.shape == (rows.shape[0],) and torch.isfinite(got).all()
+        if rows.shape[0]:
+            assert _point_rel(got, ref) <= POINT_RTOL
+
+
+def test_point_kernel_is_bitwise_reproducible(setup, cuda):
+    base, table, _ = setup
+    s = _edge_scalars(base, table, N_Y, cuda)
+    for fn in (kk.point_reduce, kk.point_fused_reduce):
+        assert torch.equal(fn(s, table, N_Y), fn(s, table, N_Y))
+
+
+def test_point_wrapper_rejects_what_the_kernel_does_not_take(setup, cuda):
+    base, table, _ = setup
+    s = _edge_scalars(base, table, N_Y, cuda)
+    with pytest.raises(TypeError):
+        kk.point_reduce(s.float(), table, N_Y)
+    with pytest.raises(ValueError):
+        kk.point_reduce(s, table._replace(values=table.values.cpu()), N_Y)
+    with pytest.raises(ValueError):
+        kk.point_reduce(s.t().contiguous().t(), table, N_Y)
+    with pytest.raises(ValueError):
+        kk.point_reduce(s[:, :-1].contiguous(), table, N_Y)
+    big = torch.zeros(32768, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        kk.point_fused_reduce(s, table._replace(values=big), N_Y)
+
+
+def test_kernel_sweep_runs_the_point_kernel_once_per_chunk_and_k1_never(setup, cuda):
+    base, _, _ = setup
+    static = static_choices_from_config(base)
+    axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 8), "T_p_GeV": np.geomspace(30.0, 300.0, 6)}
+    for fuse_exp, name in ((False, "point_reduce"), (True, "point_fused_reduce")):
+        kk.reset_launches()
+        res = run_sweep(base, axes, static, chunk_size=16, n_y=N_Y, impl="kernel",
+                        fuse_exp=fuse_exp, device=cuda)
+        assert res.chunks == 3 and res.n_failed == 0
+        assert kk.LAUNCHES == {k: (3 if k == name else 0) for k in kk.LAUNCHES}
 
 
 STIFF = dict(ARCHIVED, Gamma_wash_over_H=0.01, T_min_over_Tp=0.1)
@@ -320,11 +416,11 @@ def test_sweep_resume_on_the_card_is_bitwise(cuda, tmp_path):
     kk.reset_launches()
     first = run_sweep(base, axes, static, out_dir=str(tmp_path / "d"),
                       cache=Store(str(tmp_path / "s")), **kw)
-    assert kk.LAUNCHES["reduce"] == 4 and first.cache_misses == 4
+    assert kk.LAUNCHES["point_reduce"] == 4 and first.cache_misses == 4
     kk.reset_launches()
     again = run_sweep(base, axes, static, out_dir=str(tmp_path / "d"), **kw)
     warm = run_sweep(base, axes, static, cache=Store(str(tmp_path / "s")), **kw)
-    assert kk.LAUNCHES["reduce"] == 0
+    assert kk.LAUNCHES["point_reduce"] == 0
     assert again.resumed_chunks == 4 and warm.cache_hits == 4
     for f, v in first.outputs.items():
         assert np.array_equal(again.outputs[f], v) and np.array_equal(warm.outputs[f], v), f
@@ -427,7 +523,7 @@ def test_yield_service_on_the_card_launches_k1_and_matches_the_cpu(cuda, tmp_pat
     assert on_card.exact_engine == "kernel"
     kk.reset_launches()
     got, n_fb = on_card.evaluate(th)
-    assert n_fb >= 16 and kk.LAUNCHES["reduce"] >= 1
+    assert n_fb >= 16 and kk.LAUNCHES["point_reduce"] >= 1
     ref, n_ref = YieldService(art, base, max_batch_size=64, device="cpu").evaluate(th)
     assert n_ref == n_fb
     assert np.max(np.abs(got / ref - 1.0)) <= 1e-10
@@ -437,6 +533,9 @@ def test_yield_service_on_the_card_launches_k1_and_matches_the_cpu(cuda, tmp_pat
 
 TIER_ARGS = {"reduce": (False, True), "stream": (False, False),
              "fused_reduce": (True, True), "fused_stream": (True, False)}
+#: The kernel each tier launches: the reduce tiers run the point kernels.
+TIER_KERNEL = {"reduce": "point_reduce", "stream": "stream",
+               "fused_reduce": "point_fused_reduce", "fused_stream": "fused_stream"}
 
 
 @pytest.mark.parametrize("tier", sorted(TIER_ARGS))
@@ -454,7 +553,7 @@ def test_an_elastic_kernel_sweep_is_bitwise_run_sweep(tier, cuda, tmp_path):
     ref = run_sweep(base, axes, static, **kw)
     kk.reset_launches()
     res = run_sweep_elastic(base, axes, static, store=str(tmp_path / "s"), n_workers=3, **kw)
-    assert kk.LAUNCHES[tier] == 4
+    assert kk.LAUNCHES[TIER_KERNEL[tier]] == 4
     for f in ref.outputs:
         assert res.outputs[f].tobytes() == ref.outputs[f].tobytes(), f
 
@@ -491,7 +590,7 @@ def test_an_evicted_pool_answers_through_k1_on_the_card(cuda, tmp_path):
         futs = [svc.submit(t, scenario="a") for t in th]
         svc.drain()
         got = np.array([f.result(timeout=0).value for f in futs])
-        assert kk.LAUNCHES["reduce"] >= 1
+        assert kk.LAUNCHES["point_reduce"] >= 1
         assert all(f.result(timeout=0).fallback_reason == "pool_evicted" for f in futs)
     finally:
         svc.close()
@@ -519,7 +618,7 @@ def test_a_partitioned_host_answers_through_k1_on_the_card(cuda, tmp_path):
         kk.reset_launches()
         r = host.submit([1.01, 101.0], scenario="a").result(timeout=0)
         assert r.degraded and r.fallback_reason == "store_partition"
-        assert kk.LAUNCHES["reduce"] >= 1 and np.isfinite(r.value)
+        assert kk.LAUNCHES["point_reduce"] >= 1 and np.isfinite(r.value)
     finally:
         host.close()
 
@@ -537,7 +636,7 @@ def test_a_two_member_mesh_on_one_card_is_k1_bitwise_twice_per_chunk(setup, cuda
     kk.reset_launches()
     meshed = run_sweep(base, axes, static, chunk_size=16, n_y=2000, impl="kernel",
                        mesh=make_mesh((2, 1), devices=[cuda, cuda]))
-    assert kk.LAUNCHES["reduce"] == 2 * meshed.chunks == 4
+    assert kk.LAUNCHES["point_reduce"] == 2 * meshed.chunks == 4
     np.testing.assert_array_equal(meshed.outputs["DM_over_B"], plain.outputs["DM_over_B"])
 
 
@@ -572,7 +671,7 @@ def test_the_overlapped_k1_sweep_is_bitwise_the_serial_one_on_the_card(cuda):
     for overlap in (True, False, True):
         kk.reset_launches()
         runs.append(run_sweep(base, axes, static, overlap_chunks=overlap, **kw))
-        assert kk.LAUNCHES == {k: (4 if k == "reduce" else 0) for k in kk.LAUNCHES}
+        assert kk.LAUNCHES == {k: (4 if k == "point_reduce" else 0) for k in kk.LAUNCHES}
     assert runs[0].n_failed == 0 and runs[0].chunks == 4
     for f, v in runs[1].outputs.items():
         assert runs[0].outputs[f].tobytes() == v.tobytes() == runs[2].outputs[f].tobytes(), f
@@ -594,12 +693,12 @@ def test_make_chunk_runner_launches_exactly_its_tier_s_kernel(tier, setup, cuda)
                                    fuse_exp=fuse_exp, reduce=reduce, device=cuda)
     got = np.concatenate([run(lo, lo + chunk) for lo in range(0, 48, chunk)])
     assert chunk == 16 and got.shape == (48,) and np.isfinite(got).all()
-    assert kk.LAUNCHES == {k: (3 if k == tier else 0) for k in kk.LAUNCHES}
+    assert kk.LAUNCHES == {k: (3 if k == TIER_KERNEL[tier] else 0) for k in kk.LAUNCHES}
     ref_run, _ = make_chunk_runner(grid, 48, static, table, impl="tabulated", n_y=N_Y,
                                    device=cuda)
     ref = ref_run(0, 48)
     kk.reset_launches()
     gate = engine_population_max_rel(grid, ref, static, table, impl="kernel", n_y=N_Y,
                                      fuse_exp=fuse_exp, reduce=reduce, device=cuda)
-    assert kk.LAUNCHES == {k: (1 if k == tier else 0) for k in kk.LAUNCHES}
+    assert kk.LAUNCHES == {k: (1 if k == TIER_KERNEL[tier] else 0) for k in kk.LAUNCHES}
     assert gate <= 1e-10

@@ -375,7 +375,7 @@ def run_sweep_elastic(
     folds as NaN with its mask; a dead fleet with work left gets a
     replacement worker; past ``max_rounds`` the protocol is declared stuck
     (:class:`ElasticError`).  ``device`` is the card unless the caller
-    asks for the CPU; ``impl="kernel"`` runs P1, K2, P3 or K4 by its ``reduce`` and
+    asks for the CPU; ``impl="kernel"`` runs P1, P2, P3 or P4 by its ``reduce`` and
     ``fuse_exp`` tiers."""
     from bdlz_tpu_torch.faults import FaultPlan
     from bdlz_tpu_torch.parallel.sweep import SweepResult, chunk_entry_ok

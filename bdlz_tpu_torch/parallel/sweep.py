@@ -738,7 +738,7 @@ def build_chunk_engine(
 ):
     """``(step, aux)`` of one engine on ``device``: the F-table shipped
     once (``table_np`` reuses a host-built table) or the KJMA z-grid, and
-    on the card the kernels' libraries built and loaded.  Every
+    on the card the kernels' library built and loaded.  Every
     identity-affecting knob must already be resolved.  With a ``mesh``,
     ``aux`` is ``{device: aux}`` over this process's distinct members
     and ``step`` is the mesh step of :func:`make_sweep_step`."""
@@ -751,9 +751,8 @@ def build_chunk_engine(
     auxes = {dev: (table_to_device(table_np, dev) if impl in ("kernel", "tabulated")
                    else make_kjma_grid(dev)) for dev in devices}
     if impl == "kernel" and any(dev.type == "cuda" for dev in devices):
-        from bdlz_tpu_torch.ops.kjma_kernel import load_library, load_point_library
+        from bdlz_tpu_torch.ops.kjma_kernel import load_point_library
 
-        load_library()
         load_point_library()
     step = make_sweep_step(static, n_y, impl, fuse_exp, reduce, esdirk_knobs=esdirk_knobs,
                            esdirk_stats_sink=esdirk_stats_sink, mesh=mesh)
@@ -1053,9 +1052,9 @@ def plan_sweep(
 
 def agree_kernel_digest() -> None:
     """The fleet's agreement on what keys the kernels' numerics: the
-    library digests of both kernel sources, ``kjma_interp.cu`` and
-    ``kjma_point.cu`` (``ops/kjma_kernel.SOURCE`` and ``POINT_SOURCE``,
-    their text and nvcc flags, ``ops/kjma_kernel.kernel_digest``), the port's counterpart of JAX's
+    library digest of the kernel source, ``kjma_point.cu``
+    (``ops/kjma_kernel.POINT_SOURCE``, its text and nvcc flags,
+    ``ops/kjma_kernel.kernel_digest``), the port's counterpart of JAX's
     ``COL_BLOCK``/``TABLE_SPLIT3`` knobs.  One ``allreduce_min`` over
     ``[v, -v]`` gives ``[min, -max]``; min ≠ max raises on every process
     together, so a fleet with mixed builds never splices mixed-kernel
@@ -1070,8 +1069,7 @@ def agree_kernel_digest() -> None:
         raise RuntimeError(
             f"the kernel library digest differs across hosts (min {lo:015x}, max "
             f"{-neg_hi:015x}; this host {local:015x}); build one "
-            f"{kjma_kernel.SOURCE} and one {kjma_kernel.POINT_SOURCE} with one set of "
-            "flags fleet-wide"
+            f"{kjma_kernel.POINT_SOURCE} with one set of flags fleet-wide"
         )
 
 

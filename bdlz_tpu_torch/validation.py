@@ -362,7 +362,7 @@ def engine_population_max_rel(
     chunk, padded to a multiple of the mesh's members, unless the memory
     clamp cuts it) and measure :func:`population_max_rel`.  ``impl`` with
     ``fuse_exp``/``reduce`` picks the engine and, for ``"kernel"``, its
-    tier (P1, K2, P3, K4); ``table`` is the F-table on any device, or with a
+    tier (P1, P2, P3, P4); ``table`` is the F-table on any device, or with a
     ``mesh`` ``{device: aux}`` as ``build_chunk_engine`` builds it."""
     from bdlz_tpu_torch.parallel.sweep import make_chunk_runner, mesh_pad
 

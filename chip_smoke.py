@@ -5,9 +5,11 @@
 
 It builds the port's CUDA kernels from ``bdlz_tpu_torch/csrc`` with
 ``nvcc`` (sm_90a), holds each kernel against its plain PyTorch version at
-the production shapes (``point_parity``: the point kernels P1 and P3, which
-compute the reduce tiers' whole function from per-point scalars, over the
-main grid's first chunk, the audit population and edge cases), drives the
+the production shapes (``parity``: the stream tiers' point kernels P2 and
+P4 node by node on a seam-crossing grid; ``point_parity``: the point
+kernels P1-P4, which compute each tier's whole function from per-point
+scalars, over the main grid's first chunk, the audit population and edge
+cases), drives the
 port's sweep — the system's main path —
 at full width through each kernel tier, checks the results against the
 plain tabulated engine and the archived point, and times the kernels.
@@ -19,7 +21,7 @@ Before those, ``overlap_path`` runs the main grid through P1 with the
 sweep's double-buffered chunk loop and with the serial loop, in turns
 (bitwise equal outputs, points/s, and under the profiler each side's
 device busy share, idle gaps between chunks and peak memory), and the
-tiered population gate through ``make_chunk_runner`` for P1/K2/P3/K4.
+tiered population gate through ``make_chunk_runner`` for P1-P4.
 Then come the bounce solver, whose shoot is one hand-written kernel
 (``bounce_path``: a depth-k bisection tree per lane, against its plain
 version, against the JAX package's reference shoot and bit for bit
@@ -101,21 +103,23 @@ MAIN_AXES = {  # 64 x 32 x 16 = 32768 points, 4 chunks of 8192
     "v_w": np.linspace(0.05, 0.95, 16),
 }
 # (fuse_exp, reduce) of each kernel tier of the sweep, and the kernel each
-# tier launches: the reduce tiers run the point kernels (P1, P3) of
-# csrc/kjma_point.cu, the stream tiers K2 and K4 of csrc/kjma_interp.cu.
-# The stream-input K1 and K3 are held against their plain versions and
-# timed here, but no path of the port launches them.
+# tier launches: the point kernels of csrc/kjma_point.cu, P1 and P3 for the
+# reduce tiers, P2 and P4 for the stream tiers.
 TIERS = {"reduce": (False, True), "fused_reduce": (True, True),
          "stream": (False, False), "fused_stream": (True, False)}
 TIER_KERNEL = {"reduce": "point_reduce", "fused_reduce": "point_fused_reduce",
-               "stream": "stream", "fused_stream": "fused_stream"}
-POINT_KERNELS = ("point_reduce", "point_fused_reduce")
+               "stream": "point_stream", "fused_stream": "point_fused_stream"}
+#: P1, P3, P2, P4: kjma_point_kernel<FUSED, REDUCE>'s instantiations.
+POINT_KERNELS = ("point_reduce", "point_fused_reduce", "point_stream", "point_fused_stream")
+STREAM_KERNELS = ("point_stream", "point_fused_stream")
 MAIN_KERNEL = TIER_KERNEL["reduce"]  # P1, the default tier's kernel
-REDUCE_RTOL, STREAM_RTOL, SWEEP_RTOL, ARCHIVED_RTOL = 1e-12, 1e-13, 1e-10, 1e-9
-# a point kernel against its plain version per point (the summation order
-# differs), and the point route's Y_B against the stream route's (the
-# stream's peak normalisation adds two roundings per node)
-POINT_RTOL, ROUTE_RTOL = 1e-13, 1e-12
+SWEEP_RTOL, ARCHIVED_RTOL = 1e-10, 1e-9
+# a reduce kernel against its plain version per point (the summation order
+# differs); a stream kernel against its plain version per node, relative
+# to the row's largest node (the same operations in the same order); the
+# reduce tier's Y_B against the stream tier's (the summation order only)
+POINT_RTOL, STREAM_RTOL, ROUTE_RTOL = 1e-13, 1e-14, 1e-13
+Y_CUT = 50.0  # the hard A/V = 0 cut: nodes above it are 0
 # The stiff grid: the archived point with washout on and the window cut at
 # T_p/20, over m_chi x Gamma_wash/H = 32 x 32 = 1024 points, nothing cut.
 STIFF = dict(ARCHIVED, Gamma_wash_over_H=0.01, T_min_over_Tp=0.05)
@@ -155,17 +159,12 @@ PROBE_REPS = 4096
 # 34 TFLOP/s FP64 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 34e12
-# f64 operations per node, counted from csrc/kjma_interp.cu: 3 offsets,
-# 4 weights of 3 ops, a 4-tap combine of 7, one product with g (+1 with
-# e^a), +1 accumulate in the reduce kernels; an f64 exp counted as 20.
+# f64 instructions of one exp, counted as 20.
 EXP_FLOPS = 20
-FLOPS_PER_NODE = {"reduce": 24, "stream": 23,
-                  "fused_reduce": 25 + EXP_FLOPS, "fused_stream": 24 + EXP_FLOPS}
-# bytes per node: g 8 + i1 4 + sfrac 8 (+ a 8), + 8 written by the stream kernels
-BYTES_PER_NODE = {"reduce": 20, "stream": 28, "fused_reduce": 28, "fused_stream": 36}
 # The point kernels are bound by operations: f64 instructions per node of
-# a non-empty window, counted from csrc/kjma_point.cu (both tiers do the
-# same operations in another order).  49 adds, multiplies, compares and
+# a non-empty window, counted from csrc/kjma_point.cu (every kernel does
+# the same node operations, the fused ones in another order; the stream
+# kernels store the node where the reduce kernels add it).  49 adds, multiplies, compares and
 # conversions (the node's y 4, d 3, the clamp 2, aw 2, the seam 2, A 2,
 # bf 1, w 1, the exponent's argument and two products 3, t, floor and i1
 # 6, the cubic's offsets, weights and taps 20, the product, the cut and
@@ -199,6 +198,13 @@ def phase_device() -> dict:
     return dev
 
 
+def _point_kernel_name(fused: str, reduce: str) -> str:
+    """The wrapper of ``kjma_point_kernel<FUSED, REDUCE>``, from the
+    template arguments' digits in its mangled name."""
+    return {("0", "1"): "point_reduce", ("1", "1"): "point_fused_reduce",
+            ("0", "0"): "point_stream", ("1", "0"): "point_fused_stream"}[(fused, reduce)]
+
+
 def _ptxas_kernels(log: str) -> list:
     """Registers, spills and static shared memory per kernel, from
     ``-Xptxas -v``."""
@@ -206,14 +212,10 @@ def _ptxas_kernels(log: str) -> list:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            tmpl = re.search(r"kjma_interp_kernelILb([01])ELb([01])E", m.group(1))
-            point = re.search(r"kjma_point_kernelILb([01])E", m.group(1))
+            point = re.search(r"kjma_point_kernelILb([01])ELb([01])E", m.group(1))
             plain = re.search(r"(bounce_[a-z_]+?_kernel)", m.group(1))
-            if tmpl:
-                name = {("0", "1"): "reduce", ("0", "0"): "stream", ("1", "1"): "fused_reduce",
-                        ("1", "0"): "fused_stream"}[tmpl.groups()]
-            elif point:
-                name = POINT_KERNELS[int(point.group(1))]
+            if point:
+                name = _point_kernel_name(*point.groups())
             else:
                 name = plain.group(1) if plain else m.group(1)
             kernels.append({"kernel": name})
@@ -256,37 +258,33 @@ def _sass_f64_counts(lib_path) -> dict:
 
 
 def phase_build() -> None:
-    """The three sources at once, one nvcc each."""
+    """The two sources at once, one nvcc each."""
     from concurrent.futures import ThreadPoolExecutor
 
     from bdlz_tpu_torch.ops import _build, bounce_kernel, kjma_kernel
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        kjma, point, bounce = pool.map(_build.build, (
-            kjma_kernel.SOURCE, kjma_kernel.POINT_SOURCE, bounce_kernel.SOURCE))
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        point, bounce = pool.map(_build.build, (kjma_kernel.POINT_SOURCE, bounce_kernel.SOURCE))
     wall = time.perf_counter() - t0
-    kjma_kernel.load_library()
     kjma_kernel.load_point_library()
     bounce_kernel.load_library()
-    kk_kernels, bk_kernels = _ptxas_kernels(kjma.ptxas_log), _ptxas_kernels(bounce.ptxas_log)
-    pk_kernels = _ptxas_kernels(point.ptxas_log)
-    check(len(kk_kernels) == 4, f"ptxas reported 4 KJMA kernels, got {kk_kernels}")
+    pk_kernels, bk_kernels = _ptxas_kernels(point.ptxas_log), _ptxas_kernels(bounce.ptxas_log)
     check(sorted(k["kernel"] for k in pk_kernels) == sorted(POINT_KERNELS),
-          f"ptxas reported the two point kernels, got {pk_kernels}")
+          f"ptxas reported the four point kernels, got {pk_kernels}")
+    check(all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in pk_kernels),
+          f"the point kernels spill no registers, got {pk_kernels}")
     sass = _sass_f64_counts(point.path)
     for k in pk_kernels:
         k["sass_f64_instructions"] = None if sass is None else next(
             (n for f, n in sass.items()
-             if f"kjma_point_kernelILb{POINT_KERNELS.index(k['kernel'])}E" in f), None)
+             if (m := re.search(r"kjma_point_kernelILb([01])ELb([01])E", f))
+             and _point_kernel_name(*m.groups()) == k["kernel"]), None)
     check(sorted(k["kernel"] for k in bk_kernels)
           == ["bounce_classify_kernel", "bounce_latency_probe_kernel",
               "bounce_shoot_serial_kernel", "bounce_tree_kernel"],
           f"ptxas reported the tree, serial, classify and probe kernels, got {bk_kernels}")
     emit({"phase": "build", "wall_seconds": wall, "sources": [
-        {"source": "bdlz_tpu_torch/csrc/" + kjma_kernel.SOURCE, "seconds": kjma.seconds,
-         "cached": kjma.cached, "dynamic_smem_bytes": TABLE_N * 8 + 32 * 8,
-         "kernels": kk_kernels},
         {"source": "bdlz_tpu_torch/csrc/" + kjma_kernel.POINT_SOURCE, "seconds": point.seconds,
          "cached": point.cached, "dynamic_smem_bytes": TABLE_N * 8 + 32 * 8,
          "f64_instructions_per_node_counted": POINT_F64_INSTR_PER_NODE,
@@ -295,15 +293,20 @@ def phase_build() -> None:
          "cached": bounce.cached, "kernels": bk_kernels}]})
 
 
-def _args(name, streams, values):
-    st = streams["fused" in name]
-    if "fused" in name:
-        return (st.g, st.a, st.i1, st.sfrac, values)
-    return (st.g, st.i1, st.sfrac, values)
+def _stream_rel(got, ref) -> float:
+    """Largest per-node error of a stream kernel relative to its row's
+    largest node; the plain version's zeros (empty windows, nodes past the
+    cut) must be exactly 0 in the kernel too."""
+    zero = ref == 0
+    check(torch.equal(got[zero], ref[zero]), "the kernel's zeros are the plain version's")
+    scale = ref.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+    return ((got - ref).abs() / scale).max().item()
 
 
 def phase_parity(dev) -> tuple:
-    """Each kernel against its plain version at P=8192, n_y=8000, n=16384."""
+    """The stream tiers' kernels P2 and P4 against their plain versions,
+    node by node, on a grid of P=8192 points whose windows cross T = m/3
+    (n_y=8000, n=16384), and bitwise run to run."""
     from bdlz_tpu_torch.config import config_from_dict
     from bdlz_tpu_torch.interop import point_params_from_numpy
     from bdlz_tpu_torch.ops import kjma_kernel as kk
@@ -324,9 +327,7 @@ def phase_parity(dev) -> tuple:
     }, product=False)
     pp = point_params_from_numpy(grid, dev)
     table = table_to_device(make_f_table(base.I_p, n=TABLE_N), dev)
-    streams = {f: kk.prepare_streams(pp, base.chi_stats, table, N_Y, fuse_exp=f)
-               for f in (False, True)}
-    st = streams[False]
+    scalars = kk.point_scalars(pp, base.chi_stats, table, N_Y)
     # windows that hold both branches: T(y_hi) < m/3 < T(y_lo)
     y_lo, y_hi = quadrature_bounds(pp)
     m3 = pp.m_chi_GeV / 3.0
@@ -334,31 +335,24 @@ def phase_parity(dev) -> tuple:
                 & (m3 < T_of_y(y_lo, pp.T_p_GeV, pp.beta_over_H))).sum())
     check(both > 0, "the parity grid crosses T = m/3 inside some windows")
     errs = {}
-    for name in TIERS:
-        fn, plain = getattr(kk, "interp_" + name), getattr(kk, "interp_" + name + "_plain")
-        got = fn(*_args(name, streams, table.values))
+    for name in STREAM_KERNELS:
+        fn, plain = getattr(kk, name), getattr(kk, name + "_plain")
+        got = fn(scalars, table, N_Y)
         torch.cuda.synchronize()
-        ref = plain(*_args(name, streams, table.values))
-        check(bool(torch.isfinite(got).all()), f"{name}: finite output")
-        diff = (got - ref).abs()
-        if name.endswith("reduce"):
-            rel = (diff / ref.abs().clamp_min(1e-300)).max().item()
-            tol = REDUCE_RTOL
-        else:
-            scale = ref.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
-            rel = (diff / scale).max().item()
-            tol = STREAM_RTOL
-        check(rel <= tol, f"{name}: kernel vs plain {rel:.3e} <= {tol:g}")
-        errs[name] = {"max_abs_err": diff.max().item(), "max_rel_err": rel, "rtol": tol}
-        del got, ref, diff
-    a = kk.interp_reduce(st.g, st.i1, st.sfrac, table.values)
-    b = kk.interp_reduce(st.g, st.i1, st.sfrac, table.values)
-    torch.cuda.synchronize()
-    check(torch.equal(a, b), "reduce kernel bitwise reproducible run to run")
+        ref = plain(scalars, table, N_Y)
+        check(got.shape == ref.shape == (N_POINTS, N_Y) and bool(torch.isfinite(got).all()),
+              f"{name}: finite, shape {tuple(got.shape)}")
+        rel = _stream_rel(got, ref)
+        check(rel <= STREAM_RTOL, f"{name}: kernel vs plain per node {rel:.3e} <= {STREAM_RTOL:g}")
+        nodes_bitwise = float((got == ref).double().mean().item())
+        check(torch.equal(got, fn(scalars, table, N_Y)), f"{name}: bitwise reproducible")
+        errs[name] = {"max_abs_err": (got - ref).abs().max().item(), "max_rel_err": rel,
+                      "rtol": STREAM_RTOL, "share_of_nodes_bitwise": nodes_bitwise}
+        del got, ref
     emit({"phase": "parity", "points": N_POINTS, "n_y": N_Y, "table_n": TABLE_N,
-          "points_with_seam_in_window": both, "reduce_bitwise_reproducible": True,
+          "points_with_seam_in_window": both, "bitwise_reproducible": True,
           "kernels": errs})
-    return streams, table, errs, pp
+    return table, errs, pp
 
 
 def _main_chunk(dev):
@@ -391,15 +385,16 @@ def _point_rel(got, ref) -> float:
 
 
 def phase_point_parity(dev, parity_pp, table) -> dict:
-    """The point kernels P1 and P3 against their plain versions on the
-    card: over the main grid's first chunk (8192 x 8000), the parity grid
-    (seam-crossing windows), the 1024-point audit population, and edge
-    cases (empty, reversed and clipped windows; windows across and above
-    y = 50 on the F table and on a table of ones; n_y at its floor of
-    2000; P = 1, P = 0 and P = 133); bitwise reproducible run to run; and
-    the point route's Y_B against the stream route's (prepare_streams,
-    the stream-input kernel, finish).  Returns each kernel's errors on
-    the main chunk."""
+    """The point kernels P1-P4 against their plain versions on the card
+    (the sums per point, the stream kernels' rows per node): over the main
+    grid's first chunk (8192 x 8000), the parity grid (seam-crossing
+    windows), the 1024-point audit population, and edge cases (empty,
+    reversed and clipped windows; windows across and above y = 50 on the
+    F table and on a table of ones, where the stream kernels' nodes above
+    50 must be exactly 0; n_y at its floor of 2000; P = 1, P = 0 and
+    P = 133); bitwise reproducible run to run; and each reduce tier's Y_B
+    against its stream tier's.  Returns each kernel's errors on the main
+    chunk."""
     import dataclasses
 
     from bdlz_tpu_torch.config import config_from_dict
@@ -433,9 +428,12 @@ def phase_point_parity(dev, parity_pp, table) -> dict:
         "edges_table_of_ones": (edges, ones, N_Y), "n_y_floor": (floor, table, 2000),
         "one_point": (main[:1], table, N_Y), "no_point": (main[:0], table, N_Y),
         "133_points": (parity[:133], table, N_Y)}
+    above_cut = kk._nodes(edges, ones, N_Y).y > Y_CUT
     out, errs = {}, {}
     for name in POINT_KERNELS:
         fn, plain = getattr(kk, name), getattr(kk, name + "_plain")
+        stream = name in STREAM_KERNELS
+        tol = STREAM_RTOL if stream else POINT_RTOL
         rows = {}
         for case, (sc, tab, n_y) in cases.items():
             kk.reset_launches()
@@ -444,38 +442,43 @@ def phase_point_parity(dev, parity_pp, table) -> dict:
             check(kk.LAUNCHES[name] == (1 if sc.shape[0] else 0),
                   f"{name} {case}: one launch, got {kk.LAUNCHES}")
             ref = plain(sc, tab, n_y)
-            check(got.shape == ref.shape == (sc.shape[0],) and bool(torch.isfinite(got).all()),
+            shape = (sc.shape[0], max(n_y, 2000)) if stream else (sc.shape[0],)
+            check(got.shape == ref.shape == shape and bool(torch.isfinite(got).all()),
                   f"{name} {case}: finite, shape {tuple(got.shape)}")
-            rel = _point_rel(got, ref) if sc.shape[0] else 0.0
-            check(rel <= POINT_RTOL, f"{name} {case}: kernel vs plain {rel:.3e} <= {POINT_RTOL:g}")
+            rel = 0.0 if not sc.shape[0] else (_stream_rel(got, ref) if stream
+                                               else _point_rel(got, ref))
+            check(rel <= tol, f"{name} {case}: kernel vs plain {rel:.3e} <= {tol:g}")
+            # the rows that sum to 0 (stream: whose every node is 0)
+            zero_rows = (ref == 0).all(dim=-1) if stream else ref == 0
             rows[case] = {"points": int(sc.shape[0]), "n_y": n_y, "max_rel_err": rel,
-                          "zeros": int((ref == 0).sum()),
+                          "zeros": int(zero_rows.sum()),
                           "max_abs_err": (got - ref).abs().max().item() if sc.shape[0] else 0.0}
+            if stream and case == "edges_table_of_ones":
+                check(bool((got[above_cut] == 0).all()) and bool((got[~above_cut] != 0).any()),
+                      f"{name}: every node above y = 50 is exactly 0")
             if case == "main_chunk":
                 errs[name] = rows[case]
+            del got, ref
         check(torch.equal(fn(main, table, N_Y), fn(main, table, N_Y)),
               f"{name} bitwise reproducible run to run")
         check(rows["edges_table_of_ones"]["zeros"] == empty.shape[0] + 64,
               f"{name}: the empty windows and the windows above y = 50 sum to 0 "
               f"on the table of ones, got {rows['edges_table_of_ones']['zeros']} zeros")
         out[name] = rows
-    # the point route against the stream route, Y_B on the main chunk
+    # each reduce tier against its stream tier, Y_B on the main chunk
     pp = _main_chunk(dev)
     route = {}
     for fuse_exp in (False, True):
         got = kk.integrate_YB_kernel(pp, base.chi_stats, table, N_Y, fuse_exp=fuse_exp)
-        st = kk.prepare_streams(pp, base.chi_stats, table, N_Y, fuse_exp=fuse_exp)
-        total = (kk.interp_fused_reduce(st.g, st.a, st.i1, st.sfrac, table.values) if fuse_exp
-                 else kk.interp_reduce(st.g, st.i1, st.sfrac, table.values))
-        ref = kk.finish(st, total)
+        ref = kk.integrate_YB_kernel(pp, base.chi_stats, table, N_Y, fuse_exp=fuse_exp,
+                                     reduce=False)
         rel = ((got - ref).abs() / ref.abs()).max().item()
-        check(rel <= ROUTE_RTOL, f"point route vs stream route (fuse_exp={fuse_exp}) "
+        check(rel <= ROUTE_RTOL, f"reduce tier vs stream tier (fuse_exp={fuse_exp}) "
               f"{rel:.3e} <= {ROUTE_RTOL:g}")
         route[f"fuse_exp={fuse_exp}"] = rel
-        del st
-    emit({"phase": "point_parity", "rtol": POINT_RTOL, "kernels": out,
-          "point_route_vs_stream_route_max_rel": route, "bitwise_reproducible": True,
-          "seconds": time.perf_counter() - t0})
+    emit({"phase": "point_parity", "rtol": POINT_RTOL, "stream_rtol": STREAM_RTOL,
+          "kernels": out, "reduce_tier_vs_stream_tier_max_rel": route,
+          "bitwise_reproducible": True, "seconds": time.perf_counter() - t0})
     return errs
 
 
@@ -542,84 +545,77 @@ def _cuda_ms(fn, reps: int, repeats: int = 5) -> list:
     return out
 
 
-def _point_bound(scalars, n_y) -> dict:
+def _point_bound(scalars, n_y, stream: bool) -> dict:
     """The least time of a point kernel on these rows: the operations of
     the nodes of non-empty windows (empty ones compute nothing) over the
-    FP64 instruction rate, against the bytes (scalars and table read once,
-    one sum per point written) over HBM's rate."""
+    FP64 instruction rate, against the bytes (scalars and table read once;
+    one sum per point written, or 8 B per node by a stream kernel) over
+    HBM's rate."""
     from bdlz_tpu_torch.ops import kjma_kernel as kk
 
     P = int(scalars.shape[0])
     nonempty = int((scalars[:, kk._COL["y_hi"]] > scalars[:, kk._COL["y_lo"]]).sum())
-    n_bytes = P * len(kk.POINT_COLUMNS) * 8 + TABLE_N * 8 + P * 8
+    n_bytes = P * len(kk.POINT_COLUMNS) * 8 + TABLE_N * 8 + (P * n_y * 8 if stream else P * 8)
     instr = nonempty * n_y * POINT_F64_INSTR_PER_NODE
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = instr / FP64_INSTR_PER_S * 1e3
     return {"bytes": n_bytes, "f64_instructions": instr, "nonempty_points": nonempty,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def phase_timing(dev, streams, table) -> dict:
-    """Kernel and plain times at the production shapes (CUDA events), each
-    kernel's bound, the host prep's time for one chunk (point_scalars for
-    the point kernels, prepare_streams for the stream kernels) and the
-    main grid's rate through the default tier."""
+def phase_timing(dev, table) -> dict:
+    """Kernel and plain times on the main grid's first chunk (8192 points,
+    n_y 8000; CUDA events), each kernel's bound, ``point_scalars``' time,
+    and each tier's device ms per chunk: ``point_scalars`` + the kernel
+    (+ the host's row sum for the stream tiers), and the whole
+    ``integrate_YB_kernel`` call timed alone with its peak memory; then
+    the main grid's rate through the default tier."""
     from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
-    from bdlz_tpu_torch.interop import point_params_from_numpy
     from bdlz_tpu_torch.ops import kjma_kernel as kk
-    from bdlz_tpu_torch.parallel.sweep import build_grid, run_sweep
+    from bdlz_tpu_torch.parallel.sweep import run_sweep
 
-    nodes = N_POINTS * N_Y
-    out = {}
-    for name in TIERS:
-        args = _args(name, streams, table.values)
-        fn, plain = getattr(kk, "interp_" + name), getattr(kk, "interp_" + name + "_plain")
-        samples = _cuda_ms(lambda: fn(*args), 20)
-        ms = float(np.median(samples))
-        plain_ms = float(np.median(_cuda_ms(lambda: plain(*args), 3)))
-        n_bytes = nodes * BYTES_PER_NODE[name] + TABLE_N * 8 + (
-            N_POINTS * 8 if name.endswith("reduce") else 0)
-        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        flops_ms = nodes * FLOPS_PER_NODE[name] / FP64_FLOP_PER_S * 1e3
-        out[name] = {"ms": ms, "ms_samples": samples, "plain_ms": plain_ms, "bytes": n_bytes,
-                     "flops": nodes * FLOPS_PER_NODE[name],
-                     "bound_ms": max(bytes_ms, flops_ms),
-                     "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-                     "achieved_bytes_per_s": n_bytes / (ms * 1e-3)}
     base = config_from_dict(ARCHIVED)
-    grid = build_grid(base, MAIN_AXES)
-    chunk = point_params_from_numpy(type(grid)(*(f[:N_POINTS] for f in grid)), dev)
-    prep_ms = {f"fuse_exp={f}": float(np.median(_cuda_ms(
-        lambda f=f: kk.prepare_streams(chunk, base.chi_stats, table, N_Y, fuse_exp=f), 3)))
-        for f in (False, True)}
-    # the point kernels on the main grid's first chunk
+    chunk = _main_chunk(dev)
     scalars = kk.point_scalars(chunk, base.chi_stats, table, N_Y)
     scalars_ms = float(np.median(_cuda_ms(
         lambda: kk.point_scalars(chunk, base.chi_stats, table, N_Y), 20)))
-    bound = _point_bound(scalars, N_Y)
+    out = {}
     for name in POINT_KERNELS:
+        stream = name in STREAM_KERNELS
         fn, plain = getattr(kk, name), getattr(kk, name + "_plain")
+        bound = _point_bound(scalars, N_Y, stream)
         samples = _cuda_ms(lambda: fn(scalars, table, N_Y), 20)
         ms = float(np.median(samples))
-        out[name] = {"ms": ms, "ms_samples": samples,
-                     "plain_ms": float(np.median(_cuda_ms(lambda: plain(scalars, table, N_Y), 3))),
-                     **bound, "bound_share": bound["bound_ms"] / ms,
-                     "achieved_f64_instr_per_s": bound["f64_instructions"] / (ms * 1e-3),
-                     "device_ms_per_chunk_with_prep": scalars_ms + ms}
-    # each stream kernel's tier against the whole function's work: the
-    # point kernel's operations (plus the stream's write for K2 and K4)
-    for name in TIERS:
-        write_ms = (N_POINTS * N_Y * 8 / HBM_BYTES_PER_S * 1e3
-                    if not name.endswith("reduce") else 0.0)
-        out[name]["function_bound_ms"] = max(bound["bound_ms"], write_ms)
-        out[name]["device_ms_per_chunk_with_prep"] = out[name]["ms"] + prep_ms[
-            f"fuse_exp={'fused' in name}"]
+        row = {"ms": ms, "ms_samples": samples,
+               "plain_ms": float(np.median(_cuda_ms(lambda: plain(scalars, table, N_Y), 3))),
+               **bound, "bound_share": bound["bound_ms"] / ms,
+               "achieved_f64_instr_per_s": bound["f64_instructions"] / (ms * 1e-3)}
+        if stream:
+            rows = fn(scalars, table, N_Y)
+            row["achieved_write_bytes_per_s"] = rows.numel() * 8 / (ms * 1e-3)
+            row["host_sum_ms"] = float(np.median(_cuda_ms(lambda: rows.sum(dim=-1), 20)))
+            del rows
+        row["device_ms_per_chunk"] = scalars_ms + ms + row.get("host_sum_ms", 0.0)
+        out[name] = row
+    tiers = {}
+    for tier, (fuse_exp, reduce) in TIERS.items():
+        torch.cuda.synchronize()
+        start_mem = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        call_ms = _cuda_ms(lambda: kk.integrate_YB_kernel(
+            chunk, base.chi_stats, table, N_Y, fuse_exp=fuse_exp, reduce=reduce), 10)
+        tiers[tier] = {"kernel": TIER_KERNEL[tier],
+                       "device_ms_per_chunk": out[TIER_KERNEL[tier]]["device_ms_per_chunk"],
+                       "integrate_ms_per_chunk": float(np.median(call_ms)),
+                       "integrate_ms_samples": call_ms,
+                       "integrate_peak_mem_above_start_bytes":
+                           torch.cuda.max_memory_allocated(dev) - start_mem}
     static = static_choices_from_config(base)
     kw = dict(impl="kernel", chunk_size=N_POINTS, n_y=N_Y, table_nodes=TABLE_N, device=dev)
     sweep_pps = [run_sweep(base, MAIN_AXES, static, **kw).points_per_sec for _ in range(5)]
-    emit({"phase": "timing", "points": N_POINTS, "n_y": N_Y, "kernels": out,
-          "prep_ms_per_chunk": prep_ms, "point_scalars_ms_per_chunk": scalars_ms,
+    emit({"phase": "timing", "points": N_POINTS, "n_y": N_Y, "kernels": out, "tiers": tiers,
+          "point_scalars_ms_per_chunk": scalars_ms,
           "sweep_points_per_sec_median": float(np.median(sweep_pps)),
           "sweep_points_per_sec_samples": sweep_pps,
           "peak_hbm_bytes_per_s": HBM_BYTES_PER_S, "peak_fp64_flop_per_s": FP64_FLOP_PER_S,
@@ -655,8 +651,7 @@ def phase_profile(dev) -> None:
                         n_y=N_Y, table_nodes=TABLE_N, device=dev)
     device_ms = _device_ms(prof)
     busy_ms = sum(device_ms.values())
-    kjma_ms = sum(v for k, v in device_ms.items()
-                  if "kjma_interp_kernel" in k or "kjma_point_kernel" in k)
+    kjma_ms = sum(v for k, v in device_ms.items() if "kjma_point_kernel" in k)
     copy_ms = sum(v for k, v in device_ms.items() if "Memcpy" in k or "Memset" in k)
     wall_ms = res.seconds * 1e3
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
@@ -2947,7 +2942,7 @@ def phase_overlap_path(dev) -> dict:
     under ``torch.profiler`` each side's device busy share, largest idle
     gap, chunk-boundary gaps and peak memory.  Then the tiered population
     gate (``validation.engine_population_max_rel`` through
-    ``parallel.sweep.make_chunk_runner``) for P1/K2/P3/K4 on 1024 audit points
+    ``parallel.sweep.make_chunk_runner``) for P1-P4 on 1024 audit points
     against the tabulated engine.  Returns each kernel's launches."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -3064,14 +3059,13 @@ def main(argv=None) -> int:
             STANDALONE[name](dev)
         emit({"phase": "done", "seconds": time.perf_counter() - t0, "only": only})
         return 0
-    streams, table, errs, parity_pp = phase_parity(dev)
+    table, errs, parity_pp = phase_parity(dev)
     errs.update(phase_point_parity(dev, parity_pp, table))
     del parity_pp
     launches = phase_main_path(dev)
-    timing, sweep_pps = phase_timing(dev, streams, table)
-    del streams
+    timing, sweep_pps = phase_timing(dev, table)
     phase_profile(dev)
-    # P1 through the double-buffered and the serial loop, P1/K2/P3/K4 through
+    # P1 through the double-buffered and the serial loop, P1-P4 through
     # the chunk runner's tiered gate
     for name, n in phase_overlap_path(dev).items():
         launches[name] += n
@@ -3086,7 +3080,7 @@ def main(argv=None) -> int:
     phase_host_planes(dev)
     # P1's row counts the main path's launches and the serving run's
     launches[MAIN_KERNEL] += phase_serving_path(dev, artifact)
-    # P1/K2/P3/K4 on the elastic sweep, and P1 through tenancy, refinement and
+    # P1-P4 on the elastic sweep, and P1 through tenancy, refinement and
     # the fabric
     for name, n in phase_elastic_path(dev).items():
         launches[name] += n
@@ -3102,8 +3096,7 @@ def main(argv=None) -> int:
     emit({"kernels": [{
         "name": kk.KERNELS[name][0],
         "route": "cuda",
-        "source": "bdlz_tpu_torch/csrc/" + (kk.POINT_SOURCE if name in POINT_KERNELS
-                                            else kk.SOURCE),
+        "source": "bdlz_tpu_torch/csrc/" + kk.POINT_SOURCE,
         "replaces": kk.KERNELS[name][1],
         "launches": launches[name],
         "max_abs_err": errs[name]["max_abs_err"],
@@ -3111,8 +3104,8 @@ def main(argv=None) -> int:
         "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes interpolate-and-reduce
-    } for name in POINT_KERNELS + tuple(TIERS)] + [{
+        "library_ms": None,  # no single PyTorch call computes the KJMA integrand
+    } for name in POINT_KERNELS] + [{
         "name": bk.KERNELS["shoot"][0],
         "route": "cuda",
         "source": "bdlz_tpu_torch/csrc/" + bk.SOURCE,

@@ -45,7 +45,7 @@ ARCHIVED = {
 }
 N_POP, N_Y, TABLE_N = 8, 2000, 16384
 TAB_RTOL, KERNEL_VS_TAB_RTOL, KERNEL_VS_PALLAS_RTOL, PROBE_RTOL = 1e-13, 1e-10, 1e-6, 1e-13
-# (fuse_exp, reduce) of K1-K4
+# (fuse_exp, reduce) of the four kernel tiers (P1-P4)
 TIERS = {"reduce": (False, True), "stream": (False, False),
          "fused_reduce": (True, True), "fused_stream": (True, False)}
 
@@ -230,7 +230,7 @@ def test_package_source_fingerprint_keys_every_py_and_cu(tmp_path, monkeypatch):
     assert with_extra != first
     assert package_source_fingerprint(str(tmp_path / "missing.txt")) == first
     keys = {first, with_extra}
-    for rel in ("csrc/kjma_interp.cu", "parallel/sweep.py"):
+    for rel in ("csrc/kjma_point.cu", "parallel/sweep.py"):
         with open(copy / rel, "a") as f:
             f.write("\n")
         now = package_source_fingerprint()

@@ -78,17 +78,22 @@ def test_run_sweep_without_a_card_raises(monkeypatch):
 
 
 def test_kernel_wrappers_on_the_cpu_launch_nothing():
+    from bdlz_tpu_torch.config import config_from_dict
+    from bdlz_tpu_torch.interop import point_params_from_numpy
     from bdlz_tpu_torch.ops import kjma_kernel as kk
+    from bdlz_tpu_torch.ops.kjma_table import make_f_table, table_to_device
+    from bdlz_tpu_torch.parallel.sweep import build_grid
 
-    g = torch.ones(2, 8, dtype=torch.float64)
-    i1 = torch.full((2, 8), 5, dtype=torch.int32)
-    s = torch.full((2, 8), 0.25, dtype=torch.float64)
-    v = torch.arange(32, dtype=torch.float64)
+    base = config_from_dict({"P_chi_to_B": 0.15})
+    table = table_to_device(make_f_table(base.I_p, n=256), "cpu")
+    pp = point_params_from_numpy(build_grid(base, {"m_chi_GeV": [0.95, 300.0]}), "cpu")
+    s = kk.point_scalars(pp, "fermion", table, 2000)
     kk.reset_launches()
-    out = kk.interp_reduce(g, i1, s, v)
-    # a cubic reproduces a linear table exactly: F(5.25) = 5.25 per node
-    assert torch.allclose(out, torch.full((2,), 8 * 5.25, dtype=torch.float64),
-                          rtol=1e-15, atol=0.0)
+    for name in kk.LAUNCHES:  # each wrapper runs its plain version on the CPU
+        assert torch.equal(getattr(kk, name)(s, table, 2000),
+                           getattr(kk, name + "_plain")(s, table, 2000))
+    # a stream wrapper's rows sum to its reduce wrapper's sums, bit for bit
+    assert torch.equal(kk.point_stream(s, table, 2000).sum(-1), kk.point_reduce(s, table, 2000))
     assert kk.LAUNCHES == dict.fromkeys(kk.LAUNCHES, 0)
 
 

@@ -53,66 +53,71 @@ def setup(cuda):
     }, product=False)
     pp = point_params_from_numpy(grid, cuda)
     table = table_to_device(make_f_table(base.I_p), cuda)
-    streams = {
-        fused: kk.prepare_streams(pp, "fermion", table, N_Y, fuse_exp=fused)
-        for fused in (False, True)
-    }
-    return base, table, streams
+    return base, table, kk.point_scalars(pp, "fermion", table, N_Y)
 
 
-def _run(name, st, values, plain):
-    fn = getattr(kk, ("interp_" + name + "_plain") if plain else ("interp_" + name))
-    args = (st.g, st.a, st.i1, st.sfrac, values) if "fused" in name else (
-        st.g, st.i1, st.sfrac, values)
-    return fn(*args)
+#: Each tier's wrapper (``reduce=False`` is a stream tier).
+TIER_WRAPPER = {"reduce": "point_reduce", "stream": "point_stream",
+                "fused_reduce": "point_fused_reduce", "fused_stream": "point_fused_stream"}
+#: A stream kernel's nodes against its plain version's, relative to the
+#: row's largest node: the same operations in the same order per node.
+STREAM_RTOL = 1e-14
+
+
+def _stream_rel(got, ref):
+    """Largest per-node error relative to each row's largest node; the
+    plain version's zeros (empty rows, nodes past the cut) are exact."""
+    zero = ref == 0
+    assert torch.equal(got[zero], ref[zero])
+    scale = ref.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+    return ((got - ref).abs() / scale).max().item()
 
 
 @pytest.mark.parametrize("name", ["reduce", "stream", "fused_reduce", "fused_stream"])
 def test_kernel_matches_plain_version(name, setup):
-    """Reduce: <= 1e-12 rel per point (summation order differs); stream:
-    <= 1e-13 per node relative to the point's largest node."""
-    _, table, streams = setup
-    st = streams["fused" in name]
-    got = _run(name, st, table.values, plain=False)
+    """Reduce: <= 1e-13 rel per point (summation order differs); stream:
+    <= 1e-14 per node relative to the point's largest node."""
+    _, table, s = setup
+    wrapper = TIER_WRAPPER[name]
+    got = getattr(kk, wrapper)(s, table, N_Y)
     torch.cuda.synchronize()
-    ref = _run(name, st, table.values, plain=True)
+    ref = getattr(kk, wrapper + "_plain")(s, table, N_Y)
     assert got.shape == ref.shape and torch.isfinite(got).all()
     if name.endswith("reduce"):
         err = (got - ref).abs() / ref.abs().clamp_min(1e-300)
-        assert err.max().item() <= 1e-12
+        assert err.max().item() <= 1e-13
     else:
-        scale = ref.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
-        assert ((got - ref).abs() / scale).max().item() <= 1e-13
+        assert got.shape == (N_POINTS, N_Y)
+        assert _stream_rel(got, ref) <= STREAM_RTOL
 
 
 def test_reduce_is_bitwise_reproducible(setup):
-    _, table, streams = setup
-    st = streams[False]
-    a = kk.interp_reduce(st.g, st.i1, st.sfrac, table.values)
-    b = kk.interp_reduce(st.g, st.i1, st.sfrac, table.values)
-    assert torch.equal(a, b)
+    _, table, s = setup
+    for wrapper in TIER_WRAPPER.values():
+        fn = getattr(kk, wrapper)
+        assert torch.equal(fn(s, table, N_Y), fn(s, table, N_Y)), wrapper
 
 
 def test_launch_counter_counts_kernel_launches_only(setup):
-    _, table, streams = setup
-    st = streams[False]
+    _, table, s = setup
     kk.reset_launches()
-    kk.interp_reduce(st.g, st.i1, st.sfrac, table.values)
-    kk.interp_reduce_plain(st.g, st.i1, st.sfrac, table.values)
-    assert kk.LAUNCHES == {"reduce": 1, "stream": 0, "fused_reduce": 0,
-                           "fused_stream": 0, "point_reduce": 0, "point_fused_reduce": 0}
+    kk.point_stream(s, table, N_Y)
+    kk.point_stream_plain(s, table, N_Y)
+    assert kk.LAUNCHES == {"point_reduce": 0, "point_fused_reduce": 0,
+                           "point_stream": 1, "point_fused_stream": 0}
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(setup, cuda):
-    _, table, streams = setup
-    st = streams[False]
+    _, table, s = setup
     with pytest.raises(TypeError):
-        kk.interp_reduce(st.g, st.i1.long(), st.sfrac, table.values)
+        kk.point_stream(s.float(), table, N_Y)
     with pytest.raises(ValueError):
-        kk.interp_reduce(st.g.t(), st.i1.t(), st.sfrac.t(), table.values)
+        kk.point_stream(s.t().contiguous().t(), table, N_Y)
+    with pytest.raises(ValueError):
+        kk.point_fused_stream(s[:, :-1].contiguous(), table, N_Y)
     big = torch.zeros(32768, dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError):
-        kk.interp_reduce(st.g, st.i1, st.sfrac, big)
+        kk.point_stream(s, table._replace(values=big), N_Y)
 
 
 def test_kernel_sweep_matches_tabulated_sweep(setup, cuda):
@@ -171,8 +176,9 @@ def _point_rel(got, ref):
     return ((got - ref).abs() / ref.abs().clamp_min(1e-300))[~zero].max().item()
 
 
-@pytest.mark.parametrize("n_y", [2000, N_Y])
-@pytest.mark.parametrize("name", ["point_reduce", "point_fused_reduce"])
+@pytest.mark.parametrize("n_y", [2000, N_Y, 8000])
+@pytest.mark.parametrize("name", ["point_reduce", "point_fused_reduce",
+                                  "point_stream", "point_fused_stream"])
 def test_point_kernel_matches_plain_version(name, n_y, setup, cuda):
     base, table, _ = setup
     s = _edge_scalars(base, table, n_y, cuda)
@@ -187,15 +193,22 @@ def test_point_kernel_matches_plain_version(name, n_y, setup, cuda):
         torch.cuda.synchronize()
         assert kk.LAUNCHES[name] == (1 if rows.shape[0] else 0)
         ref = plain(rows, tab, n_y)
-        assert got.shape == ref.shape == (rows.shape[0],) and torch.isfinite(got).all()
-        if rows.shape[0]:
-            assert _point_rel(got, ref) <= POINT_RTOL
+        assert torch.isfinite(got).all()
+        if name.endswith("reduce"):
+            assert got.shape == ref.shape == (rows.shape[0],)
+            if rows.shape[0]:
+                assert _point_rel(got, ref) <= POINT_RTOL
+        else:
+            assert got.shape == ref.shape == (rows.shape[0], n_y)
+            if rows.shape[0]:
+                assert _stream_rel(got, ref) <= STREAM_RTOL
 
 
 def test_point_kernel_is_bitwise_reproducible(setup, cuda):
     base, table, _ = setup
     s = _edge_scalars(base, table, N_Y, cuda)
-    for fn in (kk.point_reduce, kk.point_fused_reduce):
+    for fn in (kk.point_reduce, kk.point_fused_reduce, kk.point_stream,
+               kk.point_fused_stream):
         assert torch.equal(fn(s, table, N_Y), fn(s, table, N_Y))
 
 
@@ -213,16 +226,21 @@ def test_point_wrapper_rejects_what_the_kernel_does_not_take(setup, cuda):
     big = torch.zeros(32768, dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError):
         kk.point_fused_reduce(s, table._replace(values=big), N_Y)
+    with pytest.raises(ValueError):
+        kk.point_fused_stream(s, table._replace(values=table.values.cpu()), N_Y)
 
 
 def test_kernel_sweep_runs_the_point_kernel_once_per_chunk_and_k1_never(setup, cuda):
     base, _, _ = setup
     static = static_choices_from_config(base)
     axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 8), "T_p_GeV": np.geomspace(30.0, 300.0, 6)}
-    for fuse_exp, name in ((False, "point_reduce"), (True, "point_fused_reduce")):
+    for (fuse_exp, reduce), name in (((False, True), "point_reduce"),
+                                     ((True, True), "point_fused_reduce"),
+                                     ((False, False), "point_stream"),
+                                     ((True, False), "point_fused_stream")):
         kk.reset_launches()
         res = run_sweep(base, axes, static, chunk_size=16, n_y=N_Y, impl="kernel",
-                        fuse_exp=fuse_exp, device=cuda)
+                        fuse_exp=fuse_exp, reduce=reduce, device=cuda)
         assert res.chunks == 3 and res.n_failed == 0
         assert kk.LAUNCHES == {k: (3 if k == name else 0) for k in kk.LAUNCHES}
 
@@ -533,9 +551,8 @@ def test_yield_service_on_the_card_launches_k1_and_matches_the_cpu(cuda, tmp_pat
 
 TIER_ARGS = {"reduce": (False, True), "stream": (False, False),
              "fused_reduce": (True, True), "fused_stream": (True, False)}
-#: The kernel each tier launches: the reduce tiers run the point kernels.
-TIER_KERNEL = {"reduce": "point_reduce", "stream": "stream",
-               "fused_reduce": "point_fused_reduce", "fused_stream": "fused_stream"}
+#: The kernel each tier launches.
+TIER_KERNEL = TIER_WRAPPER
 
 
 @pytest.mark.parametrize("tier", sorted(TIER_ARGS))

@@ -1,19 +1,18 @@
 """The point kernels' plain versions (``bdlz_tpu_torch/ops/kjma_kernel.py``:
-``point_scalars`` → ``point_[fused_]reduce`` → ``point_finish``, the route of
-``integrate_YB_kernel(reduce=True)``) on the CPU, against the port's
-stream path and the JAX package.
+``point_scalars`` → ``point_[fused_]reduce`` or ``point_[fused_]stream`` →
+``point_finish``, the route of ``integrate_YB_kernel`` in every tier) on the
+CPU, against each other and the JAX package.
 
 Tolerances, with their reasons:
-* ≤1e-14 against the stream path (``prepare_streams`` +
-  ``interp_[fused_]reduce_plain`` + ``finish``): the same operations in the
-  same order on the same f64 values, but for the stream's per-point peak
-  normalisation, which the point path drops (two roundings per node);
+* ≤1e-13 between the reduce tiers and the stream tiers: the same node
+  values, summed in another order;
 * ≤1e-6 against JAX's ``integrate_YB_pallas(interpret=True)``: the TPU
   kernels carry f32 streams;
-* ≤1e-10 against JAX's tabulated ``point_yields_fast``: only the
-  closed-form collapse of the prefactors and the summation order differ.
-Empty windows, slices of the plain version and single points are held
-bit for bit.
+* ≤1e-10 against JAX's tabulated ``point_yields_fast`` and ≤1e-12 of each
+  row's largest node against JAX's integrand at the same nodes: only the
+  closed-form collapse of the prefactors (and the summation order) differ.
+Empty windows, nodes past the y = 50 cut, slices of the plain version and
+single points are held bit for bit.
 """
 import dataclasses
 
@@ -45,7 +44,7 @@ ARCHIVED = {
     "Y_chi_init": 4.90e-10,
 }
 N_Y = 2048
-STREAM_RTOL, PALLAS_RTOL, TABULATED_RTOL = 1e-14, 1e-6, 1e-10
+TIER_RTOL, PALLAS_RTOL, TABULATED_RTOL, NODE_RTOL = 1e-13, 1e-6, 1e-10, 1e-12
 FUSE = [False, True]
 
 
@@ -86,26 +85,21 @@ def _rel(a, b) -> float:
     return float(np.max(np.abs(a - b) / np.abs(b)))
 
 
-def _stream_path(pp, table, n_y, fuse_exp):
-    st = kk.prepare_streams(pp, "fermion", table, n_y, fuse_exp=fuse_exp)
-    v = table.values
-    total = (kk.interp_fused_reduce_plain(st.g, st.a, st.i1, st.sfrac, v) if fuse_exp
-             else kk.interp_reduce_plain(st.g, st.i1, st.sfrac, v))
-    return kk.finish(st, total)
-
-
 @pytest.mark.parametrize("n_y", [2000, 8000])
 @pytest.mark.parametrize("fuse_exp", FUSE)
 def test_point_path_matches_the_stream_path(env, fuse_exp, n_y):
+    """The reduce tier (P1/P3) against the stream tier (P2/P4 and the
+    host's row sum) on the same scalars."""
     kk.reset_launches()
     got = kk.integrate_YB_kernel(env["pp"], "fermion", env["table_t"], n_y,
                                  fuse_exp=fuse_exp, reduce=True)
-    ref = _stream_path(env["pp"], env["table_t"], n_y, fuse_exp)
+    ref = kk.integrate_YB_kernel(env["pp"], "fermion", env["table_t"], n_y,
+                                 fuse_exp=fuse_exp, reduce=False)
     assert got.dtype == torch.float64 and got.shape == ref.shape == (65,)
     assert bool(torch.isfinite(got).all()) and bool((got > 0).all())
     rel = _rel(got.numpy(), ref.numpy())
-    print(f"RESIDUAL point path vs stream path (fuse_exp={fuse_exp}, n_y={n_y}): {rel:.3e}")
-    assert rel <= STREAM_RTOL
+    print(f"RESIDUAL reduce tier vs stream tier (fuse_exp={fuse_exp}, n_y={n_y}): {rel:.3e}")
+    assert rel <= TIER_RTOL
     assert kk.LAUNCHES == dict.fromkeys(kk.LAUNCHES, 0)  # CPU: no kernel launched
 
 
@@ -229,19 +223,18 @@ def test_point_scalars_are_one_contiguous_f64_block(env):
     assert torch.equal(s[:, c["m"]], pp.m_chi_GeV)
     assert torch.equal(s[:, c["three_Tp"]], 3.0 * pp.T_p_GeV)
     assert torch.equal(s[:, c["B_safe"]], pp.beta_over_H)
-    # the stream path's finishing scale is KK·e^{A_max}·gscale, gscale > 0
-    st = kk.prepare_streams(pp, "fermion", table, N_Y)
-    gscale = st.scale / (s[:, c["KK"]] * torch.exp(s[:, c["A_max"]]))
-    assert bool(torch.isfinite(gscale).all()) and bool((gscale > 0).all())
+    # the stream tier's rows: every node finite, every row's peak > 0
+    peak = kk.point_stream(s, table, N_Y).abs().amax(dim=-1)
+    assert bool(torch.isfinite(peak).all()) and bool((peak > 0).all())
 
 
 def test_the_plain_version_in_slices_is_the_plain_version_whole(env, monkeypatch):
     pp, table = env["pp"], env["table_t"]
     s = kk.point_scalars(pp, "fermion", table, N_Y)
-    whole = {f: kk._point_sums_plain(s, table, N_Y, f) for f in FUSE}
+    whole = {f: kk._point_plain(s, table, N_Y, f, reduce=True) for f in FUSE}
     monkeypatch.setattr(kk, "_PLAIN_NODES_PER_SLICE", 3 * N_Y)
     for f in FUSE:
-        assert torch.equal(kk._point_sums_plain(s, table, N_Y, f), whole[f])
+        assert torch.equal(kk._point_plain(s, table, N_Y, f, reduce=True), whole[f])
 
 
 def test_kernel_sweep_through_the_point_path_matches_jax(env, jit_warmup):
@@ -261,4 +254,135 @@ def test_kernel_sweep_through_the_point_path_matches_jax(env, jit_warmup):
         assert got.chunks == 2 and got.n_failed == 0
         rel = _rel(got.outputs["DM_over_B"], ref.outputs["DM_over_B"])
         print(f"RESIDUAL point-path sweep (fuse_exp={fuse_exp}) vs JAX tabulated: {rel:.3e}")
+        assert rel <= TABULATED_RTOL
+
+
+# ---- the stream tiers (P2, P4) -----------------------------------------------
+
+def _stream(fuse_exp):
+    return kk.point_fused_stream if fuse_exp else kk.point_stream
+
+
+@pytest.mark.parametrize("fuse_exp", FUSE)
+def test_stream_rows_match_jax_integrand_at_the_same_nodes(env, fuse_exp, jit_warmup):
+    """Each node of a P2 (P4) row, times KK·e^{A_max} and over its
+    trapezoid weight, is JAX's ``yb_integrand_tabulated`` at that node:
+    ≤1e-12 of the row's largest node."""
+    pp, table = env["pp"], env["table_t"]
+    s = kk.point_scalars(pp, "fermion", table, N_Y)
+    rows = _stream(fuse_exp)(s, table, N_Y)
+    nd = kk._nodes(s, table, N_Y)
+    c = kk._COL
+    got = (rows * (s[:, c["KK"]] * torch.exp(s[:, c["A_max"]]))[:, None] / nd.w).numpy()
+    fn = jax.jit(jax.vmap(lambda y, p: j_integrand(y, p, "fermion", env["table_j"], jnp)))
+    args = (jnp.asarray(nd.y.numpy()), jax.tree.map(jnp.asarray, env["grid"]))
+    jit_warmup(fn, *args)
+    ref = np.asarray(fn(*args))
+    assert got.shape == ref.shape == (65, N_Y) and np.all(np.isfinite(got))
+    rel = float(np.max(np.abs(got - ref) / np.max(np.abs(ref), axis=1, keepdims=True)))
+    print(f"RESIDUAL stream rows (fuse_exp={fuse_exp}) vs JAX integrand per node: {rel:.3e}")
+    assert rel <= NODE_RTOL
+
+
+@pytest.mark.parametrize("fuse_exp", FUSE)
+def test_stream_rows_of_empty_reversed_and_clipped_windows_are_exactly_zero(env, fuse_exp):
+    base = env["base"]
+    for lo, hi, B in ((5.0, 4.0, 100.0), (4.0, 5.0, 400.0), (1.0, 1.0, 100.0),
+                      (0.01, 0.05, 100.0)):
+        cfg = dataclasses.replace(base, T_min_over_Tp=lo, T_max_over_Tp=hi, beta_over_H=B)
+        pp = point_params_from_numpy(build_grid(cfg, {"m_chi_GeV": [0.95, 3.0, 500.0]}), "cpu")
+        s = kk.point_scalars(pp, "fermion", env["table_t"], N_Y)
+        assert torch.equal(_stream(fuse_exp)(s, env["table_t"], N_Y),
+                           torch.zeros(3, N_Y, dtype=torch.float64))
+        got = kk.integrate_YB_kernel(pp, "fermion", env["table_t"], N_Y,
+                                     fuse_exp=fuse_exp, reduce=False)
+        assert torch.equal(got, torch.zeros(3, dtype=torch.float64)), (lo, hi, B)
+
+
+@pytest.mark.parametrize("fuse_exp", FUSE)
+def test_stream_nodes_above_y_50_are_exactly_zero(env, fuse_exp):
+    """On a table of ones, a window across y = 50 keeps every node at or
+    below 50 (> 0) and writes exactly 0 above it; its Y_B is JAX's
+    trapezoid of the integrand on the same nodes; a window wholly above
+    50 is a row of zeros."""
+    pp, table = env["pp"], env["table_t"]
+    ones = table._replace(values=torch.ones_like(table.values))
+    ones_j = env["table_j"]._replace(values=jnp.ones_like(env["table_j"].values))
+    s = kk.point_scalars(pp, "fermion", ones, N_Y)[:8]
+    across = _with_window(s, 40.0, 60.0)
+    rows = _stream(fuse_exp)(across, ones, N_Y)
+    y = kk._nodes(across, ones, N_Y).y
+    assert bool((y > 50.0).any()) and bool((y <= 50.0).any())
+    assert bool((rows[y > 50.0] == 0.0).all()) and bool((rows[y <= 50.0] > 0.0).all())
+    got = kk.point_finish(across, rows.sum(dim=-1)).numpy()
+    grid = type(env["grid"])(*(f[:8] for f in env["grid"]))
+    ys = np.linspace(40.0, 60.0, N_Y)
+    ref = np.array([
+        np.trapezoid(np.asarray(j_integrand(
+            jnp.asarray(ys), jax.tree.map(lambda f: jnp.asarray(f[i]), grid), "fermion",
+            ones_j, jnp)), ys)
+        for i in range(8)])
+    rel = _rel(got, ref)
+    print(f"RESIDUAL stream window across y = 50 (fuse_exp={fuse_exp}) vs JAX: {rel:.3e}")
+    assert rel <= TABULATED_RTOL
+    above = _with_window(s, 51.0, 60.0)
+    assert torch.equal(_stream(fuse_exp)(above, ones, N_Y),
+                       torch.zeros(8, N_Y, dtype=torch.float64))
+
+
+def test_stream_n_y_below_the_floor_is_the_floor(env):
+    pp, table = env["pp"], env["table_t"]
+    s = kk.point_scalars(pp, "fermion", table, 2000)
+    for fuse_exp in FUSE:
+        rows = _stream(fuse_exp)(s, table, 100)
+        assert rows.shape == (65, 2000)
+        assert torch.equal(rows, _stream(fuse_exp)(s, table, 2000))
+        a = kk.integrate_YB_kernel(pp, "fermion", table, 100, fuse_exp=fuse_exp, reduce=False)
+        b = kk.integrate_YB_kernel(pp, "fermion", table, 2000, fuse_exp=fuse_exp, reduce=False)
+        assert torch.equal(a, b)
+
+
+def test_stream_one_point_and_no_point(env):
+    pp, table = env["pp"], env["table_t"]
+    s = kk.point_scalars(pp, "fermion", table, N_Y)
+    none = type(pp)(*(f[:0] for f in pp))
+    for fuse_exp in FUSE:
+        rows = _stream(fuse_exp)(s, table, N_Y)
+        for i in (0, 57, 64):
+            assert torch.equal(_stream(fuse_exp)(s[i:i + 1], table, N_Y), rows[i:i + 1])
+        empty = _stream(fuse_exp)(s[:0], table, N_Y)
+        assert empty.shape == (0, N_Y) and empty.dtype == torch.float64
+        out = kk.integrate_YB_kernel(none, "fermion", table, N_Y, fuse_exp=fuse_exp,
+                                     reduce=False)
+        assert out.shape == (0,) and out.dtype == torch.float64
+
+
+def test_the_stream_plain_version_in_slices_is_the_plain_version_whole(env, monkeypatch):
+    pp, table = env["pp"], env["table_t"]
+    s = kk.point_scalars(pp, "fermion", table, N_Y)
+    whole = {f: kk._point_plain(s, table, N_Y, f, reduce=False) for f in FUSE}
+    monkeypatch.setattr(kk, "_PLAIN_NODES_PER_SLICE", 3 * N_Y)
+    for f in FUSE:
+        assert torch.equal(kk._point_plain(s, table, N_Y, f, reduce=False), whole[f])
+        # each row summed is the reduce plain version, bit for bit
+        assert torch.equal(whole[f].sum(dim=-1), kk._point_plain(s, table, N_Y, f, reduce=True))
+
+
+def test_stream_tier_sweep_matches_jax(env, jit_warmup):
+    """``run_sweep(impl="kernel", reduce=False)`` through P2/P4 against
+    JAX's tabulated sweep on a small grid, no launch on the CPU."""
+    axes = {"m_chi_GeV": np.geomspace(0.1, 600.0, 5), "T_p_GeV": np.geomspace(30.0, 300.0, 3)}
+    jstatic = static_choices_from_config(env["base"])._replace(quad_panel_gl=False)
+    kw = dict(chunk_size=8, n_y=2000)
+    jit_warmup(j_run_sweep, env["base"], axes, jstatic, impl="tabulated", **kw)
+    ref = j_run_sweep(env["base"], axes, jstatic, impl="tabulated", **kw)
+    base = t_config_from_dict(ARCHIVED)
+    for fuse_exp in FUSE:
+        kk.reset_launches()
+        got = run_sweep(base, axes, t_static(base), impl="kernel", fuse_exp=fuse_exp,
+                        reduce=False, device="cpu", **kw)
+        assert kk.LAUNCHES == dict.fromkeys(kk.LAUNCHES, 0)
+        assert got.chunks == 2 and got.n_failed == 0
+        rel = _rel(got.outputs["DM_over_B"], ref.outputs["DM_over_B"])
+        print(f"RESIDUAL stream-tier sweep (fuse_exp={fuse_exp}) vs JAX tabulated: {rel:.3e}")
         assert rel <= TABULATED_RTOL

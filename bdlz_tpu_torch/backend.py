@@ -55,3 +55,27 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
             "not fall back — pass device='cpu' to run the plain PyTorch path"
         )
     return torch.device("cuda", 0 if dev.index is None else dev.index)
+
+
+def device_label(device) -> str:
+    """The card a result came from, as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` names it, or ``"cpu"`` for the host.
+
+    The row is found by the card's UUID, not by torch's index, which
+    ``CUDA_VISIBLE_DEVICES`` renumbers; a card nvidia-smi does not list
+    raises ``RuntimeError``."""
+    import subprocess
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    uuid = f"GPU-{torch.cuda.get_device_properties(dev.index or 0).uuid}"
+    rows = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    for row in rows:
+        row_uuid, _, label = row.partition(",")
+        if row_uuid.strip() == uuid:
+            return label.strip()
+    raise RuntimeError(f"nvidia-smi lists no card {uuid} (cuda:{dev.index or 0})")

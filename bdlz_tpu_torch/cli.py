@@ -171,6 +171,11 @@ def resolve_P(
     return float(P_used)
 
 
+def can_use_quadrature(cfg: Config) -> bool:
+    """Fast-path guard (reference :372), the shared predicate of config.py."""
+    return not needs_ode_path(cfg)
+
+
 def _point(cfg: Config, P_used: float, dev: torch.device):
     from bdlz_tpu_torch.interop import point_params_from_numpy
 
@@ -189,11 +194,11 @@ def run_point(cfg: Config, P_used: float, device=None):
     if static.quad_panel_gl is None:
         static = static._replace(quad_panel_gl=False)  # bit-pinned default
     grid = make_kjma_grid(dev)
-    if not needs_ode_path(cfg):  # the reference's can_quad guard
+    if can_use_quadrature(cfg):
         return point_yields(pp, static, grid)
 
     from bdlz_tpu_torch.solvers.batching import initial_yields
-    from bdlz_tpu_torch.solvers.sdirk import solve_boltzmann_esdirk
+    from bdlz_tpu_torch.solvers.sdirk import boltzmann_final_yields, solve_boltzmann_esdirk
 
     T_hi = cfg.T_max_over_Tp * cfg.T_p_GeV
     T_lo = cfg.T_min_over_Tp * cfg.T_p_GeV
@@ -204,7 +209,8 @@ def run_point(cfg: Config, P_used: float, device=None):
             "[warn] ODE solver reported failure: ESDIRK did not converge "
             f"in {int(sol.n_steps[0])} steps"
         )
-    return present_day(sol.y[:, 1], sol.y[:, 0], pp.m_chi_GeV, pp.m_B_kg)
+    Y_chi, Y_B = boltzmann_final_yields(sol)
+    return present_day(Y_B, Y_chi, pp.m_chi_GeV, pp.m_B_kg)
 
 
 def print_results(result) -> None:

@@ -31,6 +31,8 @@ REFERENCE_KEYS = (
     "T_max_over_Tp", "T_min_over_Tp", "Y_chi_init", "n_chi_at_Tp_GeV3",
 )
 
+VALID_REGIMES = ("thermal", "nonthermal")
+VALID_STATS = ("fermion", "boson")
 VALID_ODE_METHODS = ("sdirk4", "kvaerno3")
 VALID_TENANT_ROUTING = ("scenario", "hash")
 VALID_POSTERIOR_WEIGHTS = ("planck",)
@@ -288,14 +290,17 @@ def validate(cfg: Config, backend: Optional[str] = None) -> Config:
     """
     from bdlz_tpu_torch.backend import is_device_backend
 
+    # the pipeline reads a regime by its prefix ("therm"/"non"), so the
+    # rule is on prefixes; the message names the two spellings
     r = cfg.regime.lower()
     if not (r.startswith("therm") or r.startswith("non")):
         backend = cfg.backend if backend is None else backend
         if is_device_backend(backend) or not needs_ode_path(cfg):
             raise ConfigError(
-                f"regime={cfg.regime!r} is not supported here: use 'thermal' "
-                "or 'nonthermal'. (The reference's quadrature path crashes on "
-                "it — rejected up-front; its ODE path treats it as the "
+                f"regime={cfg.regime!r} is not supported here: use "
+                f"{' or '.join(map(repr, VALID_REGIMES))}. (The reference's "
+                "quadrature path crashes on it — rejected up-front; its ODE "
+                "path treats it as the "
                 "thermal default, which this framework reproduces only on "
                 "the reference backend.)"
             )

@@ -165,6 +165,17 @@ def predicted_error(thetas: torch.Tensor, nodes: Sequence[torch.Tensor],
     return torch.clamp_min(val, floor)
 
 
+def in_domain_one(theta: torch.Tensor, nodes: Sequence[torch.Tensor]) -> torch.Tensor:
+    """True iff every coordinate of one ``(d,)`` query lies in the box (0-d)."""
+    return in_domain(theta[None, :], nodes)[0]
+
+
+def predicted_error_one(theta: torch.Tensor, nodes: Sequence[torch.Tensor],
+                        error_grid: torch.Tensor, floor: float) -> torch.Tensor:
+    """:func:`predicted_error` of one ``(d,)`` query (0-d)."""
+    return predicted_error(theta[None, :], nodes, error_grid, floor)[0]
+
+
 def domain_error_table(dom: EmulatorArtifact, device) -> Tuple[torch.Tensor, float]:
     """(error grid on the device, floor) of one domain; a domain without
     a grid has a zero grid at its floor."""

@@ -639,10 +639,15 @@ def _clamp_chunk_to_memory(
     Per-engine footprint models, the JAX engine's: the fast paths keep
     ~20 live float64 buffers per node (n_y nodes, or the panel scheme's
     nodes); the direct engine ~3 copies of its (n_y × 1200) integrand;
-    the stiff engines ~32 of the (1200,) z-integral per lane.  The budget
-    is 90% of what ``torch.cuda.mem_get_info`` reports free.  CPU runs
+    the stiff engines ~32 of the (1200,) z-integral per lane.  CPU runs
     are never clamped.  On a mesh each member holds ``1/size`` of the
-    chunk, and members that share a card share its budget.
+    chunk.
+
+    ``BDLZ_CHUNK_BYTES_BUDGET``, when set, is the budget of each mesh
+    member in bytes, read as the JAX engine reads it, so both packages
+    clamp a request to the same chunk.  Unset, the budget is 90% of what
+    ``torch.cuda.mem_get_info`` reports free, and members that share a
+    card share it.
 
     ``double_buffer``: the overlapped chunk loop keeps a second chunk's
     input and output rows (17 PointParams and 5 YieldsResult fields) in
@@ -652,11 +657,7 @@ def _clamp_chunk_to_memory(
     """
     if device.type != "cuda":
         return chunk_size
-    free, _ = torch.cuda.mem_get_info(device)
-    n_dev, share = 1, 1
-    if mesh is not None:
-        n_dev = mesh.size
-        share = sum(1 for d in mesh.local_devices if d == device)
+    n_dev = 1 if mesh is None else mesh.size
     nz = 1200
     if impl == "direct":
         per_point_bytes = 3 * max(int(n_y), 1) * nz * 8
@@ -668,13 +669,23 @@ def _clamp_chunk_to_memory(
         per_point_bytes = 20 * max(int(n_y), 1) * 8
     if double_buffer:
         per_point_bytes += (len(PointParams._fields) + 5) * 8
-    max_chunk = max(int(0.9 * free) // per_point_bytes // share, 1) * n_dev
+    budget = os.environ.get("BDLZ_CHUNK_BYTES_BUDGET")
+    if budget is not None:
+        max_chunk = max(int(budget) // per_point_bytes, 1) * n_dev
+        room = f"a budget of {int(budget) / 1e9:.1f} GB per member"
+    else:
+        # By design the port's default differs from JAX's fixed 12 GiB: it
+        # asks the card what is free, and members on one card split it.
+        free, _ = torch.cuda.mem_get_info(device)
+        share = 1 if mesh is None else sum(1 for d in mesh.local_devices if d == device)
+        max_chunk = max(int(0.9 * free) // per_point_bytes // share, 1) * n_dev
+        room = f"{free / 1e9:.1f} GB free"
     if chunk_size > max_chunk:
         print(
             f"[sweep] chunk_size {chunk_size} would need "
             f"~{chunk_size * per_point_bytes / 1e9:.1f} GB for the {impl!r} "
-            f"engine at n_y={n_y}, {free / 1e9:.1f} GB free; clamping to "
-            f"{max_chunk}",
+            f"engine at n_y={n_y}, {room}; clamping to {max_chunk} "
+            "(override with BDLZ_CHUNK_BYTES_BUDGET)",
             file=sys.stderr,
         )
         return max_chunk

@@ -515,6 +515,11 @@ def boltzmann_ode_problem(
     return LogX(rhs), u0, u1, h_max_fn
 
 
+def boltzmann_final_yields(sol: ESDIRKSolution):
+    """(Y_chi, Y_B) per lane from a Boltzmann ESDIRK solution, (P,) each."""
+    return sol.y[:, 0], sol.y[:, 1]
+
+
 def solve_boltzmann_esdirk(
     pp: PointParams,
     static: StaticChoices,

@@ -59,7 +59,12 @@ kernel builds refused on both processes; and a NCCL world of one.  Last
 the compile-check entry points (``graft_path``): ``entry()``'s forward step on
 the card against the CPU, timed, and ``dryrun_multichip`` on meshes of 2
 and 4 members of the one card against the same dry runs on the host, P1
-launched on every member.
+launched on every member.  Then the evidence tools (``evidence_path``:
+``scripts/torch_*.py``, each through its ``main`` at reduced sizes): the
+accuracy audit through the tabulated engine and P1 against the CPU
+reference, the n_y convergence study with its sp row, the engine
+shoot-out through P1-P4, the LZ scale run and weak scaling over 1 and 2
+members of the card.
 
 Every phase prints one JSON line; the card's name and power limit as
 ``nvidia-smi`` reports them and a ``kernels`` line come before the last
@@ -68,7 +73,7 @@ the script with a non-zero exit and no ``ok`` line; so does a machine
 without a CUDA device, or a directory without the port.  Imports nothing
 of JAX or of the JAX package.  ``--only host_planes,serving_path`` (or any
 of overlap_path, robust_path, emulator_path, sampling_path, mesh_path,
-graft_path, elastic_path, fabric_path) runs just those phases
+graft_path, elastic_path, fabric_path, evidence_path) runs just those phases
 (after the build) and prints no ``ok`` line.
 """
 from __future__ import annotations
@@ -187,10 +192,9 @@ def check(cond: bool, what: str) -> None:
 
 
 def phase_device() -> dict:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    from bdlz_tpu_torch.backend import device_label
+
+    smi = device_label(torch.device("cuda", 0))
     print(smi, flush=True)
     dev = {"name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
            "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
@@ -3024,6 +3028,126 @@ def phase_overlap_path(dev) -> dict:
     return launches
 
 
+#: The evidence tools' arguments in evidence_path: cut from their defaults
+#: (1024 audit points, n_y up to 128000, a 65536-point grid, 64 speeds and a
+#: 256-node table, 1 to 8 members) to keep the phase near two minutes.
+EVIDENCE_ARGS = {
+    "accuracy_audit": ["--points", "128", "--n-y", str(N_Y)],
+    "ny_convergence": ["--levels", "2000,8000,32000", "--sp", "2"],
+    "impl_shootout": ["--points", str(N_POINTS), "--gate-points", "64"],
+    "lz_scale_bench": ["--rows", "1000001", "--speeds", "8", "--table-n", "32"],
+    "weak_scaling": ["--counts", "1,2"],
+}
+EVIDENCE_GATE_RTOL, SP_RTOL = 1e-9, 1e-12
+
+
+def _run_tool(name: str, argv: list) -> tuple:
+    """``scripts/torch_<name>.py``'s ``main(argv)`` in this process, its
+    standard output captured: (exit code, JSON lines, seconds)."""
+    import contextlib
+    import importlib.util
+    import io
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    rows = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+    return rc, rows, time.perf_counter() - t0
+
+
+def phase_evidence_path(dev) -> dict:
+    """The port's evidence tools (``scripts/torch_*.py``) on the card,
+    each through its ``main`` at the sizes of ``EVIDENCE_ARGS``: the
+    grid-wide accuracy audit (both sections inside the 1e-6 contract, P1
+    ≤1e-9 from the reference, launched once), the n_y convergence study
+    (the sp row ≤1e-12 from one device), the engine shoot-out (five
+    engines, each gate ≤1e-9, P1-P4 each launched once a chunk, once for
+    the warm-up and once for the gate), the LZ scale run (P finite in [0,
+    1]) and weak scaling (no failed point; its children run the sweep in
+    processes of their own).  The reference cache lives in a temporary
+    directory, so no run reads an earlier one.  Returns each kernel's
+    launches."""
+    from bdlz_tpu_torch.backend import device_label
+
+    t0 = time.perf_counter()
+    smi = device_label(dev)
+    launches = dict.fromkeys(POINT_KERNELS, 0)
+    tmp = tempfile.mkdtemp(prefix="bdlz_evidence_")
+    old_cache = os.environ.get("BDLZ_REF_CACHE_DIR")
+    os.environ["BDLZ_REF_CACHE_DIR"] = os.path.join(tmp, "refcache")
+    try:
+        runs, seconds = {}, {}
+        for name, argv in EVIDENCE_ARGS.items():
+            if name == "accuracy_audit":
+                argv = argv + ["--out", os.path.join(tmp, "audit.json")]
+            (rc, rows, seconds[name]), counts = _launches_around(lambda: _run_tool(name, argv))
+            check(rc == 0, f"{name} {argv}: exit code {rc}")
+            check(rows and all(r["device"] == smi for r in rows),
+                  f"{name}: every row names the card, got {[r['device'] for r in rows]}")
+            runs[name] = (rows, counts)
+            for k in launches:
+                launches[k] += counts[k]
+
+        rows, counts = runs["accuracy_audit"]
+        with open(os.path.join(tmp, "audit.json")) as f:
+            audit = json.load(f)
+        kern = audit["kernel"]
+        check(audit["contract_1e-6_ok"] and kern["contract_1e-6_ok"],
+              f"audit: tabulated {audit['max_rel_err']:.3e}, P1 {kern['max_rel_err']:.3e} <= 1e-6")
+        check(kern["max_rel_err"] <= REF_RTOL and kern["impl"] == "cuda",
+              f"audit: P1 {kern['max_rel_err']:.3e} <= {REF_RTOL:g} on the card")
+        check(counts[MAIN_KERNEL] == kern["launches"] == 1 and sum(counts.values()) == 1,
+              f"audit: one P1 launch and no other kernel, got {counts}")
+
+        rows, counts = runs["ny_convergence"]
+        check(len(rows) == 4 and rows[-1]["rel_vs_single_device"] <= SP_RTOL
+              and sum(counts.values()) == 0,
+              f"convergence: sp row {rows[-1]} <= {SP_RTOL:g}, no kernel, got {counts}")
+
+        rows, counts = runs["impl_shootout"]
+        check(len(rows) == 5 and not any("error" in r or "gate_error" in r for r in rows),
+              f"shoot-out: five engines without an error, got {rows}")
+        for r in rows:
+            check(r["gate_max_rel_err"] <= EVIDENCE_GATE_RTOL
+                  and r["max_rel_err_vs_reference"] <= EVIDENCE_GATE_RTOL,
+                  f"shoot-out {r['engine']}: sample {r['max_rel_err_vs_reference']:.3e}, gate "
+                  f"{r['gate_max_rel_err']:.3e} <= {EVIDENCE_GATE_RTOL:g}")
+            if "kernel" in r:
+                want = r["n_evaluated"] // r["chunk"] + 2
+                check(counts[r["kernel"]] == want and r["impl"] == "cuda",
+                      f"shoot-out {r['engine']}: {want} launches of {r['kernel']}, got {counts}")
+        check(sum(counts.values()) == sum(counts[r["kernel"]] for r in rows if "kernel" in r),
+              f"shoot-out: no other kernel, got {counts}")
+
+        rows, counts = runs["lz_scale_bench"]
+        ranges = [r["P_range"] for r in rows[1:]]
+        check([r["phase"] for r in rows] == ["parse", "coherent", "ptable"]
+              and all(r["finite"] for r in rows[1:])
+              and all(0.0 <= lo <= hi <= 1.0 for lo, hi in ranges) and sum(counts.values()) == 0,
+              f"lz scale: P finite in [0, 1], no kernel, got {ranges}, {counts}")
+
+        rows, _ = runs["weak_scaling"]
+        check([r["n_devices"] for r in rows] == [1, 2] and all(r["n_failed"] == 0 for r in rows),
+              f"weak scaling: 1 and 2 members without a failed point, got {rows}")
+    finally:
+        if old_cache is None:
+            os.environ.pop("BDLZ_REF_CACHE_DIR", None)
+        else:
+            os.environ["BDLZ_REF_CACHE_DIR"] = old_cache
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "evidence_path", "seconds": time.perf_counter() - t0,
+          "tool_seconds": seconds, "launches": launches,
+          "audit": {k: v for k, v in audit.items() if k != "worst_points"},
+          **{name: runs[name][0] for name in EVIDENCE_ARGS if name != "accuracy_audit"}})
+    return launches
+
+
 #: Phases that can run on their own (``--only``); such a run prints no
 #: kernels line and no ok line.
 STANDALONE = {"overlap_path": phase_overlap_path,
@@ -3031,7 +3155,7 @@ STANDALONE = {"overlap_path": phase_overlap_path,
               "sampling_path": phase_sampling_path, "host_planes": phase_host_planes,
               "serving_path": phase_serving_path, "elastic_path": phase_elastic_path,
               "fabric_path": phase_fabric_path, "mesh_path": phase_mesh_path,
-              "graft_path": phase_graft_path}
+              "graft_path": phase_graft_path, "evidence_path": phase_evidence_path}
 
 
 def main(argv=None) -> int:
@@ -3089,6 +3213,9 @@ def main(argv=None) -> int:
     launches[MAIN_KERNEL] += phase_mesh_path(dev)
     # P1 on every member of the mesh dry runs
     launches[MAIN_KERNEL] += phase_graft_path(dev)
+    # P1 through the accuracy audit, P1-P4 through the shoot-out
+    for name, n in phase_evidence_path(dev).items():
+        launches[name] += n
     check(all(launches[k] > 0 for k in TIER_KERNEL.values()),
           f"every tier's kernel launched on the main path, got {launches}")
     from bdlz_tpu_torch.ops import bounce_kernel as bk

@@ -325,3 +325,14 @@ def test_yields_out_payload_lists_changed_extension_keys():
         *(torch.tensor([v], dtype=torch.float64) for v in vals)))
     j = j_payload(jc.config_from_dict(d), np.float64(0.149), JResult(*map(np.float64, vals)))
     assert json.dumps(t) == json.dumps(j)
+
+
+@pytest.mark.parametrize("over", [{}, {"Gamma_wash_over_H": 0.01}, {"sigma_v_chi_GeV_m2": 1e-12},
+                                  {"deplete_DM_from_source": True}, {"regime": "thermal"}])
+def test_can_use_quadrature_matches_jax(over):
+    from bdlz_tpu.cli import can_use_quadrature as j_can
+
+    from bdlz_tpu_torch.cli import can_use_quadrature
+
+    d = dict(ARCHIVED, **over)
+    assert can_use_quadrature(tc.config_from_dict(d)) is j_can(jc.config_from_dict(d))

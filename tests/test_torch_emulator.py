@@ -291,3 +291,24 @@ def test_without_a_card_nothing_runs_unless_the_cpu_is_asked_for(tiny_emulator, 
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert te.make_query_fn(art, device="cpu")(_queries(4)).shape == (4,)
+
+
+def test_one_query_domain_and_error_match_jax():
+    """``in_domain_one``/``predicted_error_one`` on (d,) queries inside,
+    on the edge of and outside a 3-D box, against JAX's NumPy forms."""
+    from bdlz_tpu.emulator import grid as jg
+
+    from bdlz_tpu_torch.emulator import grid as tg
+
+    rng = np.random.default_rng(7)
+    nodes = [np.sort(rng.uniform(1.0, 3.0, n)) for n in (4, 2, 5)]
+    errs = rng.uniform(1e-6, 1e-3, (3, 1, 4))
+    tnodes = [torch.as_tensor(n, dtype=torch.float64) for n in nodes]
+    terrs = torch.as_tensor(errs, dtype=torch.float64)
+    queries = [[n[0] for n in nodes], [n[-1] for n in nodes], [2.0, 2.0, 2.0],
+               [0.5, 2.0, 2.0], [2.0, 2.0, 3.5]] + rng.uniform(1.0, 3.0, (8, 3)).tolist()
+    for q in queries:
+        t = torch.as_tensor(q, dtype=torch.float64)
+        assert bool(tg.in_domain_one(t, tnodes)) == bool(jg.in_domain_one(np.asarray(q), nodes, np))
+        assert float(tg.predicted_error_one(t, tnodes, terrs, 2e-5)) == float(
+            jg.predicted_error_one(np.asarray(q), nodes, errs, 2e-5, np))

@@ -163,3 +163,44 @@ def test_resolve_device_cpu_on_request_and_no_silent_fallback(monkeypatch):
     with pytest.raises(ValueError):
         resolve_device("mps")
     assert F64 is torch.float64
+
+
+SMI_ROWS = ("GPU-aaaa, NVIDIA H100 80GB HBM3, 700.00 W\n"
+            "GPU-bbbb, NVIDIA H100 80GB HBM3, 500.00 W\n")
+
+
+@pytest.mark.parametrize("index,uuid,want", [
+    (0, "bbbb", "NVIDIA H100 80GB HBM3, 500.00 W"),    # renumbered: torch's 0 is smi's 1
+    (1, "aaaa", "NVIDIA H100 80GB HBM3, 700.00 W"),
+    (0, "cccc", None),                                 # a card nvidia-smi does not list
+])
+def test_device_label_finds_the_card_by_uuid(monkeypatch, index, uuid, want):
+    """``device_label`` reads nvidia-smi's row of the card's UUID, not of
+    torch's index, and raises for a card it cannot find; the host is
+    ``cpu`` without a query."""
+    import subprocess
+    from types import SimpleNamespace
+
+    from bdlz_tpu_torch.backend import device_label
+
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return SimpleNamespace(stdout=SMI_ROWS)
+
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: SimpleNamespace(uuid={index: uuid}[i]))
+    assert device_label("cpu") == "cpu" and calls == []
+    if want is None:
+        with pytest.raises(RuntimeError, match="GPU-cccc"):
+            device_label(torch.device("cuda", index))
+    else:
+        assert device_label(torch.device("cuda", index)) == want
+    assert calls == [["nvidia-smi", "--query-gpu=uuid,name,power.limit",
+                      "--format=csv,noheader"]]
+
+
+def test_valid_regimes_and_stats_match_jax():
+    assert (tc.VALID_REGIMES, tc.VALID_STATS) == (jc.VALID_REGIMES, jc.VALID_STATS)

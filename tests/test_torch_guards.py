@@ -14,7 +14,9 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "bdlz_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels_gpu.py",
-]
+] + sorted((REPO / "scripts").glob("torch_*.py"))
+EVIDENCE_TOOLS = ("accuracy_audit", "ny_convergence", "impl_shootout", "lz_scale_bench",
+                  "weak_scaling")
 FORBIDDEN = ("jax", "jaxlib", "bdlz_tpu")
 
 
@@ -43,6 +45,18 @@ def _imported_roots(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     bad = sorted({r for r in _imported_roots(path) if r in FORBIDDEN})
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("name", EVIDENCE_TOOLS)
+def test_each_evidence_tool_without_a_card_exits_non_zero_naming_it(name):
+    """Run as a user runs it, with no card visible and no ``--device cpu``."""
+    assert REPO / "scripts" / f"torch_{name}.py" in PORT_FILES
+    proc = subprocess.run([sys.executable, str(REPO / "scripts" / f"torch_{name}.py")],
+                          cwd=REPO, env=dict(_clean_env(), CUDA_VISIBLE_DEVICES=""),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2 and proc.stdout == ""
+    assert f"torch_{name}: no CUDA device is available" in proc.stderr
+    assert "--device cpu" in proc.stderr
 
 
 def _clean_env():

@@ -337,6 +337,7 @@ def test_the_clamp_adds_one_chunk_s_io_rows_when_double_buffering(monkeypatch, m
         mesh.devices[...] = cuda
         n_dev = share = mesh.size
     free = -(-8192 * PER_POINT * share * 10 // 9) + 1000
+    monkeypatch.delenv("BDLZ_CHUNK_BYTES_BUDGET", raising=False)
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (free, 2 * free))
     want_off = (int(0.9 * free) // PER_POINT // share) * n_dev
     want_on = (int(0.9 * free) // (PER_POINT + IO_ROWS) // share) * n_dev
@@ -348,3 +349,39 @@ def test_the_clamp_adds_one_chunk_s_io_rows_when_double_buffering(monkeypatch, m
     # the CPU is never clamped
     assert ts._clamp_chunk_to_memory(big, 8000, torch.device("cpu"), "kernel",
                                      double_buffer=True) == big
+
+
+@pytest.mark.parametrize("double_buffer", [False, True], ids=["serial", "double_buffer"])
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("impl,quad_nodes", [("kernel", None), ("tabulated", 560),
+                                             ("direct", None), ("esdirk", None)])
+def test_the_clamp_reads_the_byte_budget_as_jax_does(monkeypatch, mesh_name, double_buffer,
+                                                     impl, quad_nodes):
+    """With ``BDLZ_CHUNK_BYTES_BUDGET`` set, the port clamps a request to
+    JAX's chunk for the same budget per member, whatever the card reports
+    free; the platform check of JAX's clamp is stood in for."""
+    import jax
+    from types import SimpleNamespace
+
+    shape = MESHES[mesh_name]
+    cuda = torch.device("cuda", 0)
+    tmesh = jmesh = None
+    n_dev = 1
+    if shape is not None:
+        tmesh = make_mesh(shape, devices=["cpu"] * (shape[0] * shape[1]))
+        tmesh.devices[...] = cuda       # the members share one card
+        jmesh = SimpleNamespace(devices=np.empty(shape, dtype=object))
+        n_dev = tmesh.size
+    monkeypatch.setattr(jax, "devices", lambda *a, **k: [SimpleNamespace(platform="gpu")])
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (1 << 40, 1 << 41))
+    for budget in (PER_POINT * 3000 + 5, 12 * 1024**3, 1):
+        monkeypatch.setenv("BDLZ_CHUNK_BYTES_BUDGET", str(budget))
+        for request in (7, 8192 * n_dev, 65536 * n_dev):
+            want = js._clamp_chunk_to_memory(request, 8000, jmesh, impl, quad_nodes,
+                                             double_buffer=double_buffer)
+            got = ts._clamp_chunk_to_memory(request, 8000, cuda, impl, quad_nodes, tmesh,
+                                            double_buffer=double_buffer)
+            assert got == want, (budget, request)
+    # JAX's default budget cuts the kernel engine's 16384 points at n_y 8000
+    monkeypatch.setenv("BDLZ_CHUNK_BYTES_BUDGET", str(12 * 1024**3))
+    assert ts._clamp_chunk_to_memory(16384, 8000, cuda, "kernel") == 12 * 1024**3 // PER_POINT

@@ -479,3 +479,19 @@ def test_sweep_routes_like_jax(capsys):
         route_impl(base, {"m_chi_GeV": [1.0]}, "pallas")
     dep = dataclasses.replace(base, deplete_DM_from_source=True)
     assert route_impl(dep, {"m_chi_GeV": [1.0]}, "direct") == "esdirk"
+
+
+def test_boltzmann_final_yields_matches_jax_per_lane():
+    """The port's batched solution gives each lane's (Y_chi, Y_B) as
+    JAX's per-point solution does."""
+    from bdlz_tpu.solvers.sdirk import ESDIRKSolution as JSolution
+    from bdlz_tpu.solvers.sdirk import boltzmann_final_yields as j_final
+
+    y = np.random.default_rng(3).uniform(1e-12, 1e-9, (4, 2))
+    ok = torch.ones(4, dtype=torch.bool)
+    steps = torch.zeros(4, dtype=torch.int64)
+    Y_chi, Y_B = ts.boltzmann_final_yields(ts.ESDIRKSolution(
+        torch.as_tensor(y, dtype=torch.float64), ok, steps, steps, steps))
+    for i in range(4):
+        j_chi, j_B = j_final(JSolution(y[i], True, 0, 0, 0))
+        assert (float(Y_chi[i]), float(Y_B[i])) == (float(j_chi), float(j_B))

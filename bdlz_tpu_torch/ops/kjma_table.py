@@ -26,6 +26,7 @@ import torch
 from bdlz_tpu_torch.backend import F64
 from bdlz_tpu_torch.physics.percolation import make_kjma_grid_numpy
 from bdlz_tpu_torch.physics.thermo import hubble_rate
+from bdlz_tpu_torch.utils.profiling import spanned
 
 Y_CLAMP = 50.0  # e^y clamp of the reference kernel (:161)
 
@@ -40,6 +41,7 @@ class KJMATable(NamedTuple):
     I_p: float
 
 
+@spanned("f_table")
 def make_f_table(I_p: float, n: int = 16384) -> KJMATable:
     """Build the F(y) table on the host with the exact reference z-trapezoid
     (one (n × 1200) NumPy tensor, paid once per sweep)."""

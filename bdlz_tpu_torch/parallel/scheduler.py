@@ -49,6 +49,7 @@ from bdlz_tpu_torch.config import Config, StaticChoices
 from bdlz_tpu_torch.ops.kjma_kernel import REDUCE_DEFAULT
 from bdlz_tpu_torch.parallel.sweep import SweepPlan
 from bdlz_tpu_torch.utils.clock import ManualClock, WallClock  # noqa: F401
+from bdlz_tpu_torch.utils.profiling import span, spanned
 
 
 class ElasticError(RuntimeError):
@@ -336,6 +337,7 @@ def publish_chunk(store, plan: ElasticPlan, ci: int, host: Dict[str, np.ndarray]
 
 # ---- the in-process elastic driver --------------------------------------
 
+@spanned("sweep")
 def run_sweep_elastic(
     base: Config,
     axes,
@@ -376,7 +378,9 @@ def run_sweep_elastic(
     replacement worker; past ``max_rounds`` the protocol is declared stuck
     (:class:`ElasticError`).  ``device`` is the card unless the caller
     asks for the CPU; ``impl="kernel"`` runs P1, P2, P3 or P4 by its ``reduce`` and
-    ``fuse_exp`` tiers."""
+    ``fuse_exp`` tiers.  The spans are ``run_sweep``'s: ``sweep``, its
+    planning, the engine's build and, around the rounds, ``sweep.loop``
+    with each worker's ``chunk.*``."""
     from bdlz_tpu_torch.faults import FaultPlan
     from bdlz_tpu_torch.parallel.sweep import SweepResult, chunk_entry_ok
     from bdlz_tpu_torch.parallel.worker import Worker
@@ -468,57 +472,58 @@ def run_sweep_elastic(
         max_rounds = (10 + plan.n_chunks * (quarantine_after + 1) * (ttl_rounds + 2)
                       + 2 * len(schedule))
 
-    round_i = 0
-    while not folded.all():
-        if round_i >= max_rounds:
-            raise ElasticError(
-                f"elastic sweep made no full progress after {round_i} rounds "
-                f"({int(folded.sum())}/{plan.n_chunks} chunks folded); "
-                "protocol deadlock"
-            )
-        for r, action in schedule:
-            if r != round_i:
-                continue
-            if action == "spawn":
-                _spawn()
-            elif action == "kill" and workers:
-                workers.pop(0).kill()
-            else:
-                raise ElasticError(f"unknown churn action {action!r}")
-        leases.requeue_expired()
-        live = [w for w in workers if w.alive]
-        if not live:
-            live = [_spawn()]
-            if event_log is not None:
-                event_log.emit("elastic_respawn", round=round_i)
-        for w in live:
-            w.step()
-        workers[:] = [w for w in workers if w.alive]
-        for ci in range(plan.n_chunks):
-            if folded[ci]:
-                continue
-            rec = leases.read(ci)
-            if rec is None:
-                continue
-            if rec.get("state") == "quarantined":
-                _fold_quarantined(ci)
-                continue
-            if rec.get("state") != "done":
-                continue
-            lo, hi = plan.chunk_bounds(ci)
-            ent = store.get_npz(rec.get("entry") or plan.entry_name(ci))
-            if not chunk_entry_ok(ent, hi - lo):
-                leases.requeue(ci)  # torn or vanished: recompute
-                continue
-            _fold(ci, ent)
-        clock.advance(tick_s)
-        round_i += 1
+    with span("sweep.loop"):
+        round_i = 0
+        while not folded.all():
+            if round_i >= max_rounds:
+                raise ElasticError(
+                    f"elastic sweep made no full progress after {round_i} rounds "
+                    f"({int(folded.sum())}/{plan.n_chunks} chunks folded); "
+                    "protocol deadlock"
+                )
+            for r, action in schedule:
+                if r != round_i:
+                    continue
+                if action == "spawn":
+                    _spawn()
+                elif action == "kill" and workers:
+                    workers.pop(0).kill()
+                else:
+                    raise ElasticError(f"unknown churn action {action!r}")
+            leases.requeue_expired()
+            live = [w for w in workers if w.alive]
+            if not live:
+                live = [_spawn()]
+                if event_log is not None:
+                    event_log.emit("elastic_respawn", round=round_i)
+            for w in live:
+                w.step()
+            workers[:] = [w for w in workers if w.alive]
+            for ci in range(plan.n_chunks):
+                if folded[ci]:
+                    continue
+                rec = leases.read(ci)
+                if rec is None:
+                    continue
+                if rec.get("state") == "quarantined":
+                    _fold_quarantined(ci)
+                    continue
+                if rec.get("state") != "done":
+                    continue
+                lo, hi = plan.chunk_bounds(ci)
+                ent = store.get_npz(rec.get("entry") or plan.entry_name(ci))
+                if not chunk_entry_ok(ent, hi - lo):
+                    leases.requeue(ci)  # torn or vanished: recompute
+                    continue
+                _fold(ci, ent)
+            clock.advance(tick_s)
+            round_i += 1
 
-    if plan.device.type == "cuda":
-        import torch
+        if plan.device.type == "cuda":
+            import torch
 
-        torch.cuda.synchronize(plan.device)
-    seconds = time.perf_counter() - t0
+            torch.cuda.synchronize(plan.device)
+        seconds = time.perf_counter() - t0
     quad_impl, n_quad = plan.quad_report()
     return SweepResult(
         n_points=plan.n_total,

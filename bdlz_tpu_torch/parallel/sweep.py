@@ -34,7 +34,10 @@ copies back started with one CUDA event per member
 when it collects the chunk (:meth:`SweepPlan.collect_local`), after the
 next chunk has been enqueued.  :func:`make_chunk_runner` is the padded,
 clamped chunk runner the measurement tools and the tiered population
-gate stand on.
+gate stand on.  Each phase of a sweep is a span of
+``utils/profiling.SPANS`` (``sweep``, its planning, ``sweep.loop`` and
+per chunk ``chunk.ship``, ``chunk.step``, ``chunk.wait`` and
+``chunk.finish``), seen by any ``torch.profiler`` that records.
 
 Robustness, as in the JAX engine: resume directories (``manifest.json``
 and ``chunk_{ci:05d}.npz``, the JAX package's format), retry → bisect →
@@ -70,7 +73,7 @@ from bdlz_tpu_torch.config import (
 )
 from bdlz_tpu_torch.constants import GEV_TO_KG
 from bdlz_tpu_torch.ops.kjma_kernel import REDUCE_DEFAULT
-from bdlz_tpu_torch.utils.profiling import nan_debugging_enabled
+from bdlz_tpu_torch.utils.profiling import nan_debugging_enabled, span, spanned
 
 #: Config-key → PointParams-field mapping for sweep axes.
 AXIS_MAP: Dict[str, str] = {
@@ -404,13 +407,14 @@ def make_sweep_step(
 
 class _MeshStep:
     """The mesh step: ``mstep(pp_np, auxes) -> YieldsResult`` of this
-    process's rows as host arrays, split into :meth:`dispatch` and
-    :meth:`collect`.  Each local member's contiguous rows (the batch plan
-    of ``batch_sharding``) are shipped, launched and copied back on its
-    device and stream, with one event per member; collection waits on
-    those events in member order.  ``one_call`` hands the whole chunk to
-    ``step`` on the first member (the repacked stiff engine, which splits
-    its rounds over the mesh itself; single-process only)."""
+    process's rows as host arrays, split into :meth:`ship`,
+    :meth:`launch` (together :meth:`dispatch`) and :meth:`collect`.  Each
+    local member's contiguous rows (the batch plan of ``batch_sharding``)
+    are shipped, launched and copied back on its device and stream, with
+    one event per member; collection waits on those events in member
+    order.  ``one_call`` hands the whole chunk to ``step`` on the first
+    member (the repacked stiff engine, which splits its rounds over the
+    mesh itself; single-process only)."""
 
     def __init__(self, step, mesh, one_call: bool):
         from bdlz_tpu_torch.parallel.mesh import batch_sharding
@@ -418,25 +422,38 @@ class _MeshStep:
         self.step, self.mesh, self.one_call = step, mesh, one_call
         self.sharding = batch_sharding(mesh)
 
-    def dispatch(self, pp_np, auxes) -> list:
+    def ship(self, pp_np) -> list:
+        """Each local member's rows on its device and stream:
+        ``[(device, stream, rows, PointParams), ...]``."""
         from bdlz_tpu_torch.parallel.mesh import on_stream
 
         n = len(np.asarray(pp_np.m_chi_GeV))
         if self.one_call:
             home = self.mesh.local_devices[0]
-            ppd = ship_point_params(pp_np, home)
-            return [fetch_rows(self.step(ppd, auxes[home]), n, home, ppd)]
+            return [(home, None, n, ship_point_params(pp_np, home))]
         flat = self.mesh.devices.reshape(-1)
-        parts = []
+        shipped = []
         for k, (lo, hi) in zip(self.mesh.local_members, self.sharding.local_bounds(n)):
             dev, s = flat[k], self.mesh.stream(k)
             if s is not None:
                 s.wait_stream(torch.cuda.current_stream(dev))
             with on_stream(s):
-                ppm = ship_point_params(
-                    PointParams(*(np.asarray(f)[lo:hi] for f in pp_np)), dev)
-                parts.append(fetch_rows(self.step(ppm, auxes[dev]), hi - lo, dev, ppm))
+                shipped.append((dev, s, hi - lo, ship_point_params(
+                    PointParams(*(np.asarray(f)[lo:hi] for f in pp_np)), dev)))
+        return shipped
+
+    def launch(self, shipped: list, auxes) -> list:
+        """Each member's step on its stream and its rows' copy back."""
+        from bdlz_tpu_torch.parallel.mesh import on_stream
+
+        parts = []
+        for dev, s, n, ppm in shipped:
+            with on_stream(s):
+                parts.append(fetch_rows(self.step(ppm, auxes[dev]), n, dev, ppm))
         return parts
+
+    def dispatch(self, pp_np, auxes) -> list:
+        return self.launch(self.ship(pp_np), auxes)
 
     def collect(self, pending: list):
         from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
@@ -518,21 +535,42 @@ def fetch_rows(res, n_keep: int, device, keep=None):
     return host, event, (out, keep)
 
 
-def dispatch_chunk(engine, pp_np: PointParams, n_valid: int, device, mesh=None) -> list:
+def dispatch_chunk(engine, pp_np: PointParams, n_valid: int, device, mesh=None,
+                   bounds=None) -> list:
     """Launch one engine evaluation of a padded host chunk and start
     copying its first ``n_valid`` rows back (with a ``mesh``, this
     process's rows of the whole padded chunk): the pending chunk, one
     :func:`fetch_rows` part per member, which :func:`collect_chunk`
-    waits for.  On the CPU the work is done on return."""
-    if mesh is not None:
-        return engine[0].dispatch(pp_np, engine[1])
-    ppd = ship_point_params(pp_np, device)
-    return [fetch_rows(engine[0](ppd, engine[1]), n_valid, device, ppd)]
+    waits for.  ``bounds`` ``(lo, hi, size)`` pads the rows [lo, hi) of
+    ``pp_np`` to ``size`` first.  The spans ``chunk.ship`` (the padding
+    and the inputs' copy) and ``chunk.step`` (the step enqueued and the
+    copies back started).  On the CPU the work is done on return."""
+    with span("chunk.ship"):
+        if bounds is not None:
+            pp_np = _pad_chunk(pp_np, *bounds)
+        if mesh is not None:
+            shipped = engine[0].ship(pp_np)
+        else:
+            shipped = ship_point_params(pp_np, device)
+    with span("chunk.step"):
+        if mesh is not None:
+            return engine[0].launch(shipped, engine[1])
+        return [fetch_rows(engine[0](shipped, engine[1]), n_valid, device, shipped)]
+
+
+def wait_chunk(pending: list) -> None:
+    """The span ``chunk.wait``: block until each member's copies back of
+    a dispatched chunk have landed (its event; nothing on the CPU)."""
+    with span("chunk.wait"):
+        for _rows, event, _keep in pending:
+            if event is not None:
+                event.synchronize()
 
 
 def collect_chunk(pending: list) -> Dict[str, np.ndarray]:
     """A dispatched chunk's rows as fresh host arrays, members in order:
-    waits on each member's event only, never on the device."""
+    waits on each member's event only, never on the device (a chunk
+    past :func:`wait_chunk` waits no more)."""
     from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
 
     parts = []
@@ -569,12 +607,15 @@ def evaluate_chunk(engine, pp_np: PointParams, n_valid: int, device, mesh=None
     rows as host arrays.  ``engine`` is :func:`build_chunk_engine`'s;
     with a ``mesh`` the rows are split over the members and gathered
     across processes (a collective)."""
-    local = collect_chunk(dispatch_chunk(engine, pp_np, n_valid, device, mesh))
-    if mesh is None:
-        return local
-    from bdlz_tpu_torch.parallel.multihost import gather_to_host
+    pending = dispatch_chunk(engine, pp_np, n_valid, device, mesh)
+    wait_chunk(pending)
+    with span("chunk.finish"):
+        local = collect_chunk(pending)
+        if mesh is None:
+            return local
+        from bdlz_tpu_torch.parallel.multihost import gather_to_host
 
-    return {f: v[:n_valid] for f, v in gather_to_host(local).items()}
+        return {f: v[:n_valid] for f, v in gather_to_host(local).items()}
 
 
 def mesh_pad(n: int, mesh) -> int:
@@ -732,6 +773,7 @@ def route_impl(base: Config, axes: Mapping[str, Sequence[float]], impl: str,
     return impl
 
 
+@spanned("engine.build")
 def build_chunk_engine(
     base: Config,
     static: StaticChoices,
@@ -922,9 +964,9 @@ class SweepPlan:
         checkpoint inside it."""
         from bdlz_tpu_torch import sanitize
 
-        padded = _pad_chunk(self.pp_all, lo, hi, self.pad_size)
         with sanitize.opaque():
-            return dispatch_chunk(engine, padded, hi - lo, self.device, self.mesh)
+            return dispatch_chunk(engine, self.pp_all, hi - lo, self.device, self.mesh,
+                                  bounds=(lo, hi, self.pad_size))
 
     def collect_local(self, pending: list) -> Dict[str, np.ndarray]:
         """A dispatched chunk's rows as host arrays (:func:`collect_chunk`):
@@ -932,14 +974,13 @@ class SweepPlan:
         padded chunk (:meth:`gather` brings the rest)."""
         return collect_chunk(pending)
 
-    def compute_local(self, engine, lo: int, hi: int, trace_dir: Optional[str] = None
-                      ) -> Dict[str, np.ndarray]:
-        """:meth:`dispatch_local` then :meth:`collect_local`, inside one
-        profiler trace per call."""
-        from bdlz_tpu_torch.utils.profiling import trace as profiler_trace
-
-        with profiler_trace(trace_dir):
-            return self.collect_local(self.dispatch_local(engine, lo, hi))
+    def compute_local(self, engine, lo: int, hi: int) -> Dict[str, np.ndarray]:
+        """:meth:`dispatch_local`, :func:`wait_chunk`, then
+        :meth:`collect_local` in the span ``chunk.finish``."""
+        pending = self.dispatch_local(engine, lo, hi)
+        wait_chunk(pending)
+        with span("chunk.finish"):
+            return self.collect_local(pending)
 
     def gather(self, local: Dict[str, np.ndarray], lo: int, hi: int
                ) -> Dict[str, np.ndarray]:
@@ -952,11 +993,10 @@ class SweepPlan:
         full = gather_to_host(local)
         return {f: full[f][: hi - lo] for f in self.fields}
 
-    def compute(self, engine, lo: int, hi: int, trace_dir: Optional[str] = None
-                ) -> Dict[str, np.ndarray]:
+    def compute(self, engine, lo: int, hi: int) -> Dict[str, np.ndarray]:
         """One engine evaluation over [lo, hi): the valid rows as host
         arrays."""
-        return self.gather(self.compute_local(engine, lo, hi, trace_dir), lo, hi)
+        return self.gather(self.compute_local(engine, lo, hi), lo, hi)
 
     def apply_nan_faults(self, host: Dict[str, np.ndarray], lo: int, hi: int
                          ) -> Dict[str, np.ndarray]:
@@ -1122,8 +1162,8 @@ def run_sweep(
     serial loop's.  A resumed or cached chunk drains the buffer first; a
     failed dispatch drains it and heals the chunk serially; a failure
     that surfaces at collection (an asynchronous device error) is healed
-    there.  ``trace_dir`` and ``impl="esdirk"`` run the serial loop.  The
-    argument does not join the grid hash.
+    there.  ``impl="esdirk"`` runs the serial loop.  The argument does
+    not join the grid hash.
 
     ``mesh`` (``parallel/mesh.make_mesh``) splits every chunk over its
     members: the chunk size is rounded up to a multiple of them, each
@@ -1182,11 +1222,31 @@ def run_sweep(
     fields.
 
     **Debugging.** ``trace_dir`` writes one ``torch.profiler`` Chrome
-    trace per chunk step.  A ``FloatingPointError`` from
+    trace of the sweep (``trace_<n>.json``), the loop double-buffered as
+    without it; it holds the spans of ``utils/profiling.SPANS``, which any
+    profiler that records sees, and the card's kernels and copies.  A
+    ``FloatingPointError`` from
     ``enable_nan_debugging`` aborts the sweep instead of being healed.
     Sanitizer checkpoints inside the chunk step check nothing (the JAX
     step is jitted); the CLI checks the outputs.
     """
+    from bdlz_tpu_torch.utils.profiling import trace as profiler_trace
+
+    with profiler_trace(trace_dir), span("sweep"):
+        return _run_sweep(
+            base, axes, static, chunk_size=chunk_size, n_y=n_y, out_dir=out_dir,
+            keep_outputs=keep_outputs, table_nodes=table_nodes, event_log=event_log,
+            impl=impl, fuse_exp=fuse_exp, reduce=reduce, device=device,
+            lz_profile=lz_profile, lz_method=lz_method, lz_gamma_phi=lz_gamma_phi,
+            bounce=bounce, fault_plan=fault_plan, retry=retry, cache=cache, mesh=mesh,
+            overlap_chunks=overlap_chunks)
+
+
+def _run_sweep(base, axes, static, *, chunk_size, n_y, out_dir, keep_outputs, table_nodes,
+               event_log, impl, fuse_exp, reduce, device, lz_profile, lz_method,
+               lz_gamma_phi, bounce, fault_plan, retry, cache, mesh, overlap_chunks
+               ) -> SweepResult:
+    """The body of :func:`run_sweep`, inside its span."""
     from bdlz_tpu_torch.parallel.multihost import (
         broadcast_from_coordinator,
         is_coordinator,
@@ -1199,8 +1259,7 @@ def run_sweep(
         base, axes, static, chunk_size=chunk_size, n_y=n_y, impl=impl, fuse_exp=fuse_exp,
         reduce=reduce, device=device, table_nodes=table_nodes, lz_profile=lz_profile,
         lz_method=lz_method, lz_gamma_phi=lz_gamma_phi, bounce=bounce,
-        fault_plan=fault_plan, retry=retry, mesh=mesh,
-        overlap_chunks=overlap_chunks and trace_dir is None)
+        fault_plan=fault_plan, retry=retry, mesh=mesh, overlap_chunks=overlap_chunks)
     dev, faults, impl = plan.device, plan.faults, plan.impl
     overlap = plan.overlap
     n_total, chunk_size, n_chunks = plan.n_total, plan.chunk_size, plan.n_chunks
@@ -1335,7 +1394,7 @@ def run_sweep(
             if faults is not None:
                 faults.fire("step", ci)
                 faults.check_range("step", lo_r, hi_r)
-            local = plan.compute_local(engine, lo_r, hi_r, trace_dir=trace_dir)
+            local = plan.compute_local(engine, lo_r, hi_r)
         except FloatingPointError:
             raise  # enable_nan_debugging aborts the sweep; never healed
         except Exception as exc:  # noqa: BLE001 — the healing path decides
@@ -1411,30 +1470,46 @@ def run_sweep(
             policy=retry_policy, budget=[heal_budget(hi - lo, retry_policy.max_attempts)],
             paid=paid, fields=fields, on_retry=_on_retry)
 
+    def _healable(fn, *args):
+        """``(fn(*args), None)``, or ``(None, error)`` where the healing
+        path takes the error (without it, and for a NaN abort, it raises)."""
+        try:
+            return fn(*args), None
+        except Exception as exc:  # noqa: BLE001 — healed by the caller
+            if not heal_on or isinstance(exc, FloatingPointError):
+                raise
+            return None, exc
+
+    def _dispatch(ci, lo, hi):
+        if faults is not None:
+            faults.fire("step", ci)
+            faults.check_range("step", lo, hi)
+        return plan.dispatch_local(engine, lo, hi)
+
     def _finish(entry):
-        """Collect one dispatched chunk (healing a failure that surfaces
-        here, agreed fleet-wide first), then count, log and keep it."""
+        """Wait for one dispatched chunk, collect it (healing a failure
+        that surfaces here, agreed fleet-wide first), then count, log and
+        keep it: the spans ``chunk.wait`` and ``chunk.finish``."""
         ci, lo, hi = entry["ci"], entry["lo"], entry["hi"]
         paid = entry["paid"]
         host, q = entry.get("host"), entry.get("q")
+        pending, err = entry.pop("pending", None), None
         if host is None:
-            local, err = entry.get("local"), None
-            if local is None:
-                try:
-                    local = plan.collect_local(entry.pop("pending"))
-                except Exception as exc:  # noqa: BLE001 — healed below
-                    if not heal_on or isinstance(exc, FloatingPointError):
-                        raise
-                    err = exc
+            _, err = _healable(wait_chunk, pending)
+        with span("chunk.finish"):
+            if host is None:
+                local = None
+                if err is None:
+                    local, err = _healable(plan.collect_local, pending)
                 if heal_on and multiproc and not _agree_ok(err is None) and err is None:
                     err = RuntimeError("chunk gather failed on another process")
-            if err is None:
-                host = plan.gather(local, lo, hi)
-            else:
-                host, q = _heal(ci, lo, hi, err, paid)
-        if q is None:
-            q = np.zeros(hi - lo, dtype=bool)
-        _collect(ci, lo, hi, host, q, entry["t0"], paid=paid[0])
+                if err is None:
+                    host = plan.gather(local, lo, hi)
+                else:
+                    host, q = _heal(ci, lo, hi, err, paid)
+            if q is None:
+                q = np.zeros(hi - lo, dtype=bool)
+            _collect(ci, lo, hi, host, q, entry["t0"], paid=paid[0])
 
     # at most one dispatched, uncollected chunk; collected in index order
     inflight: List[Dict[str, Any]] = []
@@ -1444,66 +1519,60 @@ def run_sweep(
             _finish(inflight.pop())
 
     resumed = 0
-    t0 = time.perf_counter()
-    for ci in range(n_chunks):
-        lo, hi = plan.chunk_bounds(ci)
-        if ci in resumed_data:
+    with span("sweep.loop"):
+        t0 = time.perf_counter()
+        for ci in range(n_chunks):
+            lo, hi = plan.chunk_bounds(ci)
+            if ci in resumed_data:
+                _drain()
+                got = resumed_data[ci]
+                resumed += 1
+                totals["failed"] += got["n_failed"]
+                totals["quarantined"] += got["n_quarantined"]
+                masks.append(got["failed"])
+                qmasks.append(got["quarantined"])
+                if keep_outputs:
+                    for f in fields:
+                        collected[f].append(got[f])
+                continue
+            t_chunk = time.time()
+            if ci in cache_data:
+                _drain()
+                ent = cache_data[ci]
+                qm = ent.get("quarantined")
+                _collect(ci, lo, hi, {f: ent[f] for f in fields},
+                         np.zeros(hi - lo, bool) if qm is None else np.asarray(qm, bool),
+                         t_chunk, paid=int(ent.get("n_retries", 0)), cached=True)
+                continue
+            entry: Dict[str, Any] = {"ci": ci, "lo": lo, "hi": hi, "t0": t_chunk,
+                                     "paid": [0]}
+            entry["pending"], err = _healable(_dispatch, ci, lo, hi)
+            if heal_on and multiproc and not _agree_ok(err is None) and err is None:
+                err = RuntimeError("chunk dispatch failed on another process")
+            # chunk k-1 is collected while chunk k runs; a failed dispatch
+            # drains the buffer to serial before its chunk heals
             _drain()
-            got = resumed_data[ci]
-            resumed += 1
-            totals["failed"] += got["n_failed"]
-            totals["quarantined"] += got["n_quarantined"]
-            masks.append(got["failed"])
-            qmasks.append(got["quarantined"])
-            if keep_outputs:
-                for f in fields:
-                    collected[f].append(got[f])
-            continue
-        t_chunk = time.time()
-        if ci in cache_data:
-            _drain()
-            ent = cache_data[ci]
-            qm = ent.get("quarantined")
-            _collect(ci, lo, hi, {f: ent[f] for f in fields},
-                     np.zeros(hi - lo, bool) if qm is None else np.asarray(qm, bool),
-                     t_chunk, paid=int(ent.get("n_retries", 0)), cached=True)
-            continue
-        entry: Dict[str, Any] = {"ci": ci, "lo": lo, "hi": hi, "t0": t_chunk, "paid": [0]}
-        err = None
-        try:
-            if faults is not None:
-                faults.fire("step", ci)
-                faults.check_range("step", lo, hi)
-            if overlap:
-                entry["pending"] = plan.dispatch_local(engine, lo, hi)
+            if err is not None:
+                entry.pop("pending", None)
+                entry["host"], entry["q"] = _heal(ci, lo, hi, err, entry["paid"])
+            if overlap and err is None:
+                inflight.append(entry)
             else:
-                entry["local"] = plan.compute_local(engine, lo, hi, trace_dir=trace_dir)
-        except Exception as exc:  # noqa: BLE001 — healed below
-            if not heal_on or isinstance(exc, FloatingPointError):
-                raise
-            err = exc
-        if heal_on and multiproc and not _agree_ok(err is None) and err is None:
-            err = RuntimeError("chunk dispatch failed on another process")
-        # chunk k-1 is collected while chunk k runs; a failed dispatch
-        # drains the buffer to serial before its chunk heals
+                _finish(entry)
         _drain()
-        if err is not None:
-            entry.pop("pending", None)
-            entry["host"], entry["q"] = _heal(ci, lo, hi, err, entry["paid"])
-        if overlap and err is None:
-            inflight.append(entry)
-        else:
-            _finish(entry)
-    _drain()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    seconds = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
     quad_impl, n_quad = plan.quad_report()
     cache_hits = cache_misses = None
     if store is not None:
         cache_hits = len(cache_data)
         cache_misses = n_chunks - len(cache_data) - len(resumed_data)
-    failed_mask = np.concatenate(masks) if masks else np.zeros(0, bool)
+    with span("sweep.copy_out"):
+        outputs = ({f: np.concatenate(collected[f]) for f in fields}
+                   if keep_outputs else None)
+        failed_mask = np.concatenate(masks) if masks else np.zeros(0, bool)
+        qmask = np.concatenate(qmasks) if qmasks else np.zeros(0, bool)
     return SweepResult(
         n_points=n_total,
         n_failed=totals["failed"],
@@ -1513,8 +1582,7 @@ def run_sweep(
         quad_impl=quad_impl,
         n_quad_nodes=n_quad,
         impl=impl,
-        outputs=({f: np.concatenate(collected[f]) for f in fields}
-                 if keep_outputs else None),
+        outputs=outputs,
         failed_mask=failed_mask,
         esdirk_stats=stats if impl == "esdirk" else None,
         lz_identity=plan.lz_identity,
@@ -1525,7 +1593,7 @@ def run_sweep(
         n_retries=totals["retries"],
         cache_hits=cache_hits,
         cache_misses=cache_misses,
-        quarantined_mask=np.concatenate(qmasks) if qmasks else np.zeros(0, bool),
+        quarantined_mask=qmask,
     )
 
 
@@ -1546,12 +1614,14 @@ def _grid_with_lz(base: Config, axes, static: StaticChoices, lz_profile, lz_meth
 
         bounce = as_potential_spec(bounce)
         bounce_fp = potential_fingerprint(bounce)
-        lz_profile = bounce_profile(bounce, device=dev)
+        with span("lz.shoot"):
+            lz_profile = bounce_profile(bounce, device=dev)
 
     # with a profile the config's P is irrelevant (and may be None): a
     # placeholder that the per-point probabilities overwrite
     P_base = 0.0 if (lz_profile is not None and base.P_chi_to_B is None) else None
-    pp_all = build_grid(base, axes, P_base=P_base)
+    with span("sweep.grid"):
+        pp_all = build_grid(base, axes, P_base=P_base)
     lz_mode = getattr(static, "lz_mode", "two_channel")
     if lz_mode != "two_channel":
         if lz_profile is None:
@@ -1589,17 +1659,19 @@ def _grid_with_lz(base: Config, axes, static: StaticChoices, lz_profile, lz_meth
     if lz_mode != "two_channel":
         # the scenario itself is keyed by its own identity home
         # (sweep_bridge.scenario_identity), as in the JAX package
-        P_pts = scenario_probabilities_for_points(
-            lz_profile, static, np.asarray(pp_all.v_w),
-            T_p_GeV=np.asarray(pp_all.T_p_GeV), device=dev,
-        )
+        with span("lz.points"):
+            P_pts = scenario_probabilities_for_points(
+                lz_profile, static, np.asarray(pp_all.v_w),
+                T_p_GeV=np.asarray(pp_all.T_p_GeV), device=dev,
+            )
     else:
-        P_pts = probabilities_for_points(
-            lz_profile, np.asarray(pp_all.v_w), method=lz_method,
-            T_p_GeV=np.asarray(pp_all.T_p_GeV),
-            m_chi_GeV=np.asarray(pp_all.m_chi_GeV),
-            gamma_phi=lz_gamma_phi, device=dev,
-        )
+        with span("lz.points"):
+            P_pts = probabilities_for_points(
+                lz_profile, np.asarray(pp_all.v_w), method=lz_method,
+                T_p_GeV=np.asarray(pp_all.T_p_GeV),
+                m_chi_GeV=np.asarray(pp_all.m_chi_GeV),
+                gamma_phi=lz_gamma_phi, device=dev,
+            )
         identity["lz_method"] = lz_method
         if lz_method == "dephased":
             identity["lz_gamma_phi"] = float(lz_gamma_phi)

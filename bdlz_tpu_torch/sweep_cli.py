@@ -29,7 +29,9 @@ config's ``retry_enabled``, ``cache_enabled``/``cache_root`` and
 ``fault_injection``/``fault_plan`` act as in the JAX CLI.  ``--sanitize``
 checks the outputs' float64 contract, ``--debug-nans`` aborts at the
 first torch op (or kernel) that makes a NaN, and ``--profile-dir`` writes
-one ``torch.profiler`` Chrome trace per chunk.
+one ``torch.profiler`` Chrome trace of the sweep, with the spans of
+``utils/profiling.SPANS`` (the grid, the F table, the audit, the engine's
+build, per chunk ``chunk.ship``/``chunk.step``/``chunk.wait``/``chunk.finish``).
 
 ``--elastic {local,coordinator,worker,auto}`` runs the sweep on the
 elastic work-stealing fleet (``parallel/scheduler.py``) over the shared
@@ -152,7 +154,8 @@ def main(argv=None) -> None:
                          "fails without one), cpu, or a comma list such as "
                          "cuda:0,cuda:1 or cpu,cpu")
     ap.add_argument("--profile-dir", default=None,
-                    help="Write one torch.profiler Chrome trace per chunk here")
+                    help="Write one torch.profiler Chrome trace of the sweep here, "
+                         "with its spans (sweep.grid, f_table, audit, chunk.*)")
     ap.add_argument("--debug-nans", action="store_true",
                     help="Raise on the first torch op or kernel that makes a "
                          "NaN (sanitizer mode; the sweep aborts, nothing is "

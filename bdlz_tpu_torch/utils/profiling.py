@@ -6,8 +6,11 @@ Counterpart of ``bdlz_tpu/utils/profiling.py``:
 * ``ServeBatch`` / ``ServeStats`` — the serving plane's per-batch rows
   and their summary, with the JAX package's keys and schema rule (the
   extras are absent unless something armed them);
+* :func:`span` — a named region of the program in a ``torch.profiler``
+  trace, free but for one check while no profiler records (the names
+  the sweep path emits are :data:`SPANS`);
 * :func:`trace` — a ``torch.profiler`` region written as one Chrome
-  trace per use (the sweep opens one per chunk, ``--profile-dir``);
+  trace per use (one per sweep, ``--profile-dir``);
 * :func:`enable_nan_debugging` — the stand-in for ``jax_debug_nans``: a
   ``TorchFunctionMode`` that checks the floating outputs of every torch
   op and raises ``FloatingPointError`` at the first one that holds a
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -275,12 +279,47 @@ class ServeStats:
         return [dataclasses.asdict(r) for r in self.rows]
 
 
+#: The spans of the sweep path, outermost first: the sweep, its planning
+#: (the grid, the bounce shoot and each point's P, the F table, the
+#: population audit, the engine's build), the chunk loop and, per chunk,
+#: the inputs shipped, the step enqueued with its copies back, the wait
+#: on those copies and the host's finish, then the outputs' copy-out.
+SPANS = ("sweep", "sweep.grid", "lz.shoot", "lz.points", "f_table", "audit",
+         "engine.build", "sweep.loop", "chunk.ship", "chunk.step", "chunk.wait",
+         "chunk.finish", "sweep.copy_out")
+
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """The region ``name`` of the program: a ``record_function`` while a
+    ``torch.profiler`` records, so that it lands in the trace on the clock
+    of the card's events, nested under the spans open on this thread;
+    else one shared null context, one check and no allocation."""
+    if _profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorate a function so that each call of it is the span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
 @contextlib.contextmanager
 def trace(trace_dir: Optional[str]):
     """Profile a region with ``torch.profiler`` (the card's kernels too,
     when one is present) and write it as one Chrome trace,
-    ``trace_dir/trace_<n>.json`` with ``n`` the next free index.  No-op
-    when ``trace_dir`` is None."""
+    ``trace_dir/trace_<n>.json`` with ``n`` the next free index; the
+    region's :func:`span` calls are in it.  No-op when ``trace_dir`` is
+    None."""
     if trace_dir is None:
         yield
         return

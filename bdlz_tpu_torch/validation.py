@@ -22,6 +22,7 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 
 from bdlz_tpu_torch.ops.kjma_kernel import REDUCE_DEFAULT
+from bdlz_tpu_torch.utils.profiling import span
 
 
 class AuditPopulation(NamedTuple):
@@ -267,9 +268,10 @@ def resolve_quad_panel_gl(
         return False, None
     if q is not None:
         return bool(q), None
-    audit = panel_gl_population_audit(
-        grid, static.chi_stats, n_y=int(n_y), table=table,
-    )
+    with span("audit"):
+        audit = panel_gl_population_audit(
+            grid, static.chi_stats, n_y=int(n_y), table=table,
+        )
     if audit.ok:
         print(
             f"[{label}] quad_panel_gl on: audit passed over "

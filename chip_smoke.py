@@ -640,32 +640,6 @@ def _device_ms(prof) -> dict:
     return device_ms
 
 
-def phase_profile(dev) -> None:
-    """One default-tier sweep under ``torch.profiler``: device busy time
-    against the host clock, and device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
-    from bdlz_tpu_torch.parallel.sweep import run_sweep
-
-    base = config_from_dict(ARCHIVED)
-    static = static_choices_from_config(base)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = run_sweep(base, MAIN_AXES, static, impl="kernel", chunk_size=N_POINTS,
-                        n_y=N_Y, table_nodes=TABLE_N, device=dev)
-    device_ms = _device_ms(prof)
-    busy_ms = sum(device_ms.values())
-    kjma_ms = sum(v for k, v in device_ms.items() if "kjma_point_kernel" in k)
-    copy_ms = sum(v for k, v in device_ms.items() if "Memcpy" in k or "Memset" in k)
-    wall_ms = res.seconds * 1e3
-    top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "sweep_wall_ms_profiled": wall_ms,
-          "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
-          "kjma_kernel_ms": kjma_ms, "copy_ms": copy_ms,
-          "other_device_ms": busy_ms - kjma_ms - copy_ms,
-          "top_device_ms": dict(top)})
-
-
 def _launches_around(fn):
     """``fn()`` with every kernel's launch count set to 0 just before and
     read just after: (result, counts)."""
@@ -1733,8 +1707,8 @@ def phase_host_planes(dev) -> None:
     """The native parser against NumPy on a 1,000,001-sample profile
     (bitwise, both timed; the card's machine must build and use it), the
     per-point CPU reference on 64 audit points against the card's P1
-    sweep engine, ``sweep_cli --sanitize --profile-dir`` (a trace per
-    chunk, the summary unchanged) and ``--debug-nans`` on a NaN grid
+    sweep engine, ``sweep_cli --sanitize --profile-dir`` (one trace of the
+    sweep with its spans and P1, the summary unchanged) and ``--debug-nans`` on a NaN grid
     (a non-zero exit naming the op)."""
     from bdlz_tpu_torch import native
     from bdlz_tpu_torch.config import config_from_dict, static_choices_from_config
@@ -1798,8 +1772,19 @@ def phase_host_planes(dev) -> None:
         traces = os.path.join(work, "traces")
         checked, checked_s = sweep("--sanitize", "--profile-dir", traces)
         check(checked.returncode == 0, f"sweep_cli: {checked.stderr[-800:]}")
-        n_traces = len([f for f in os.listdir(traces) if f.endswith(".json")])
-        check(n_traces == 2, f"one trace per chunk: {n_traces} for 2 chunks")
+        names = sorted(f for f in os.listdir(traces) if f.endswith(".json"))
+        check(names == ["trace_00000.json"], f"one trace of the sweep: {names}")
+        with open(os.path.join(traces, names[0])) as f:
+            events = json.load(f)["traceEvents"]
+        # the host's spans; the trace mirrors each on the card's timeline
+        # (category gpu_user_annotation) around the kernels it launched
+        spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+        n_steps = spans.count("chunk.step")
+        n_p1 = sum("kjma_point_kernel" in e.get("name", "") for e in events
+                   if e.get("cat") == "kernel")
+        check(n_steps == 2 and spans.count("sweep") == 1 and n_p1 >= 2,
+              f"the trace holds the sweep's spans and P1: {n_steps} chunk.step for 2 "
+              f"chunks, {n_p1} kjma_point_kernel events")
         # the same sweep in-process, without the flags
         res = run_sweep(base, {"m_chi_GeV": np.geomspace(0.3, 30.0, 64),
                                "T_p_GeV": np.geomspace(60.0, 200.0, 64)},
@@ -1824,8 +1809,8 @@ def phase_host_planes(dev) -> None:
                      "bitwise": True},
           "reference": {"n": N_AUDIT, "n_y": N_Y, "cpu_seconds": ref_s,
                         "p1_vs_reference_max_rel": ref_rel},
-          "sweep_cli": {"sanitize_profile_seconds": checked_s, "traces": n_traces,
-                        "summary_equals_in_process": same},
+          "sweep_cli": {"sanitize_profile_seconds": checked_s, "traces": len(names),
+                        "trace_chunk_steps": n_steps, "summary_equals_in_process": same},
           "debug_nans": {"exit": nan_run.returncode, "seconds": nan_s, "error": nan_op}})
 
 
@@ -3188,7 +3173,6 @@ def main(argv=None) -> int:
     del parity_pp
     launches = phase_main_path(dev)
     timing, sweep_pps = phase_timing(dev, table)
-    phase_profile(dev)
     # P1 through the double-buffered and the serial loop, P1-P4 through
     # the chunk runner's tiered gate
     for name, n in phase_overlap_path(dev).items():

@@ -1,7 +1,8 @@
 """The port's host planes against the JAX package on the same inputs:
 the sanitizer's boundaries and dtype contract, the native CSV parser,
 the engine gate's reference ratios and their cache key, and the sweep
-CLI's --profile-dir / --debug-nans / --sanitize.
+CLI's --profile-dir (one trace of the sweep, with its spans) /
+--debug-nans / --sanitize.
 
 Residuals print as ``RESIDUAL`` lines (``pytest -s``)."""
 import json
@@ -418,8 +419,14 @@ def test_profile_dir_writes_one_trace_per_chunk(cfg_path, tmp_path, capsys):
             "--n-y", "2000", "--quad", "off", "--device", "cpu"]
     traced = _sweep(base + ["--profile-dir", str(d)], capsys)
     traces = sorted(p.name for p in d.iterdir())
-    assert traces == ["trace_00000.json", "trace_00001.json"]
-    assert all(json.loads((d / t).read_text())["traceEvents"] for t in traces)
+    assert traces == ["trace_00000.json"]
+    events = json.loads((d / traces[0]).read_text())["traceEvents"]
+    names = [e.get("name") for e in events if e.get("cat") == "user_annotation"]
+    for name in ("sweep", "sweep.grid", "f_table", "engine.build", "sweep.loop",
+                 "sweep.copy_out"):
+        assert names.count(name) == 1, name
+    for name in ("chunk.ship", "chunk.step", "chunk.wait", "chunk.finish"):
+        assert names.count(name) == 2, name  # 4 points in chunks of 2
     plain = _sweep(base, capsys)
     assert {k: v for k, v in traced.items() if k not in _VOLATILE} == \
            {k: v for k, v in plain.items() if k not in _VOLATILE}

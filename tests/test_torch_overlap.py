@@ -9,7 +9,8 @@ default (overlapped) ``run_sweep``.
   sleeps and events apart from ``ts``/``seconds`` are bitwise equal.
 * Overlapped against JAX's default run: outputs ≤1e-13 rel, events and
   counters equal; a directory written by either resumes in the other.
-* ``trace_dir`` and ``impl="esdirk"`` run serially; a failure that
+* ``impl="esdirk"`` runs serially and ``trace_dir`` keeps the
+  double-buffered order (one trace of the sweep); a failure that
   surfaces at collection (an asynchronous device error) is healed there,
   with JAX's events; a ``FloatingPointError`` there aborts the sweep.
 * The memory clamp's double-buffer term (22 float64 rows per point), with
@@ -245,8 +246,8 @@ def test_overlap_keeps_one_chunk_in_flight_and_trace_dir_runs_serial(monkeypatch
     assert order == ["D0", "C", "D16", "C", "D32", "C", "D48", "C"]
     del order[:]
     res = _port(True, trace_dir=str(tmp_path / "tr"))[0]
-    assert order == ["D0", "C", "D16", "C", "D32", "C", "D48", "C"]
-    assert len(os.listdir(tmp_path / "tr")) == 4 and res.n_failed == 0
+    assert order == ["D0", "D16", "C", "D32", "C", "D48", "C", "C"]
+    assert os.listdir(tmp_path / "tr") == ["trace_00000.json"] and res.n_failed == 0
 
 
 def test_esdirk_runs_serial_and_only_overlap_joins_the_clamp(monkeypatch):

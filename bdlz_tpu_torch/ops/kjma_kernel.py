@@ -35,12 +35,20 @@ raises — it never falls back.  ``LAUNCHES`` counts kernel launches per
 wrapper, so a run can show that it went through the kernels.  Under
 ``enable_nan_debugging`` a launch checks what it wrote, since the mode's
 op-level check cannot see inside a kernel.
+
+The sweep's chunk step (:class:`KernelStep`) runs on one card as one
+replay of a captured CUDA graph (:class:`ChunkGraph`): the ~70 small
+launches of the prep and the finish around the point kernel cost the
+host more than the card's work.  ``GRAPH_STATS`` counts how often.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+import threading
+import weakref
+from collections import OrderedDict
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,7 +58,7 @@ from bdlz_tpu_torch.constants import PI
 from bdlz_tpu_torch.ops.kjma_table import Y_CLAMP, KJMATable, interp_taps
 from bdlz_tpu_torch.physics.thermo import relativistic_density_coeff
 from bdlz_tpu_torch.solvers.quadrature import quadrature_bounds
-from bdlz_tpu_torch.utils.profiling import check_kernel_output
+from bdlz_tpu_torch.utils.profiling import check_kernel_output, nan_debugging_enabled, span
 
 #: Default tier: the in-kernel reduction (``kjma_pallas.REDUCE_DEFAULT``).
 REDUCE_DEFAULT = True
@@ -187,12 +195,23 @@ def _table_entries(name: str, values) -> int:
     return n_table
 
 
-def _launched(name: str, entry: str, err: int, error_string, out: torch.Tensor):
-    """Raise on a refused launch; else count it and check what it wrote."""
+def _launched(name: str, entry: str, err: int, error_string, out: torch.Tensor,
+              captured: bool = False):
+    """Raise on a refused launch; else count it and check what it wrote.
+    A launch ``captured`` (its stream was capturing) into a
+    :class:`ChunkGraph` runs only when the graph replays: the capture
+    records it, and each replay counts it."""
     if err != 0:
         raise RuntimeError(
             f"{entry} failed to launch: CUDA error {err} ({error_string(err).decode()})"
         )
+    if captured:
+        recorded = getattr(_CAPTURE, "launches", None)
+        if recorded is None:
+            raise RuntimeError(f"{entry} launched into a capture that is not a chunk "
+                               "graph's: its replays would go uncounted")
+        recorded[name] += 1
+        return out
     LAUNCHES[name] += 1
     check_kernel_output(entry, out)
     return out
@@ -223,7 +242,9 @@ def _launch_point(name: str, scalars, table: KJMATable, n_y) -> torch.Tensor:
             float(table.y0), float(table.inv_dy), P, n_y, out.data_ptr(),
             n_blocks, torch.cuda.current_stream(dev).cuda_stream,
         )
-    return _launched(name, entry, err, lib.kjma_point_error_string, out)
+        # the launch's own stream, which need not be the current device's
+        captured = torch.cuda.is_current_stream_capturing()
+    return _launched(name, entry, err, lib.kjma_point_error_string, out, captured)
 
 
 def point_reduce(scalars, table: KJMATable, n_y) -> torch.Tensor:
@@ -386,3 +407,193 @@ def point_yields_kernel(
     )
     Y_chi = final_Y_chi_quadrature(pp, static)
     return present_day(Y_B, Y_chi, pp.m_chi_GeV, pp.m_B_kg)
+
+
+# ---- the chunk step as one CUDA graph ------------------------------------
+
+#: How the kernel engine's chunk steps ran since the last
+#: ``reset_graph_stats()``: graphs captured, chunks replayed (a capture's
+#: own chunk included), and steps run eagerly.
+GRAPH_STATS = {"captures": 0, "replays": 0, "eager": 0}
+
+#: Captured graphs a process keeps; the least recently used goes first.
+#: A sweep uses one key, ``torch_tier_chunk_ms.py`` and the impl shoot-out
+#: one per tier (four).
+GRAPH_CACHE_SIZE = 8
+
+#: Keys seen once and not captured that a process remembers.
+SEEN_KEYS = 64
+
+_GRAPHS: "OrderedDict[tuple, ChunkGraph]" = OrderedDict()
+_SEEN: "OrderedDict[tuple, None]" = OrderedDict()
+_GRAPHS_LOCK = threading.Lock()
+_CAPTURE = threading.local()  # .launches: what the capture under way launched
+
+
+def reset_graph_stats() -> None:
+    for k in GRAPH_STATS:
+        GRAPH_STATS[k] = 0
+
+
+def clear_graphs() -> None:
+    """Drop every cached graph with its device buffers, and the keys seen."""
+    with _GRAPHS_LOCK:
+        _GRAPHS.clear()
+        _SEEN.clear()
+
+
+def tier_kernel(fuse_exp: bool, reduce: bool) -> str:
+    """The wrapper, and ``LAUNCHES`` key, of a tier's point kernel."""
+    return ("point_fused_" if fuse_exp else "point_") + ("reduce" if reduce else "stream")
+
+
+def graph_route(device, n_points: int) -> bool:
+    """Whether a one-device chunk step of the kernel engine may run as a
+    replayed CUDA graph: on a CUDA device, with NaN debugging off (it
+    checks every op), for a non-empty chunk.  Everything else runs the
+    eager step; so does the mesh, whose members run on streams of their
+    own and never ask."""
+    return (torch.device(device).type == "cuda" and not nan_debugging_enabled()
+            and int(n_points) > 0)
+
+
+def graph_key(device, n_points: int, n_y: int, fuse_exp: bool, reduce: bool,
+              static: StaticChoices, table: KJMATable, stream: int, thread: int) -> tuple:
+    """Everything a capture bakes in: the device, the padded chunk's
+    length, the node count, the tier, the ``StaticChoices`` fields the
+    step reads, the table's length and the scalars that reach the kernels
+    as Python numbers, and the stream and thread whose buffers the graph
+    owns.  Never the points' values."""
+    dev = torch.device(device)
+    return (dev.type, dev.index, int(n_points), _n_nodes(n_y), bool(fuse_exp), bool(reduce),
+            static.chi_stats, static.regime, float(table.I_p), float(table.y0),
+            float(table.inv_dy), int(table.values.shape[0]), int(stream), int(thread))
+
+
+class ChunkGraph:
+    """The kernel engine's chunk step on one device, captured as a CUDA
+    graph: from a (17, P) block of PointParams rows (the sweep's pinned
+    staging layout) and its own copy of the F table, :func:`point_scalars`,
+    the tier's point kernel, :func:`point_finish`, the Y_χ quadrature and
+    ``present_day``, stacked into a (5, P) block of YieldsResult rows.
+
+    The blocks and the table are the graph's own: a caller fills
+    :attr:`inputs` and enqueues the copy back of :meth:`run`'s block on
+    the current stream before the next run, which stream order then
+    keeps from overwriting either early."""
+
+    def __init__(self, device, n_points: int, n_y: int, static: StaticChoices,
+                 table: KJMATable, fuse_exp: bool, reduce: bool):
+        from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
+
+        self.device = torch.device(device)
+        self.inputs = torch.empty((len(PointParams._fields), n_points), dtype=F64,
+                                  device=self.device)
+        self.out = torch.empty((len(YieldsResult._fields), n_points), dtype=F64,
+                               device=self.device)
+        self.kernel = tier_kernel(fuse_exp, reduce)
+        self._table = table._replace(values=torch.empty(
+            table.values.shape, dtype=table.values.dtype, device=self.device))
+        self._loaded = (None, -1)  # (weak reference, version) of the table copied in
+        self._args = (static, n_y, fuse_exp, reduce)
+        self._graph = None
+        self._launches = {}  # per replay, what the capture launched
+
+    def _compute(self) -> None:
+        static, n_y, fuse_exp, reduce = self._args
+        res = point_yields_kernel(PointParams(*self.inputs.unbind(0)), static, self._table,
+                                  n_y, fuse_exp=fuse_exp, reduce=reduce)
+        torch.stack(list(res), out=self.out)
+
+    def _capture(self) -> None:
+        """Capture the step on a stream of the graph's own device (torch's
+        shared capture stream belongs to the device of the process's first
+        capture), recording the kernels it launches: exactly one of the
+        tier's.  The step ran eagerly on this key before, which warmed it
+        up and opted the kernel into its shared memory."""
+        graph = torch.cuda.CUDAGraph()
+        launches = _CAPTURE.launches = dict.fromkeys(LAUNCHES, 0)
+        try:
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(self.device),
+                                  capture_error_mode="thread_local"):
+                self._compute()
+        finally:
+            _CAPTURE.launches = None
+        launched = {k: n for k, n in launches.items() if n}
+        if launched != {self.kernel: 1}:
+            raise RuntimeError(f"the chunk graph captured {launched}, "
+                               f"not one launch of {self.kernel}")
+        self._graph, self._launches = graph, launched
+        GRAPH_STATS["captures"] += 1
+
+    def _load_table(self, values: torch.Tensor) -> None:
+        """Copy the table in when it is another tensor than the last one,
+        or that one was written since: the graph never reads the caller's."""
+        ref, version = self._loaded
+        if ref is None or ref() is not values or values._version != version:
+            self._table.values.copy_(values)
+            self._loaded = (weakref.ref(values), values._version)
+
+    def run(self, table: KJMATable) -> torch.Tensor:
+        """The chunk in :attr:`inputs` through the step, on the current
+        stream: the (5, P) output block.  The first run captures the
+        graph; every run replays it and counts the launches it holds."""
+        with torch.cuda.device(self.device):
+            self._load_table(table.values)
+            if self._graph is None:
+                self._capture()
+            with span("chunk.replay"):
+                self._graph.replay()
+        for name, n in self._launches.items():
+            LAUNCHES[name] += n
+        GRAPH_STATS["replays"] += 1
+        return self.out
+
+
+class KernelStep:
+    """The kernel engine's chunk step: ``step(pp, table) -> YieldsResult``
+    runs :func:`point_yields_kernel` eagerly, and :meth:`graph` gives the
+    same step as a cached :class:`ChunkGraph` where :func:`graph_route`
+    allows it and the key was seen before."""
+
+    def __init__(self, static: StaticChoices, n_y: int, fuse_exp: bool, reduce: bool):
+        self.static, self.n_y, self.fuse_exp, self.reduce = static, n_y, fuse_exp, reduce
+
+    def __call__(self, pp: PointParams, table: KJMATable):
+        GRAPH_STATS["eager"] += 1
+        return point_yields_kernel(pp, self.static, table, self.n_y,
+                                   fuse_exp=self.fuse_exp, reduce=self.reduce)
+
+    def graph(self, n_points: int, device, table: KJMATable) -> Optional[ChunkGraph]:
+        """The graph that runs a padded chunk of ``n_points`` on
+        ``device`` with ``table``, from this process's cache.  None off the
+        route, for a table on another device (the eager step refuses it),
+        and the first time a key is seen: that chunk runs eagerly and
+        builds nothing, so a shape used once (an emulator round, a gate's
+        population) never pays a capture."""
+        dev = torch.device(device)
+        if not graph_route(dev, n_points):
+            return None
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if table.values.device != dev:
+            return None
+        key = graph_key(dev, n_points, self.n_y, self.fuse_exp, self.reduce, self.static,
+                        table, torch.cuda.current_stream(dev).cuda_stream,
+                        threading.get_ident())
+        with _GRAPHS_LOCK:
+            g = _GRAPHS.get(key)
+            if g is not None:
+                _GRAPHS.move_to_end(key)
+                return g
+            if key not in _SEEN:
+                _SEEN[key] = None
+                while len(_SEEN) > SEEN_KEYS:
+                    _SEEN.popitem(last=False)
+                return None
+            del _SEEN[key]
+            g = _GRAPHS[key] = ChunkGraph(dev, n_points, self.n_y, self.static, table,
+                                          self.fuse_exp, self.reduce)
+            while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+                _GRAPHS.popitem(last=False)
+        return g

@@ -72,7 +72,7 @@ from bdlz_tpu_torch.config import (
     point_params_from_config,
 )
 from bdlz_tpu_torch.constants import GEV_TO_KG
-from bdlz_tpu_torch.ops.kjma_kernel import REDUCE_DEFAULT
+from bdlz_tpu_torch.ops.kjma_kernel import REDUCE_DEFAULT, KernelStep
 from bdlz_tpu_torch.utils.profiling import nan_debugging_enabled, span, spanned
 
 #: Config-key → PointParams-field mapping for sweep axes.
@@ -475,7 +475,8 @@ class _PinnedStaging:
         self._slots: List[list] = [[None, None], [None, None]]  # [buffer, event]
         self._turn = 0
 
-    def ship(self, pp_np, device: torch.device) -> PointParams:
+    def ship(self, pp_np, device: torch.device, into=None) -> torch.Tensor:
+        """The rows on ``device``: a new (17, n) block, or ``into``."""
         cols = [np.asarray(getattr(pp_np, f), dtype=np.float64).reshape(-1)
                 for f in PointParams._fields]
         shape = (len(cols), len(cols[0]))
@@ -488,13 +489,27 @@ class _PinnedStaging:
         rows = slot[0].numpy()
         for i, c in enumerate(cols):
             rows[i] = c
-        on_device = slot[0].to(device, non_blocking=True)
+        if into is None:
+            on_device = slot[0].to(device, non_blocking=True)
+        else:
+            on_device = into.copy_(slot[0], non_blocking=True)
         slot[1] = torch.cuda.Event()
         slot[1].record(torch.cuda.current_stream(device))
-        return PointParams(*on_device.unbind(0))
+        return on_device
 
 
 _STAGING = threading.local()
+
+
+def _staging(device: torch.device) -> _PinnedStaging:
+    """This thread's pinned staging of ``device``."""
+    per_device = getattr(_STAGING, "slots", None)
+    if per_device is None:
+        per_device = _STAGING.slots = {}
+    staging = per_device.get(device)
+    if staging is None:
+        staging = per_device[device] = _PinnedStaging()
+    return staging
 
 
 def ship_point_params(pp_np, device) -> PointParams:
@@ -506,33 +521,31 @@ def ship_point_params(pp_np, device) -> PointParams:
         from bdlz_tpu_torch.interop import point_params_from_numpy
 
         return point_params_from_numpy(pp_np, device)
-    per_device = getattr(_STAGING, "slots", None)
-    if per_device is None:
-        per_device = _STAGING.slots = {}
-    staging = per_device.get(device)
-    if staging is None:
-        staging = per_device[device] = _PinnedStaging()
-    return staging.ship(pp_np, device)
+    return PointParams(*_staging(device).ship(pp_np, device).unbind(0))
 
 
 def fetch_rows(res, n_keep: int, device, keep=None):
-    """Start bringing the first ``n_keep`` rows of a step's YieldsResult
-    back: ``(rows, event, keep)``, one member's part of a dispatched
-    chunk.  On the card ``rows`` is a pinned (5, n) host block that a
-    non-blocking copy fills and ``event`` marks its end, and ``keep``
-    holds the member's device tensors until then; on the CPU ``rows``
-    are the result tensors and ``event`` is None."""
-    rows = [f[:n_keep] for f in res]
-    if torch.device(device).type != "cuda":
-        return rows, None, None
-    out = torch.stack(rows)
+    """Start bringing the first ``n_keep`` rows of a step's YieldsResult,
+    or of a captured step's (5, P) output block, back: ``(rows, event,
+    keep)``, one member's part of a dispatched chunk.  On the card
+    ``rows`` is a pinned (5, n) host block that a non-blocking copy
+    fills and ``event`` marks its end, and ``keep`` holds the member's
+    device tensors until then; on the CPU ``rows`` are the result
+    tensors and ``event`` is None."""
+    if isinstance(res, torch.Tensor):
+        out = res
+    else:
+        rows = [f[:n_keep] for f in res]
+        if torch.device(device).type != "cuda":
+            return rows, None, None
+        out = torch.stack(rows)
     host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
     # under NaN debugging every op scans its output: a pinned block still
     # being filled must not be scanned
     host.copy_(out, non_blocking=not nan_debugging_enabled())
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(device))
-    return host, event, (out, keep)
+    return host[:, :n_keep], event, (out, keep)
 
 
 def dispatch_chunk(engine, pp_np: PointParams, n_valid: int, device, mesh=None,
@@ -544,18 +557,34 @@ def dispatch_chunk(engine, pp_np: PointParams, n_valid: int, device, mesh=None,
     waits for.  ``bounds`` ``(lo, hi, size)`` pads the rows [lo, hi) of
     ``pp_np`` to ``size`` first.  The spans ``chunk.ship`` (the padding
     and the inputs' copy) and ``chunk.step`` (the step enqueued and the
-    copies back started).  On the CPU the work is done on return."""
+    copies back started).  On the CPU the work is done on return.
+
+    Where the kernel engine's step has a graph on one card
+    (``KernelStep.graph``), the inputs are copied into the graph's input
+    block, the step is one replay, and its output block is copied back:
+    the next chunk's copy in and replay come after this copy back on
+    the same stream, so one set of buffers serves the double-buffered
+    loop."""
+    step, aux = engine
+    graph = None
     with span("chunk.ship"):
         if bounds is not None:
             pp_np = _pad_chunk(pp_np, *bounds)
         if mesh is not None:
-            shipped = engine[0].ship(pp_np)
+            shipped = step.ship(pp_np)
         else:
-            shipped = ship_point_params(pp_np, device)
+            if isinstance(step, KernelStep):
+                graph = step.graph(len(pp_np.m_chi_GeV), device, aux)
+            if graph is None:
+                shipped = ship_point_params(pp_np, device)
+            else:
+                _staging(graph.device).ship(pp_np, graph.device, into=graph.inputs)
     with span("chunk.step"):
         if mesh is not None:
-            return engine[0].launch(shipped, engine[1])
-        return [fetch_rows(engine[0](shipped, engine[1]), n_valid, device, shipped)]
+            return step.launch(shipped, aux)
+        if graph is not None:
+            return [fetch_rows(graph.run(aux), n_valid, device, graph)]
+        return [fetch_rows(step(shipped, aux), n_valid, device, shipped)]
 
 
 def wait_chunk(pending: list) -> None:
@@ -631,13 +660,7 @@ def _sweep_step_one_device(static, n_y, impl, fuse_exp, reduce, esdirk_knobs,
     if fuse_exp and impl != "kernel":
         raise ValueError("fuse_exp requires impl='kernel'")
     if impl == "kernel":
-        from bdlz_tpu_torch.ops.kjma_kernel import point_yields_kernel
-
-        def step(pp, table):
-            return point_yields_kernel(
-                pp, static, table, n_y, fuse_exp=fuse_exp, reduce=reduce
-            )
-        return step
+        return KernelStep(static, n_y, fuse_exp, reduce)
     if impl == "tabulated":
         from bdlz_tpu_torch.models.yields_pipeline import point_yields_fast
 
@@ -1423,14 +1446,17 @@ def _run_sweep(base, axes, static, *, chunk_size, n_y, out_dir, keep_outputs, ta
         n_valid = hi - lo
         if not cached:
             host = plan.apply_nan_faults(host, lo, hi)
-        totals["quarantined"] += int(q.sum())
+        # count_nonzero: a bool array's sum() costs tens of µs a chunk
+        n_quarantined = int(np.count_nonzero(q))
+        totals["quarantined"] += n_quarantined
         totals["retries"] += int(paid)
         bad = ~np.isfinite(host["DM_over_B"])
-        totals["failed"] += int(bad.sum())
+        n_failed = int(np.count_nonzero(bad))
+        totals["failed"] += n_failed
         if event_log is not None:
             event_log.emit(
-                "chunk_done", chunk=ci, n_valid=n_valid, n_failed=int(bad.sum()),
-                n_quarantined=int(q.sum()), seconds=round(time.time() - t_chunk, 4),
+                "chunk_done", chunk=ci, n_valid=n_valid, n_failed=n_failed,
+                n_quarantined=n_quarantined, seconds=round(time.time() - t_chunk, 4),
                 **({"cached": True} if cached else {}))
             for cs in stats[n_stats_seen[0]:]:
                 event_log.emit("esdirk_rounds", chunk=ci, **cs.summary(),
@@ -1440,9 +1466,9 @@ def _run_sweep(base, axes, static, *, chunk_size, n_y, out_dir, keep_outputs, ta
             chunk_file = f"{out_dir}/chunk_{ci:05d}.npz"
             atomic_savez(chunk_file, **host, failed=bad,
                          **({"quarantined": q} if q.any() else {}))
-            rec = {"file": chunk_file, "n_valid": n_valid, "n_failed": int(bad.sum())}
+            rec = {"file": chunk_file, "n_valid": n_valid, "n_failed": n_failed}
             if q.any():
-                rec["n_quarantined"] = int(q.sum())
+                rec["n_quarantined"] = n_quarantined
                 idx = np.flatnonzero(q)
                 if len(idx) <= 128:
                     rec["quarantined"] = [int(i) for i in idx]

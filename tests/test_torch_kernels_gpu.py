@@ -719,3 +719,190 @@ def test_make_chunk_runner_launches_exactly_its_tier_s_kernel(tier, setup, cuda)
                                      fuse_exp=fuse_exp, reduce=reduce, device=cuda)
     assert kk.LAUNCHES == {k: (1 if k == TIER_KERNEL[tier] else 0) for k in kk.LAUNCHES}
     assert gate <= 1e-10
+
+
+# ---- the kernel engine's chunk step as one CUDA graph -----------------------
+
+#: 50 points: 4 chunks of 16, the last padded from 2 valid points.
+GRAPH_AXES = {"m_chi_GeV": np.geomspace(0.1, 10.0, 10), "T_p_GeV": np.geomspace(30.0, 300.0, 5)}
+
+
+def _graph_sweep(base, tier, cuda, axes=GRAPH_AXES, chunk_size=16, **kw):
+    fuse_exp, reduce = TIER_ARGS[tier]
+    return run_sweep(base, axes, static_choices_from_config(base), chunk_size=chunk_size,
+                     n_y=N_Y, impl="kernel", fuse_exp=fuse_exp, reduce=reduce,
+                     device=cuda, **kw)
+
+
+def _eager_only(monkeypatch):
+    """The kernel step without its graph: the eager chain of launches."""
+    monkeypatch.setattr(kk, "graph_route", lambda *a, **k: False)
+
+
+def _fresh():
+    kk.clear_graphs()
+    kk.reset_graph_stats()
+    kk.reset_launches()
+
+
+@pytest.mark.parametrize("tier", sorted(TIER_ARGS))
+def test_the_graphed_sweep_is_bitwise_the_eager_one(tier, cuda, monkeypatch):
+    """The key's first chunk eager, then one capture and one replay a
+    chunk, the padded last chunk included; one launch of the tier's
+    kernel a chunk on either route, and the outputs bit for bit."""
+    base = config_from_dict(ARCHIVED)
+    want_launches = {k: (4 if k == TIER_KERNEL[tier] else 0) for k in kk.LAUNCHES}
+    _fresh()
+    graphed = _graph_sweep(base, tier, cuda)
+    assert graphed.chunks == 4 and graphed.n_failed == 0
+    assert kk.GRAPH_STATS == {"captures": 1, "replays": 3, "eager": 1}
+    assert kk.LAUNCHES == want_launches
+    _eager_only(monkeypatch)
+    _fresh()
+    eager = _graph_sweep(base, tier, cuda)
+    assert kk.GRAPH_STATS == {"captures": 0, "replays": 0, "eager": 4}
+    assert kk.LAUNCHES == want_launches
+    for f, v in eager.outputs.items():
+        assert graphed.outputs[f].tobytes() == v.tobytes(), f
+
+
+def test_a_graph_reloads_a_new_table_and_another_I_p_captures_anew(cuda, monkeypatch):
+    """Sweeps with fresh table tensors of one I_p replay one graph; a table
+    of the same scalars but other values, or one written in place, is
+    copied in before the replay; another I_p captures a second graph.
+    Each run equals the eager step on the same table, bit for bit."""
+    import dataclasses
+
+    from bdlz_tpu_torch.parallel.sweep import make_chunk_runner
+
+    base = config_from_dict(ARCHIVED)
+    static = static_choices_from_config(base)
+    _fresh()
+    a, b = _graph_sweep(base, "reduce", cuda), _graph_sweep(base, "reduce", cuda)
+    assert kk.GRAPH_STATS == {"captures": 1, "replays": 7, "eager": 1}
+    for f, v in a.outputs.items():
+        assert b.outputs[f].tobytes() == v.tobytes(), f
+    other = dataclasses.replace(base, I_p=0.5)
+    c = _graph_sweep(other, "reduce", cuda)
+    assert kk.GRAPH_STATS == {"captures": 2, "replays": 10, "eager": 2}
+
+    grid = build_grid(base, GRAPH_AXES)
+    table = table_to_device(make_f_table(base.I_p), cuda)
+    doubled = table._replace(values=table.values * 2.0)
+
+    def chunks(tab):
+        run, chunk = make_chunk_runner(grid, 16, static, tab, impl="kernel", n_y=N_Y,
+                                       device=cuda)
+        return np.concatenate([run(lo, lo + chunk) for lo in range(0, 48, chunk)])
+
+    _fresh()
+    got = [chunks(table), chunks(doubled)]
+    doubled.values.mul_(2.0)
+    got.append(chunks(doubled))
+    assert kk.GRAPH_STATS == {"captures": 1, "replays": 8, "eager": 1}
+    _eager_only(monkeypatch)
+    doubled.values.mul_(0.5)
+    want = [chunks(table), chunks(doubled)]
+    doubled.values.mul_(2.0)
+    want.append(chunks(doubled))
+    c_eager = _graph_sweep(other, "reduce", cuda)
+    assert kk.GRAPH_STATS["eager"] == 1 + 9 + 4
+    for g, w in zip(got, want):
+        assert g.tobytes() == w.tobytes()
+    assert not np.array_equal(got[0], got[1])
+    assert c.outputs["DM_over_B"].tobytes() == c_eager.outputs["DM_over_B"].tobytes()
+
+
+def test_the_double_buffered_graphed_sweep_equals_chunk_by_chunk_eager_runs(cuda, monkeypatch):
+    """3,584 points in 4 chunks of 1,024 (the last padded), one chunk in
+    flight while the next is shipped and replayed into the same buffers:
+    every chunk's rows are its own eager run's, bit for bit."""
+    from bdlz_tpu_torch.parallel.sweep import make_chunk_runner
+
+    base = config_from_dict(ARCHIVED)
+    axes = {"m_chi_GeV": np.geomspace(0.1, 10.0, 64), "T_p_GeV": np.geomspace(30.0, 300.0, 56)}
+    _fresh()
+    res = _graph_sweep(base, "reduce", cuda, axes=axes, chunk_size=1024, overlap_chunks=True)
+    assert res.chunks == 4 and res.n_failed == 0
+    assert kk.GRAPH_STATS == {"captures": 1, "replays": 3, "eager": 1}
+    assert kk.LAUNCHES["point_reduce"] == 4
+    _eager_only(monkeypatch)
+    grid = build_grid(base, axes)
+    table = table_to_device(make_f_table(base.I_p), cuda)
+    run, chunk = make_chunk_runner(grid, 1024, static_choices_from_config(base), table,
+                                   impl="kernel", n_y=N_Y, device=cuda)
+    want = np.concatenate([run(lo, min(lo + chunk, 3584))[:min(chunk, 3584 - lo)]
+                           for lo in range(0, 3584, chunk)])
+    assert res.outputs["DM_over_B"].tobytes() == want.tobytes()
+
+
+def test_a_profiled_graphed_sweep_names_each_replay_and_shows_its_kernels(cuda):
+    """Under ``torch.profiler`` each replayed chunk is one ``chunk.replay``
+    span inside its ``chunk.step``, and the point kernel of the eager
+    chunk and of each replay is a device event of the trace; a capture
+    under the profiler works too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    base = config_from_dict(ARCHIVED)
+    _fresh()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        first = _graph_sweep(base, "reduce", cuda)
+        again = _graph_sweep(base, "reduce", cuda)
+        torch.cuda.synchronize()
+    assert kk.GRAPH_STATS == {"captures": 1, "replays": 7, "eager": 1}
+    events = list(prof.profiler.kineto_results.events())
+    host = [(e.name(), e.start_ns(), e.end_ns()) for e in events
+            if e.device_type() != DeviceType.CUDA]
+    replays = [h for h in host if h[0] == "chunk.replay"]
+    steps = [h for h in host if h[0] == "chunk.step"]
+    assert len(replays) == 7 and len(steps) == 8
+    assert all(any(s[1] <= r[1] and r[2] <= s[2] for s in steps) for r in replays)
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA
+               and not e.is_user_annotation() and "kjma_point_kernel" in e.name()]
+    assert len(kernels) == 8
+    assert first.outputs["DM_over_B"].tobytes() == again.outputs["DM_over_B"].tobytes()
+
+
+def test_a_graph_captures_on_a_stream_of_its_own_device(cuda, monkeypatch):
+    """Each capture is given a stream of the graph's device, never torch's
+    shared capture stream (made on the device of the process's first
+    capture), and records one launch of its tier's kernel."""
+    streams = []
+    graph = torch.cuda.graph
+
+    def recording(cuda_graph, *args, stream=None, **kw):
+        streams.append(stream)
+        return graph(cuda_graph, *args, stream=stream, **kw)
+
+    monkeypatch.setattr(torch.cuda, "graph", recording)
+    _fresh()
+    _graph_sweep(config_from_dict(ARCHIVED), "fused_stream", cuda)
+    assert len(streams) == 1 and streams[0] is not None
+    assert streams[0].device == cuda
+    assert kk.LAUNCHES == {k: (4 if k == "point_fused_stream" else 0) for k in kk.LAUNCHES}
+
+
+@pytest.fixture(scope="module")
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return cuda, torch.device("cuda", 1)
+
+
+def test_a_graph_on_the_second_card_is_bitwise_its_eager_sweep(two_cards, monkeypatch):
+    """A capture on cuda:0, then one on cuda:1 with cuda:0 current: the
+    second card's graph holds its own kernel launch, and its sweep equals
+    the eager sweep on that card bit for bit."""
+    first, second = two_cards
+    base = config_from_dict(ARCHIVED)
+    _fresh()
+    _graph_sweep(base, "reduce", first)
+    assert torch.cuda.current_device() == 0
+    graphed = _graph_sweep(base, "reduce", second)
+    assert kk.GRAPH_STATS == {"captures": 2, "replays": 6, "eager": 2}
+    assert kk.LAUNCHES["point_reduce"] == 8
+    _eager_only(monkeypatch)
+    eager = _graph_sweep(base, "reduce", second)
+    for f, v in eager.outputs.items():
+        assert graphed.outputs[f].tobytes() == v.tobytes(), f

@@ -16,12 +16,14 @@ Methods:
 
 The propagating methods run on ``device`` over unique speeds, in chunks
 whose tree leaves fit ``BDLZ_LZ_SPEED_CHUNK_BYTES`` (default 1 GiB); the
-last chunk is padded with the last speed, as in the JAX package.  The
-JAX package's ``TRACE_COUNTS`` pins its one-compile contract; eager
-PyTorch compiles nothing, so it has no counterpart.
+last chunk is padded with the last speed, as in the JAX package.  A
+sweep's dephased pass (one rate's speeds to host P) is the span
+``lz.dephase``.  The JAX package's ``TRACE_COUNTS`` pins its one-compile
+contract; eager PyTorch compiles nothing, so it has no counterpart.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Union
 
 import numpy as np
@@ -30,6 +32,7 @@ import torch
 from bdlz_tpu_torch.backend import F64, resolve_device
 from bdlz_tpu_torch.lz.kernel import local_lambdas
 from bdlz_tpu_torch.lz.profile import BounceProfile, find_crossings, load_profile_csv
+from bdlz_tpu_torch.utils.profiling import span
 
 VALID_METHODS = ("local", "coherent", "local-momentum", "dephased")
 
@@ -50,7 +53,9 @@ def profile_fingerprint(profile: Union[str, BounceProfile]) -> str:
 def _propagated(profile: BounceProfile, speeds_np: np.ndarray, method: str,
                 gamma_phi: float, dev) -> np.ndarray:
     """P at each of ``speeds_np`` (already unique and clipped) through the
-    coherent or dephased kernel on ``dev``, chunked; host (n,) array."""
+    coherent or dephased kernel on ``dev``, chunked; host (n,) array.  A
+    dephased call is one pass, the span ``lz.dephase``: it ends with the
+    host copy, so the pass's device work lies inside it."""
     from bdlz_tpu_torch.lz.kernel import (
         _segment_hamiltonians,
         make_P_of_speed,
@@ -58,12 +63,13 @@ def _propagated(profile: BounceProfile, speeds_np: np.ndarray, method: str,
         padded_segments,
     )
 
-    a, b, dxi = _segment_hamiltonians(profile, dev)
-    P_of_speed = make_P_of_speed(method, a, b, dxi, gamma_phi)
-    per_speed = padded_segments(a.shape[0]) * 8 * (9 if method == "dephased" else 4)
-    speeds = torch.as_tensor(speeds_np, dtype=F64, device=dev)
-    # layer boundary: the P table goes to the sweep's host grid
-    return over_speed_chunks(P_of_speed, speeds, per_speed).cpu().numpy()  # bdlz-lint: disable=R3
+    with span("lz.dephase") if method == "dephased" else contextlib.nullcontext():
+        a, b, dxi = _segment_hamiltonians(profile, dev)
+        P_of_speed = make_P_of_speed(method, a, b, dxi, gamma_phi)
+        per_speed = padded_segments(a.shape[0]) * 8 * (9 if method == "dephased" else 4)
+        speeds = torch.as_tensor(speeds_np, dtype=F64, device=dev)
+        # layer boundary: the P table goes to the sweep's host grid
+        return over_speed_chunks(P_of_speed, speeds, per_speed).cpu().numpy()  # bdlz-lint: disable=R3
 
 
 def probabilities_for_points(

@@ -280,14 +280,15 @@ class ServeStats:
 
 
 #: The spans of the sweep path, outermost first: the sweep, its planning
-#: (the grid, the bounce shoot and each point's P, the F table, the
-#: population audit, the engine's build), the chunk loop and, per chunk,
-#: the inputs shipped, the step enqueued with its copies back (inside it,
-#: on one card, the kernel engine's graph replayed), the wait on those
-#: copies and the host's finish, then the outputs' copy-out.
-SPANS = ("sweep", "sweep.grid", "lz.shoot", "lz.points", "f_table", "audit",
-         "engine.build", "sweep.loop", "chunk.ship", "chunk.step", "chunk.replay",
-         "chunk.wait", "chunk.finish", "sweep.copy_out")
+#: (the grid, the bounce shoot, each point's P with each dephased
+#: transport pass inside it, the F table, the population audit, the
+#: engine's build), the chunk loop and, per chunk, the inputs shipped,
+#: the step enqueued with its copies back (inside it, on one card, the
+#: kernel engine's graph replayed), the wait on those copies and the
+#: host's finish, then the outputs' copy-out.
+SPANS = ("sweep", "sweep.grid", "lz.shoot", "lz.points", "lz.dephase", "f_table",
+         "audit", "engine.build", "sweep.loop", "chunk.ship", "chunk.step",
+         "chunk.replay", "chunk.wait", "chunk.finish", "sweep.copy_out")
 
 _NO_SPAN = contextlib.nullcontext()
 _profiler_enabled = torch._C._autograd._profiler_enabled

@@ -270,7 +270,10 @@ def fake_capture(monkeypatch, table):
     monkeypatch.setattr(g, "_compute", compute)
     kk.reset_launches()
     kk.reset_graph_stats()
-    return g, cpu_table, fake
+    yield g, cpu_table, fake
+    # the counters are the process's: leave none of this test's counts behind
+    kk.reset_launches()
+    kk.reset_graph_stats()
 
 
 def test_each_replay_counts_the_launches_its_capture_recorded(fake_capture):

@@ -1,0 +1,146 @@
+"""The port's dephased and thermal LZ transport against the benchmark's plain
+reference (``benchmark/reference/bloch.py``) on the CPU, and the span and
+counters that the ``bounce_lz_dephased.scan`` cell reads.
+
+* P of the dephased transport (a fixed Gamma_phi) and of the thermal
+  scenario (Gamma_phi from each point's T_p) on seeded random smooth
+  profiles of a few dozen segments, at random speeds, rates and bath
+  parameters: the port composes quaternion-built 3x3 maps by a pairwise
+  tree, the reference applies complex 2x2 propagators' adjoints one
+  segment after the other; they differ by rounding, <= 1e-12 relative.
+* A thermal ``run_sweep`` on the kernel engine against the reference's
+  yields fed the reference's P.
+* The span ``lz.dephase`` once per dephased pass (one per distinct rate
+  under the thermal bath, none on the coherent path), inside
+  ``lz.points``.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from bdlz_tpu_torch import config as tc
+from bdlz_tpu_torch.lz.profile import BounceProfile
+from bdlz_tpu_torch.lz.sweep_bridge import probabilities_for_points
+from bdlz_tpu_torch.lz.thermal import thermal_gamma_phi, thermal_probabilities_for_points
+from bdlz_tpu_torch.parallel import sweep as ts
+from benchmark.reference import bloch
+from benchmark.reference import yields as ry
+
+ARCHIVED = {
+    "regime": "nonthermal",
+    "P_chi_to_B": None,
+    "source_shape_sigma_y": 9.0,
+    "incident_flux_scale": 1.07e-9,
+    "Y_chi_init": 4.90e-10,
+}
+SEEDS = [2 ** 31 + 7, 12345, 987654321, 42]
+
+
+def _profile(seed: int, n_seg: int = None) -> BounceProfile:
+    """A smooth wall: Delta a tanh with a ripple through one crossing, the
+    mixing positive and varying, over +-halfwidth, on a seeded number of
+    segments (a few dozen)."""
+    r = np.random.default_rng(seed)
+    n_seg = int(r.integers(24, 64)) if n_seg is None else n_seg
+    half = r.uniform(8.0, 30.0)
+    xi = np.linspace(-half, half, n_seg + 1)
+    width = r.uniform(1.0, 4.0)
+    delta = r.uniform(0.5, 1.5) * np.tanh((xi - r.uniform(-1, 1)) / width) \
+        + 0.05 * np.sin(r.uniform(0.5, 2.0) * xi)
+    mix = r.uniform(0.05, 0.3) * (1.0 + 0.2 * np.cos(xi / width))
+    return BounceProfile(xi=xi, delta=delta, mix=mix)
+
+
+def _lz_spans(fn):
+    """``fn()`` under the CPU profiler, and its ``lz.points`` and
+    ``lz.dephase`` spans as (name, start_ns, end_ns)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof_:
+        out = fn()
+    return out, [(e.name(), int(e.start_ns()), int(e.end_ns()))
+                 for e in prof_.profiler.kineto_results.events()
+                 if e.name() in ("lz.points", "lz.dephase")]
+
+
+def _reference_P(prof: BounceProfile, v, gamma) -> np.ndarray:
+    return bloch.probability(prof.xi, prof.delta, prof.mix, v, gamma)
+
+
+@pytest.mark.parametrize("mode", ["dephased", "thermal"])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_port_P_matches_the_plain_reference(seed, mode):
+    r = np.random.default_rng(seed + 1)
+    prof = _profile(seed)
+    v = r.uniform(0.05, 0.95, 24)
+    if mode == "dephased":
+        gamma = r.uniform(0.005, 0.3)
+        got = probabilities_for_points(prof, v, method="dephased", gamma_phi=gamma,
+                                       device="cpu")
+        want = _reference_P(prof, v, np.full_like(v, gamma))
+    else:
+        T = r.uniform(20.0, 400.0, 24)
+        eta, omega_c = r.uniform(1e-4, 5e-3), r.uniform(5.0, 200.0)
+        got = thermal_probabilities_for_points(prof, v, T, eta, omega_c, device="cpu")
+        gamma = bloch.bath_rate(T, eta, omega_c)
+        np.testing.assert_allclose(thermal_gamma_phi(T, eta, omega_c), gamma, rtol=1e-15)
+        want = _reference_P(prof, v, gamma)
+    assert np.all((want > 1e-3) & (want < 1.0))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+
+
+def test_thermal_sweep_matches_the_reference_yields():
+    # The kernel engine's yields against the reference's yields fed the
+    # reference's P: the outputs are linear in P (Y_B) or in 1/P
+    # (DM_over_B), so P's 1e-12 above carries over; the yields alone
+    # agree to ~1e-15 (benchmark/tests, 1e-13).
+    prof = _profile(SEEDS[0], n_seg=40)
+    cfg = dict(ARCHIVED, lz_mode="thermal", lz_bath_eta=0.002, lz_bath_omega_c=40.0)
+    base = tc.config_from_dict(cfg)
+    axes = {"m_chi_GeV": np.geomspace(0.3, 3.0, 3), "T_p_GeV": np.geomspace(30.0, 300.0, 4),
+            "v_w": np.linspace(0.1, 0.9, 5)}
+    sizes = dict(chunk_size=16, n_y=400, table_nodes=512)
+    res = ts.run_sweep(base, axes, tc.static_choices_from_config(base), impl="kernel",
+                       lz_profile=prof, device="cpu", **sizes)
+    assert res.n_failed == 0 and res.lz_identity is not None
+    yc = dataclasses.asdict(base)
+    inputs = ry.point_inputs(yc, axes)
+    P = _reference_P(prof, inputs["v_w"], bloch.bath_rate(inputs["T_p_GeV"], 0.002, 40.0))
+    inputs["P_chi_to_B"] = P
+    ref = ry.yields_at(inputs, None, yc, sizes, scheme=res.quad_impl, dtype=torch.float64,
+                       device="cpu", cache={})
+    for f in ("Y_B", "Y_chi", "DM_over_B"):
+        np.testing.assert_allclose(res.outputs[f], ref[f], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("path", ["thermal", "dephased", "coherent"])
+def test_each_dephased_pass_is_one_span(path):
+    prof = _profile(SEEDS[1], n_seg=33)
+    v = np.tile(np.linspace(0.1, 0.9, 7), 10)            # 7 distinct speeds, repeated
+    T = np.repeat(np.geomspace(30.0, 300.0, 5), 14)      # 5 distinct temperatures
+    if path == "thermal":
+        _, spans = _lz_spans(lambda: thermal_probabilities_for_points(prof, v, T, 0.001, 50.0,
+                                                                      device="cpu"))
+        passes = 5
+    else:
+        gamma = 0.05 if path == "dephased" else 0.0
+        _, spans = _lz_spans(lambda: probabilities_for_points(prof, v, method=path,
+                                                              gamma_phi=gamma, device="cpu"))
+        passes = 1 if path == "dephased" else 0
+    assert [s[0] for s in spans] == ["lz.dephase"] * passes
+
+
+def test_the_dephased_passes_lie_inside_the_points_span():
+    prof = _profile(SEEDS[2], n_seg=30)
+    cfg = dict(ARCHIVED, lz_mode="thermal", lz_bath_eta=0.001, lz_bath_omega_c=50.0)
+    base = tc.config_from_dict(cfg)
+    axes = {"T_p_GeV": np.geomspace(30.0, 300.0, 3), "v_w": np.linspace(0.1, 0.9, 4)}
+    res, spans = _lz_spans(lambda: ts.run_sweep(
+        base, axes, tc.static_choices_from_config(base), impl="kernel", lz_profile=prof,
+        device="cpu", chunk_size=16, n_y=400, table_nodes=512))
+    assert res.n_failed == 0
+    (points,) = [s for s in spans if s[0] == "lz.points"]
+    dephase = [s for s in spans if s[0] == "lz.dephase"]
+    assert len(dephase) == 3
+    assert all(points[1] <= s[1] and s[2] <= points[2] for s in dephase)

@@ -96,6 +96,7 @@ def test_plain_kernels_match_pallas_kernels(setup, fuse_exp, reduce):
     grid; each normalised by its row's largest node (JAX's rows by
     ``gscale``, the port's not at all), ≤1e-6 (JAX's f32 streams)."""
     _, table_j, t4, table_t, grid = setup
+    kk.reset_launches()
     s = kk.point_scalars(point_params_from_numpy(grid, "cpu"), "fermion", table_t, N_Y)
     rows = (kk.point_fused_stream if fuse_exp else kk.point_stream)(s, table_t, N_Y).numpy()
     peak = np.max(np.abs(rows), axis=1)

@@ -14,7 +14,8 @@ Evaluation modes:
   exponential stored as a real unit quaternion, composed by a log-depth
   pairwise tree;
 * **dephased** — the density-matrix transport with diabatic-basis
-  dephasing: each segment's SO(3) rotation times a coherence decay.
+  dephasing: each segment's SO(3) rotation times a coherence decay; on
+  the card one hand kernel (``ops/bloch_kernel``), elsewhere the tree.
 
 Where the JAX package ``vmap``s a per-speed program, every function here
 takes a leading speed axis: ``v`` is a (B,) tensor and one tensor program
@@ -159,8 +160,17 @@ def _quat_to_rotations(q):
 def propagate_bloch(a, b, dxi, v, gamma_phi):
     """Dephased transport: the final Bloch vector from r₀ = ẑ per speed,
     (B,) → (B, 3).  Each segment applies its SU(2) propagator's SO(3)
-    rotation, then the coherence decay diag(e^(−Γτ), e^(−Γτ), 1); the 3×3
-    maps compose by the same tree.  P_{χ→B} = (1 − r_z)/2."""
+    rotation, then the coherence decay diag(e^(−Γτ), e^(−Γτ), 1).
+    P_{χ→B} = (1 − r_z)/2.  On CUDA tensors one hand kernel
+    (``ops/bloch_kernel``); on CPU tensors :func:`propagate_bloch_plain`."""
+    from bdlz_tpu_torch.ops.bloch_kernel import bloch_transport
+
+    return bloch_transport(a, b, dxi, v, gamma_phi)
+
+
+def propagate_bloch_plain(a, b, dxi, v, gamma_phi):
+    """:func:`propagate_bloch`'s plain version: the segments' 3×3 maps
+    staged as (B, 2^k, 3, 3) leaves and composed by the pairwise tree."""
     tau = _traversal_times(dxi, v)
     Rs = _quat_to_rotations(_su2_quaternions(a, b, tau))
     # Γ < 0 is rejected at every host boundary; the clamp only keeps a
@@ -211,7 +221,7 @@ def make_P_of_speed(method: str, a, b, dxi, gamma_phi):
 
 
 def speed_chunk_budget() -> int:
-    """Bytes of tree leaves one chunk of speeds may stage
+    """Bytes one chunk of speeds may stage
     (``BDLZ_LZ_SPEED_CHUNK_BYTES``, default 1 GiB)."""
     import os
 
@@ -223,9 +233,18 @@ def padded_segments(n_seg: int) -> int:
     return 1 << max(n_seg - 1, 1).bit_length()
 
 
+def staged_bytes_per_speed(method: str, n_seg: int, device) -> int:
+    """Bytes one speed stages for the chunk budget: the tree's leaves,
+    ``padded_segments`` f64 maps of 9 (dephased) or 4 (coherent) values;
+    the dephased kernel on the card stages none and writes r (3 f64)."""
+    if method == "dephased" and torch.device(device).type == "cuda":
+        return 3 * 8
+    return padded_segments(n_seg) * 8 * (9 if method == "dephased" else 4)
+
+
 def over_speed_chunks(fn, speeds: torch.Tensor, per_speed_bytes: int,
                       budget: "int | None" = None) -> torch.Tensor:
-    """``fn`` over ``speeds`` (B,) in chunks whose tree leaves fit the
+    """``fn`` over ``speeds`` (B,) in chunks whose staged bytes fit the
     budget.  A short last chunk is padded with the last speed, so every
     call has one shape (the JAX package's one-compile rule, kept so that
     a row's bits never depend on where the chunks fall)."""

@@ -132,12 +132,12 @@ def momentum_averaged_probability(
             _segment_hamiltonians,
             make_P_of_speed,
             over_speed_chunks,
-            padded_segments,
+            staged_bytes_per_speed,
         )
 
         a, b, dxi = _segment_hamiltonians(profile, dev)
         P_batch = make_P_of_speed(method, a, b, dxi, gamma_phi)
-        per_speed = padded_segments(a.shape[0]) * 8 * (9 if method == "dephased" else 4)
+        per_speed = staged_bytes_per_speed(method, a.shape[0], dev)
 
         def P_of_speed(speed):
             flat = over_speed_chunks(P_batch, speed.reshape(-1), per_speed)

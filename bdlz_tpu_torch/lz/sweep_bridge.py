@@ -15,7 +15,8 @@ Methods:
 * ``"dephased"`` — the density-matrix transport at rate ``gamma_phi``.
 
 The propagating methods run on ``device`` over unique speeds, in chunks
-whose tree leaves fit ``BDLZ_LZ_SPEED_CHUNK_BYTES`` (default 1 GiB); the
+whose staged bytes fit ``BDLZ_LZ_SPEED_CHUNK_BYTES`` (default 1 GiB; the
+tree's leaves, or on the card the dephased kernel's output alone); the
 last chunk is padded with the last speed, as in the JAX package.  A
 sweep's dephased pass (one rate's speeds to host P) is the span
 ``lz.dephase``.  The JAX package's ``TRACE_COUNTS`` pins its one-compile
@@ -60,13 +61,13 @@ def _propagated(profile: BounceProfile, speeds_np: np.ndarray, method: str,
         _segment_hamiltonians,
         make_P_of_speed,
         over_speed_chunks,
-        padded_segments,
+        staged_bytes_per_speed,
     )
 
     with span("lz.dephase") if method == "dephased" else contextlib.nullcontext():
         a, b, dxi = _segment_hamiltonians(profile, dev)
         P_of_speed = make_P_of_speed(method, a, b, dxi, gamma_phi)
-        per_speed = padded_segments(a.shape[0]) * 8 * (9 if method == "dephased" else 4)
+        per_speed = staged_bytes_per_speed(method, a.shape[0], dev)
         speeds = torch.as_tensor(speeds_np, dtype=F64, device=dev)
         # layer boundary: the P table goes to the sweep's host grid
         return over_speed_chunks(P_of_speed, speeds, per_speed).cpu().numpy()  # bdlz-lint: disable=R3
@@ -238,14 +239,14 @@ def make_P_of_vw_gamma_table(
 ) -> PTable2D:
     """P(v_w, Γ_φ) over [v_lo, v_hi] × [gamma_lo, gamma_hi]: one dephased
     pass per Γ node over the speeds, chunked by ``speed_chunk`` and by the
-    leaf budget (the Bloch tree stages (padded_segments, 3, 3) maps per
-    speed); the last chunk is padded with the last speed."""
+    budget (:func:`~bdlz_tpu_torch.lz.kernel.staged_bytes_per_speed`); the
+    last chunk is padded with the last speed."""
     from bdlz_tpu_torch.lz.kernel import (
         _segment_hamiltonians,
         make_P_of_speed,
         over_speed_chunks,
-        padded_segments,
         speed_chunk_budget,
+        staged_bytes_per_speed,
     )
 
     if isinstance(profile, str):
@@ -265,7 +266,7 @@ def make_P_of_vw_gamma_table(
     gs = np.linspace(gamma_lo, gamma_hi, n_g)
 
     a, b, dxi = _segment_hamiltonians(profile, dev)
-    per_speed = padded_segments(a.shape[0]) * 8 * 9
+    per_speed = staged_bytes_per_speed("dephased", a.shape[0], dev)
     chunk = max(1, min(int(speed_chunk), speed_chunk_budget() // max(per_speed, 1), n_v))
     cols = [
         over_speed_chunks(make_P_of_speed("dephased", a, b, dxi, float(g)), vs,

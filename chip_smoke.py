@@ -217,7 +217,7 @@ def _ptxas_kernels(log: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             point = re.search(r"kjma_point_kernelILb([01])ELb([01])E", m.group(1))
-            plain = re.search(r"(bounce_[a-z_]+?_kernel)", m.group(1))
+            plain = re.search(r"((bounce|bloch)_[a-z_]+?_kernel)", m.group(1))
             if point:
                 name = _point_kernel_name(*point.groups())
             else:
@@ -262,18 +262,25 @@ def _sass_f64_counts(lib_path) -> dict:
 
 
 def phase_build() -> None:
-    """The two sources at once, one nvcc each."""
+    """The three sources at once, one nvcc each."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from bdlz_tpu_torch.ops import _build, bounce_kernel, kjma_kernel
+    from bdlz_tpu_torch.ops import _build, bloch_kernel, bounce_kernel, kjma_kernel
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        point, bounce = pool.map(_build.build, (kjma_kernel.POINT_SOURCE, bounce_kernel.SOURCE))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        point, bounce, bloch = pool.map(_build.build, (
+            kjma_kernel.POINT_SOURCE, bounce_kernel.SOURCE, bloch_kernel.SOURCE))
     wall = time.perf_counter() - t0
     kjma_kernel.load_point_library()
     bounce_kernel.load_library()
+    bloch_kernel.load_library()
     pk_kernels, bk_kernels = _ptxas_kernels(point.ptxas_log), _ptxas_kernels(bounce.ptxas_log)
+    bl_kernels = _ptxas_kernels(bloch.ptxas_log)
+    check([k["kernel"] for k in bl_kernels] == ["bloch_transport_kernel"],
+          f"ptxas reported the transport kernel, got {bl_kernels}")
+    check(all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in bl_kernels),
+          f"the transport kernels spill no registers, got {bl_kernels}")
     check(sorted(k["kernel"] for k in pk_kernels) == sorted(POINT_KERNELS),
           f"ptxas reported the four point kernels, got {pk_kernels}")
     check(all(k.get("spill_stores") == 0 and k.get("spill_loads") == 0 for k in pk_kernels),
@@ -294,7 +301,10 @@ def phase_build() -> None:
          "f64_instructions_per_node_counted": POINT_F64_INSTR_PER_NODE,
          "kernels": pk_kernels},
         {"source": "bdlz_tpu_torch/csrc/" + bounce_kernel.SOURCE, "seconds": bounce.seconds,
-         "cached": bounce.cached, "kernels": bk_kernels}]})
+         "cached": bounce.cached, "kernels": bk_kernels},
+        {"source": "bdlz_tpu_torch/csrc/" + bloch_kernel.SOURCE, "seconds": bloch.seconds,
+         "cached": bloch.cached, "kernels": bl_kernels,
+         "ptxas_log": bloch.ptxas_log}]})
 
 
 def _stream_rel(got, ref) -> float:
@@ -643,13 +653,16 @@ def _device_ms(prof) -> dict:
 def _launches_around(fn):
     """``fn()`` with every kernel's launch count set to 0 just before and
     read just after: (result, counts)."""
+    from bdlz_tpu_torch.ops import bloch_kernel as lk
     from bdlz_tpu_torch.ops import bounce_kernel as bk
     from bdlz_tpu_torch.ops import kjma_kernel as kk
 
     kk.reset_launches()
     bk.reset_launches()
+    lk.reset_launches()
     out = fn()
-    return out, {**kk.LAUNCHES, **{"bounce_" + k: v for k, v in bk.LAUNCHES.items()}}
+    return out, {**kk.LAUNCHES, **{"bounce_" + k: v for k, v in bk.LAUNCHES.items()},
+                 **lk.LAUNCHES}
 
 
 def _max_rel(a, b) -> float:
@@ -1064,22 +1077,40 @@ def phase_bounce_path(dev) -> dict:
 # tabulated reference); its sweeps run every fourth m_chi, one 8192-point
 # chunk, to keep the whole script near ten minutes.
 LM_AXES = dict(MAIN_AXES, m_chi_GeV=MAIN_AXES["m_chi_GeV"][::4])
+LZ_BATH = (0.001, 50.0)  # the thermal scenario's η and ω_c (GeV)
 LZ_METHODS = {  # sweep estimators and scenarios of the lz_path sweeps
     "local": ({}, {"lz_method": "local"}),
     "coherent": ({}, {"lz_method": "coherent"}),
     "local-momentum": ({}, {"lz_method": "local-momentum"}),
     "dephased": ({}, {"lz_method": "dephased", "lz_gamma_phi": 0.01}),
     "chain": ({"lz_mode": "chain", "lz_n_levels": 3}, {}),
-    "thermal": ({"lz_mode": "thermal", "lz_bath_eta": 0.001, "lz_bath_omega_c": 50.0}, {}),
+    "thermal": ({"lz_mode": "thermal", "lz_bath_eta": LZ_BATH[0],
+                 "lz_bath_omega_c": LZ_BATH[1]}, {}),
 }
 
 
-def phase_lz_path(dev, sol, kernel_pps: float) -> None:
+def _dephased_passes(name: str, axes: dict) -> int:
+    """The dephased transport passes an lz_path sweep makes, each one
+    launch of the kernel: one for the dephased estimator, one per
+    distinct Γ_φ > 0 of the grid's T_p for the thermal scenario, none for
+    the others."""
+    if name == "dephased":
+        return 1
+    if name != "thermal":
+        return 0
+    from bdlz_tpu_torch.lz.thermal import thermal_gamma_phi
+
+    gam = np.asarray(thermal_gamma_phi(axes["T_p_GeV"], *LZ_BATH))
+    return int(np.count_nonzero(np.unique(gam) > 0.0))
+
+
+def phase_lz_path(dev, sol, kernel_pps: float) -> int:
     """The LZ layer at full width: the P-tables at their default sizes over
     the kernel-shot reference profile (801 samples) and over a
     1,000,001-sample profile of the same wall (profiled), the sweep with
     the shot bounce through each estimator and scenario against the
-    tabulated engine, and the table on the card against the CPU."""
+    tabulated engine, and the table on the card against the CPU.  Returns
+    the dephased transport kernel's launches in those sweeps."""
     from torch.profiler import ProfilerActivity, profile
 
     from bdlz_tpu_torch.bounce import bounce_profile, reference_potential
@@ -1135,7 +1166,7 @@ def phase_lz_path(dev, sol, kernel_pps: float) -> None:
     check(card_cpu <= LZ_CARD_CPU_RTOL, f"table card vs CPU {card_cpu:.3e}")
 
     # the sweep CLI's path with a shot bounce, per estimator and scenario
-    sweeps = {}
+    sweeps, bloch_launches = {}, 0
     bounce = dict(spec._asdict())
     for name, (cfg_over, kw) in LZ_METHODS.items():
         base = config_from_dict(dict(ARCHIVED, **cfg_over))
@@ -1150,6 +1181,10 @@ def phase_lz_path(dev, sol, kernel_pps: float) -> None:
               f"{name}: {n_points} finite points")
         check(counts[MAIN_KERNEL] == n_points // N_POINTS and counts["bounce_shoot"] == 1,
               f"{name}: P1 launched once per chunk and the shoot once, got {counts}")
+        passes = _dephased_passes(name, axes)
+        check(counts["bloch"] == passes,
+              f"{name}: the transport kernel once per dephased pass ({passes}), got {counts}")
+        bloch_launches += counts["bloch"]
         ref = run_sweep(base, axes, static._replace(quad_panel_gl=False),
                         impl="tabulated", **common)
         rel = _max_rel(res.outputs["DM_over_B"], ref.outputs["DM_over_B"])
@@ -1165,6 +1200,85 @@ def phase_lz_path(dev, sol, kernel_pps: float) -> None:
                               "top_device_ms": dict(top)},
           "table_card_vs_cpu_64_nodes_max_rel": card_cpu,
           "sweeps": sweeps, "plain_P_kernel_tier_points_per_sec": kernel_pps})
+    return bloch_launches
+
+
+# The dephased transport's least work (benchmark/harness/dephase_work.py,
+# frozen there): f64 instructions per lane-segment.
+BLOCH_F64_INSTR_PER_LANE_SEGMENT = 79
+# The cell bounce_lz_dephased.scan's pass: 1024 speeds at one bath rate.
+BLOCH_SPEEDS, BLOCH_RATE = 1024, 0.07
+
+
+def _kernel_device_ms(fn, name: str, reps: int = 20, repeats: int = 5) -> list:
+    """Per-launch device ms of the kernels whose name holds ``name``, from
+    the profiler's device events over ``reps`` calls of ``fn``, for each of
+    ``repeats`` windows: the card's time alone, where CUDA events around
+    back-to-back calls would time the host's calls once a kernel is
+    shorter than its wrapper (~36 µs a call on an H100).  Each window's
+    time is over the launches it recorded (late in a long process a
+    window may drop some); a window that recorded none is left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key]
+        if sum(e.count for e in evs):
+            out.append(sum(e.self_device_time_total for e in evs) / 1e3
+                       / sum(e.count for e in evs))
+    return out
+
+
+def phase_bloch_path(dev, main_launches=None) -> dict:
+    """The dephased transport's kernel at the benchmark cell's shape (the
+    shot reference profile's 800 segments, 1024 speeds, one bath rate):
+    its device time (median of 5×20 launches, the profiler's device
+    events), its bound from the frozen count, the plain tree's time at
+    the same shape (not a yardstick of speed) and the largest |Δr|
+    against the tree.  The row's ``launches`` are ``main_launches``, the
+    main path's (the timed launches are the phase's own)."""
+    from bdlz_tpu_torch.bounce import bounce_profile, reference_potential
+    from bdlz_tpu_torch.lz import kernel as lk
+    from bdlz_tpu_torch.ops import bloch_kernel as bk
+
+    t0 = time.perf_counter()
+    prof = bounce_profile(reference_potential(), device=dev)
+    a, b, dxi = lk._segment_hamiltonians(prof, dev)
+    v = torch.linspace(0.05, 0.95, BLOCH_SPEEDS, dtype=torch.float64, device=dev)
+    plain = lk.propagate_bloch_plain(a, b, dxi, v, BLOCH_RATE)
+    bk.reset_launches()
+    err = float((bk.bloch_transport(a, b, dxi, v, BLOCH_RATE) - plain).abs().max())
+    check(err <= 1e-12, f"bloch kernel vs the tree: {err:.3e}")
+
+    samples = _kernel_device_ms(lambda: bk.bloch_transport(a, b, dxi, v, BLOCH_RATE),
+                                "bloch_transport_kernel")
+    check(bool(samples), "the profiler recorded the transport kernel")
+    timed_launches = bk.LAUNCHES["bloch"]
+    check(timed_launches == 1 + 1 + 5 * 20, f"bloch launches counted, got {timed_launches}")
+    plain_samples = _cuda_ms(lambda: lk.propagate_bloch_plain(a, b, dxi, v, BLOCH_RATE), 20)
+    n_seg = int(a.shape[0])
+    ops = BLOCH_SPEEDS * n_seg * BLOCH_F64_INSTR_PER_LANE_SEGMENT
+    bound_ms = 1e3 * max(ops / FP64_INSTR_PER_S,
+                         (n_seg * 3 + BLOCH_SPEEDS * 4) * 8 / HBM_BYTES_PER_S)
+    ms = float(np.median(samples))
+    row = {"name": bk.KERNELS["bloch"][0], "route": "cuda",
+           "source": "bdlz_tpu_torch/csrc/" + bk.SOURCE, "replaces": bk.KERNELS["bloch"][1],
+           "launches": main_launches, "max_abs_err": err, "ms": ms,
+           "plain_ms": float(np.median(plain_samples)), "bound_ms": bound_ms,
+           "bound_by": "operations", "library_ms": None}
+    emit({"phase": "bloch_path", "seconds": time.perf_counter() - t0,
+          "speeds": BLOCH_SPEEDS, "segments": n_seg, "gamma_phi": BLOCH_RATE,
+          "timed_launches": timed_launches, "ms_samples": samples, "plain_ms_samples": plain_samples,
+          "f64_instructions": ops, "bound_share": bound_ms / ms, "kernel": row})
+    return row
 
 
 def _bitwise(a: dict, b: dict, keep=None) -> bool:
@@ -3140,7 +3254,8 @@ STANDALONE = {"overlap_path": phase_overlap_path,
               "sampling_path": phase_sampling_path, "host_planes": phase_host_planes,
               "serving_path": phase_serving_path, "elastic_path": phase_elastic_path,
               "fabric_path": phase_fabric_path, "mesh_path": phase_mesh_path,
-              "graft_path": phase_graft_path, "evidence_path": phase_evidence_path}
+              "graft_path": phase_graft_path, "evidence_path": phase_evidence_path,
+              "bloch_path": phase_bloch_path}
 
 
 def main(argv=None) -> int:
@@ -3181,7 +3296,10 @@ def main(argv=None) -> int:
     phase_panel_path(dev, sweep_pps)
     phase_cli(dev)
     bounce = phase_bounce_path(dev)
-    phase_lz_path(dev, bounce.pop("solution"), sweep_pps)
+    bloch_launches = phase_lz_path(dev, bounce.pop("solution"), sweep_pps)
+    # the row's time, bound and parity at the cell's shape; its launches
+    # are the main path's, those of the dephased and thermal sweeps
+    bloch = phase_bloch_path(dev, bloch_launches)
     phase_robust_path(dev)
     artifact = phase_emulator_path(dev)
     phase_sampling_path(dev, artifact)
@@ -3228,7 +3346,7 @@ def main(argv=None) -> int:
         "bound_ms": bounce["bound_ms"],
         "bound_by": bounce["bound_by"],
         "library_ms": None,  # no PyTorch call shoots a bounce
-    }]})
+    }, bloch]})  # no PyTorch call propagates a dephased Bloch vector
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "device": dev_info["nvidia_smi"]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev_info["name"],

@@ -14,6 +14,7 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "bdlz_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels_gpu.py",
+    REPO / "tests" / "test_torch_bloch_kernel_gpu.py",
 ] + sorted((REPO / "scripts").glob("torch_*.py"))
 EVIDENCE_TOOLS = ("accuracy_audit", "ny_convergence", "impl_shootout", "lz_scale_bench",
                   "weak_scaling")

@@ -203,7 +203,6 @@ def make_exact_evaluator(base, static, *, n_y: int, impl: str, chunk_size: int =
     from bdlz_tpu_torch.backend import resolve_device
     from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
     from bdlz_tpu_torch.parallel.sweep import (
-        _pad_chunk,
         build_chunk_engine,
         build_grid,
         chunk_cache_key,
@@ -287,9 +286,8 @@ def make_exact_evaluator(base, static, *, n_y: int, impl: str, chunk_size: int =
                 attempts[0] += 1
                 if fault_plan is not None:
                     fault_plan.fire("probe", call_idx)
-                return evaluate_chunk(_ensure_engine(),
-                                      _pad_chunk(pp, lo, hi, mesh_pad(chunk, mesh)),
-                                      hi - lo, dev, mesh)
+                return evaluate_chunk(_ensure_engine(), pp, hi - lo,
+                                      (lo, hi, mesh_pad(chunk, mesh)), mesh)
 
             quarantined_here = False
             try:

@@ -36,10 +36,11 @@ wrapper, so a run can show that it went through the kernels.  Under
 ``enable_nan_debugging`` a launch checks what it wrote, since the mode's
 op-level check cannot see inside a kernel.
 
-The sweep's chunk step (:class:`KernelStep`) runs on one card as one
-replay of a captured CUDA graph (:class:`ChunkGraph`): the ~70 small
-launches of the prep and the finish around the point kernel cost the
-host more than the card's work.  ``GRAPH_STATS`` counts how often.
+The kernel engine's chunk step (:func:`kernel_step`) runs on one card as
+one replay of a captured CUDA graph (:class:`ChunkGraph`, cached by
+:func:`chunk_graph`, which the sweep's one-device step asks for): the ~70
+small launches of the prep and the finish around the point kernel cost
+the host more than the card's work.  ``GRAPH_STATS`` counts how often.
 """
 from __future__ import annotations
 
@@ -550,50 +551,45 @@ class ChunkGraph:
         return self.out
 
 
-class KernelStep:
-    """The kernel engine's chunk step: ``step(pp, table) -> YieldsResult``
-    runs :func:`point_yields_kernel` eagerly, and :meth:`graph` gives the
-    same step as a cached :class:`ChunkGraph` where :func:`graph_route`
-    allows it and the key was seen before."""
-
-    def __init__(self, static: StaticChoices, n_y: int, fuse_exp: bool, reduce: bool):
-        self.static, self.n_y, self.fuse_exp, self.reduce = static, n_y, fuse_exp, reduce
-
-    def __call__(self, pp: PointParams, table: KJMATable):
+def kernel_step(static: StaticChoices, n_y: int, fuse_exp: bool, reduce: bool):
+    """The kernel engine's chunk step run eagerly: ``step(pp, table) ->
+    YieldsResult`` (:func:`point_yields_kernel`), each call counted in
+    ``GRAPH_STATS["eager"]``."""
+    def step(pp: PointParams, table: KJMATable):
         GRAPH_STATS["eager"] += 1
-        return point_yields_kernel(pp, self.static, table, self.n_y,
-                                   fuse_exp=self.fuse_exp, reduce=self.reduce)
+        return point_yields_kernel(pp, static, table, n_y, fuse_exp=fuse_exp, reduce=reduce)
+    return step
 
-    def graph(self, n_points: int, device, table: KJMATable) -> Optional[ChunkGraph]:
-        """The graph that runs a padded chunk of ``n_points`` on
-        ``device`` with ``table``, from this process's cache.  None off the
-        route, for a table on another device (the eager step refuses it),
-        and the first time a key is seen: that chunk runs eagerly and
-        builds nothing, so a shape used once (an emulator round, a gate's
-        population) never pays a capture."""
-        dev = torch.device(device)
-        if not graph_route(dev, n_points):
+
+def chunk_graph(n_points: int, device, table: KJMATable, static: StaticChoices, n_y: int,
+                fuse_exp: bool, reduce: bool) -> Optional[ChunkGraph]:
+    """The graph that runs :func:`kernel_step`'s padded chunk of
+    ``n_points`` on ``device`` with ``table``, from this process's cache.
+    None off the route, for a table on another device (the eager step
+    refuses it), and the first time a key is seen: that chunk runs
+    eagerly and builds nothing, so a shape used once (an emulator round,
+    a gate's population) never pays a capture."""
+    dev = torch.device(device)
+    if not graph_route(dev, n_points):
+        return None
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if table.values.device != dev:
+        return None
+    key = graph_key(dev, n_points, n_y, fuse_exp, reduce, static, table,
+                    torch.cuda.current_stream(dev).cuda_stream, threading.get_ident())
+    with _GRAPHS_LOCK:
+        g = _GRAPHS.get(key)
+        if g is not None:
+            _GRAPHS.move_to_end(key)
+            return g
+        if key not in _SEEN:
+            _SEEN[key] = None
+            while len(_SEEN) > SEEN_KEYS:
+                _SEEN.popitem(last=False)
             return None
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        if table.values.device != dev:
-            return None
-        key = graph_key(dev, n_points, self.n_y, self.fuse_exp, self.reduce, self.static,
-                        table, torch.cuda.current_stream(dev).cuda_stream,
-                        threading.get_ident())
-        with _GRAPHS_LOCK:
-            g = _GRAPHS.get(key)
-            if g is not None:
-                _GRAPHS.move_to_end(key)
-                return g
-            if key not in _SEEN:
-                _SEEN[key] = None
-                while len(_SEEN) > SEEN_KEYS:
-                    _SEEN.popitem(last=False)
-                return None
-            del _SEEN[key]
-            g = _GRAPHS[key] = ChunkGraph(dev, n_points, self.n_y, self.static, table,
-                                          self.fuse_exp, self.reduce)
-            while len(_GRAPHS) > GRAPH_CACHE_SIZE:
-                _GRAPHS.popitem(last=False)
-        return g
+        del _SEEN[key]
+        g = _GRAPHS[key] = ChunkGraph(dev, n_points, n_y, static, table, fuse_exp, reduce)
+        while len(_GRAPHS) > GRAPH_CACHE_SIZE:
+            _GRAPHS.popitem(last=False)
+    return g

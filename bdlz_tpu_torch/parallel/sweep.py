@@ -30,9 +30,10 @@ through the LZ layer on the run's device before the chunk loop.
 The chunk loop double-buffers, as JAX's does (``overlap_chunks``): each
 chunk is shipped from pinned host staging, enqueued, and its results'
 copies back started with one CUDA event per member
-(:meth:`SweepPlan.dispatch_local`); the host waits on those events only
-when it collects the chunk (:meth:`SweepPlan.collect_local`), after the
-next chunk has been enqueued.  :func:`make_chunk_runner` is the padded,
+(:func:`dispatch_chunk`, through the step's ``ship`` and ``launch``,
+whichever route the step takes to the card); the host waits on those
+events only when it collects the chunk (:func:`collect_chunk`), after
+the next chunk has been enqueued.  :func:`make_chunk_runner` is the padded,
 clamped chunk runner the measurement tools and the tiered population
 gate stand on.  Each phase of a sweep is a span of
 ``utils/profiling.SPANS`` (``sweep``, its planning, ``sweep.loop`` and
@@ -63,6 +64,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from bdlz_tpu_torch import sanitize
 from bdlz_tpu_torch.backend import resolve_device
 from bdlz_tpu_torch.config import (
     Config,
@@ -72,7 +74,8 @@ from bdlz_tpu_torch.config import (
     point_params_from_config,
 )
 from bdlz_tpu_torch.constants import GEV_TO_KG
-from bdlz_tpu_torch.ops.kjma_kernel import REDUCE_DEFAULT, KernelStep
+from bdlz_tpu_torch.ops import kjma_kernel
+from bdlz_tpu_torch.ops.kjma_kernel import REDUCE_DEFAULT
 from bdlz_tpu_torch.utils.profiling import nan_debugging_enabled, span, spanned
 
 #: Config-key → PointParams-field mapping for sweep axes.
@@ -405,16 +408,61 @@ def make_sweep_step(
     return _MeshStep(step, mesh, one_call=(impl == "esdirk"))
 
 
+# ---- the chunk steps: ship(pp_np, aux) -> shipped, and launch(shipped, aux,
+# n_valid) -> pending, one (rows, event, keep) per member (fetch_rows)
+
+class _EagerStep:
+    """An engine's step ``fn(pp, aux) -> YieldsResult`` on one device:
+    :meth:`ship` copies the padded host chunk in (:func:`ship_point_params`),
+    :meth:`launch` runs ``fn`` and starts the copy back of its first
+    ``n_valid`` rows as one (5, P) block."""
+
+    def __init__(self, fn, device):
+        self.fn, self.device = fn, torch.device(device)
+
+    def ship(self, pp_np, aux):
+        return ship_point_params(pp_np, self.device)
+
+    def launch(self, shipped, aux, n_valid: int) -> list:
+        return [fetch_rows(torch.stack(list(self.fn(shipped, aux))), n_valid, shipped)]
+
+
+class _GraphedStep(_EagerStep):
+    """The kernel engine's step on one device.  Where the graph cache
+    (``kjma_kernel.chunk_graph``) gives the chunk a graph, :meth:`ship`
+    copies the pinned slot straight into the graph's input block and
+    :meth:`launch` is one replay (span ``chunk.replay``) and one copy
+    back of its output block: the next chunk's copy in and replay come
+    after this copy back on the same stream, so one set of buffers
+    serves the double-buffered loop.  Elsewhere it is the eager step."""
+
+    def __init__(self, fn, device, static, n_y, fuse_exp, reduce):
+        super().__init__(fn, device)
+        self.graph_args = (static, n_y, fuse_exp, reduce)
+
+    def ship(self, pp_np, aux):
+        graph = kjma_kernel.chunk_graph(len(pp_np.m_chi_GeV), self.device, aux,
+                                        *self.graph_args)
+        if graph is None:
+            return super().ship(pp_np, aux)
+        _staging(graph.device).ship(pp_np, graph.device, into=graph.inputs)
+        return graph
+
+    def launch(self, shipped, aux, n_valid: int) -> list:
+        if isinstance(shipped, PointParams):
+            return super().launch(shipped, aux, n_valid)
+        return [fetch_rows(shipped.run(aux), n_valid, shipped)]
+
+
 class _MeshStep:
     """The mesh step: ``mstep(pp_np, auxes) -> YieldsResult`` of this
-    process's rows as host arrays, split into :meth:`ship`,
-    :meth:`launch` (together :meth:`dispatch`) and :meth:`collect`.  Each
-    local member's contiguous rows (the batch plan of ``batch_sharding``)
-    are shipped, launched and copied back on its device and stream, with
-    one event per member; collection waits on those events in member
-    order.  ``one_call`` hands the whole chunk to ``step`` on the first
-    member (the repacked stiff engine, which splits its rounds over the
-    mesh itself; single-process only)."""
+    process's rows as host arrays.  Each local member's contiguous rows
+    (the batch plan of ``batch_sharding``) are shipped, launched and
+    copied back on its device and stream, with one event per member;
+    collection waits on those events in member order.  ``one_call``
+    hands the whole chunk to ``step`` on the first member (the repacked
+    stiff engine, which splits its rounds over the mesh itself;
+    single-process only)."""
 
     def __init__(self, step, mesh, one_call: bool):
         from bdlz_tpu_torch.parallel.mesh import batch_sharding
@@ -422,7 +470,7 @@ class _MeshStep:
         self.step, self.mesh, self.one_call = step, mesh, one_call
         self.sharding = batch_sharding(mesh)
 
-    def ship(self, pp_np) -> list:
+    def ship(self, pp_np, auxes) -> list:
         """Each local member's rows on its device and stream:
         ``[(device, stream, rows, PointParams), ...]``."""
         from bdlz_tpu_torch.parallel.mesh import on_stream
@@ -442,26 +490,22 @@ class _MeshStep:
                     PointParams(*(np.asarray(f)[lo:hi] for f in pp_np)), dev)))
         return shipped
 
-    def launch(self, shipped: list, auxes) -> list:
-        """Each member's step on its stream and its rows' copy back."""
+    def launch(self, shipped: list, auxes, n_valid: int) -> list:
+        """Each member's step on its stream and its rows' copy back (all
+        of them: :func:`gather_chunk` cuts the padding)."""
         from bdlz_tpu_torch.parallel.mesh import on_stream
 
         parts = []
         for dev, s, n, ppm in shipped:
             with on_stream(s):
-                parts.append(fetch_rows(self.step(ppm, auxes[dev]), n, dev, ppm))
+                parts.append(fetch_rows(torch.stack(list(self.step(ppm, auxes[dev]))), n, ppm))
         return parts
 
-    def dispatch(self, pp_np, auxes) -> list:
-        return self.launch(self.ship(pp_np), auxes)
-
-    def collect(self, pending: list):
+    def __call__(self, pp_np, auxes):
         from bdlz_tpu_torch.models.yields_pipeline import YieldsResult
 
-        return YieldsResult(*collect_chunk(pending).values())
-
-    def __call__(self, pp_np, auxes):
-        return self.collect(self.dispatch(pp_np, auxes))
+        n = len(np.asarray(pp_np.m_chi_GeV))
+        return YieldsResult(*evaluate_chunk((self, auxes), pp_np, n).values())
 
 
 class _PinnedStaging:
@@ -476,7 +520,8 @@ class _PinnedStaging:
         self._turn = 0
 
     def ship(self, pp_np, device: torch.device, into=None) -> torch.Tensor:
-        """The rows on ``device``: a new (17, n) block, or ``into``."""
+        """The rows on ``device``: a new (17, n) block, or ``into`` (a
+        chunk graph's input block)."""
         cols = [np.asarray(getattr(pp_np, f), dtype=np.float64).reshape(-1)
                 for f in PointParams._fields]
         shape = (len(cols), len(cols[0]))
@@ -524,67 +569,43 @@ def ship_point_params(pp_np, device) -> PointParams:
     return PointParams(*_staging(device).ship(pp_np, device).unbind(0))
 
 
-def fetch_rows(res, n_keep: int, device, keep=None):
-    """Start bringing the first ``n_keep`` rows of a step's YieldsResult,
-    or of a captured step's (5, P) output block, back: ``(rows, event,
-    keep)``, one member's part of a dispatched chunk.  On the card
-    ``rows`` is a pinned (5, n) host block that a non-blocking copy
-    fills and ``event`` marks its end, and ``keep`` holds the member's
-    device tensors until then; on the CPU ``rows`` are the result
-    tensors and ``event`` is None."""
-    if isinstance(res, torch.Tensor):
-        out = res
-    else:
-        rows = [f[:n_keep] for f in res]
-        if torch.device(device).type != "cuda":
-            return rows, None, None
-        out = torch.stack(rows)
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+def fetch_rows(block: torch.Tensor, n_keep: int, keep):
+    """Start bringing the first ``n_keep`` rows of a step's (5, P) block of
+    YieldsResult rows back: ``(rows, event, keep)``, one member's part of
+    a dispatched chunk.  On the card ``rows`` is a pinned (5, n) host
+    block that a non-blocking copy fills on the block's device's current
+    stream and ``event`` marks its end, and ``keep`` holds the member's
+    device tensors until then; on the CPU ``rows`` are the block's and
+    ``event`` is None."""
+    if block.device.type != "cuda":
+        return block[:, :n_keep], None, None
+    host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
     # under NaN debugging every op scans its output: a pinned block still
     # being filled must not be scanned
-    host.copy_(out, non_blocking=not nan_debugging_enabled())
+    host.copy_(block, non_blocking=not nan_debugging_enabled())
     event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return host[:, :n_keep], event, (out, keep)
+    event.record(torch.cuda.current_stream(block.device))
+    return host[:, :n_keep], event, (block, keep)
 
 
-def dispatch_chunk(engine, pp_np: PointParams, n_valid: int, device, mesh=None,
-                   bounds=None) -> list:
-    """Launch one engine evaluation of a padded host chunk and start
-    copying its first ``n_valid`` rows back (with a ``mesh``, this
+def dispatch_chunk(engine, pp_np: PointParams, n_valid: int, bounds=None) -> list:
+    """Launch one evaluation of a padded host chunk by ``engine``'s step
+    and start copying its first ``n_valid`` rows back (on a mesh, this
     process's rows of the whole padded chunk): the pending chunk, one
-    :func:`fetch_rows` part per member, which :func:`collect_chunk`
-    waits for.  ``bounds`` ``(lo, hi, size)`` pads the rows [lo, hi) of
+    :func:`fetch_rows` part per member, which :func:`collect_chunk` waits
+    for.  ``bounds`` ``(lo, hi, size)`` pads the rows [lo, hi) of
     ``pp_np`` to ``size`` first.  The spans ``chunk.ship`` (the padding
-    and the inputs' copy) and ``chunk.step`` (the step enqueued and the
-    copies back started).  On the CPU the work is done on return.
-
-    Where the kernel engine's step has a graph on one card
-    (``KernelStep.graph``), the inputs are copied into the graph's input
-    block, the step is one replay, and its output block is copied back:
-    the next chunk's copy in and replay come after this copy back on
-    the same stream, so one set of buffers serves the double-buffered
-    loop."""
+    and the step's ``ship``) and ``chunk.step`` (its ``launch``).  The
+    step is the JAX engine's jitted program: no sanitizer checkpoint
+    inside it.  On the CPU the work is done on return."""
     step, aux = engine
-    graph = None
-    with span("chunk.ship"):
-        if bounds is not None:
-            pp_np = _pad_chunk(pp_np, *bounds)
-        if mesh is not None:
-            shipped = step.ship(pp_np)
-        else:
-            if isinstance(step, KernelStep):
-                graph = step.graph(len(pp_np.m_chi_GeV), device, aux)
-            if graph is None:
-                shipped = ship_point_params(pp_np, device)
-            else:
-                _staging(graph.device).ship(pp_np, graph.device, into=graph.inputs)
-    with span("chunk.step"):
-        if mesh is not None:
-            return step.launch(shipped, aux)
-        if graph is not None:
-            return [fetch_rows(graph.run(aux), n_valid, device, graph)]
-        return [fetch_rows(step(shipped, aux), n_valid, device, shipped)]
+    with sanitize.opaque():
+        with span("chunk.ship"):
+            if bounds is not None:
+                pp_np = _pad_chunk(pp_np, *bounds)
+            shipped = step.ship(pp_np, aux)
+        with span("chunk.step"):
+            return step.launch(shipped, aux, n_valid)
 
 
 def wait_chunk(pending: list) -> None:
@@ -630,21 +651,31 @@ def sweep_step(pp_chunk: PointParams, static: StaticChoices, table, mesh=None,
     return type(local)(*gather_to_host(list(local)))
 
 
-def evaluate_chunk(engine, pp_np: PointParams, n_valid: int, device, mesh=None
+def evaluate_chunk(engine, pp_np: PointParams, n_valid: int, bounds=None, mesh=None
                    ) -> Dict[str, np.ndarray]:
-    """One engine evaluation of a padded host chunk: its first ``n_valid``
-    rows as host arrays.  ``engine`` is :func:`build_chunk_engine`'s;
-    with a ``mesh`` the rows are split over the members and gathered
-    across processes (a collective)."""
-    pending = dispatch_chunk(engine, pp_np, n_valid, device, mesh)
+    """One evaluation of a host chunk by ``engine``
+    (:func:`build_chunk_engine`'s): :func:`dispatch_chunk`,
+    :func:`wait_chunk`, then :func:`collect_chunk` in the span
+    ``chunk.finish``, giving its first ``n_valid`` rows as host arrays (on
+    a mesh, this process's rows of the padded chunk).  With a ``mesh`` the
+    rows are gathered across processes (a collective) and cut to
+    ``n_valid``."""
+    pending = dispatch_chunk(engine, pp_np, n_valid, bounds)
     wait_chunk(pending)
     with span("chunk.finish"):
-        local = collect_chunk(pending)
-        if mesh is None:
-            return local
-        from bdlz_tpu_torch.parallel.multihost import gather_to_host
+        return gather_chunk(collect_chunk(pending), n_valid, mesh)
 
-        return {f: v[:n_valid] for f, v in gather_to_host(local).items()}
+
+def gather_chunk(local: Dict[str, np.ndarray], n_valid: int, mesh=None
+                 ) -> Dict[str, np.ndarray]:
+    """Every process's rows of a collected chunk, tiled in process order
+    and cut to the first ``n_valid`` (a collective); ``local`` itself
+    without a mesh."""
+    if mesh is None:
+        return local
+    from bdlz_tpu_torch.parallel.multihost import gather_to_host
+
+    return {f: v[:n_valid] for f, v in gather_to_host(local).items()}
 
 
 def mesh_pad(n: int, mesh) -> int:
@@ -660,7 +691,7 @@ def _sweep_step_one_device(static, n_y, impl, fuse_exp, reduce, esdirk_knobs,
     if fuse_exp and impl != "kernel":
         raise ValueError("fuse_exp requires impl='kernel'")
     if impl == "kernel":
-        return KernelStep(static, n_y, fuse_exp, reduce)
+        return kjma_kernel.kernel_step(static, n_y, fuse_exp, reduce)
     if impl == "tabulated":
         from bdlz_tpu_torch.models.yields_pipeline import point_yields_fast
 
@@ -815,9 +846,12 @@ def build_chunk_engine(
     """``(step, aux)`` of one engine on ``device``: the F-table shipped
     once (``table_np`` reuses a host-built table) or the KJMA z-grid, and
     on the card the kernels' library built and loaded.  Every
-    identity-affecting knob must already be resolved.  With a ``mesh``,
-    ``aux`` is ``{device: aux}`` over this process's distinct members
-    and ``step`` is the mesh step of :func:`make_sweep_step`."""
+    identity-affecting knob must already be resolved.  ``step`` is the
+    engine's chunk step on ``device`` (the kernel engine's replays its
+    graph where it has one), which :func:`dispatch_chunk` ships and
+    launches.  With a ``mesh``, ``aux`` is ``{device: aux}`` over this
+    process's distinct members and ``step`` is the mesh step of
+    :func:`make_sweep_step`."""
     from bdlz_tpu_torch.ops.kjma_table import make_f_table, table_to_device
     from bdlz_tpu_torch.physics.percolation import make_kjma_grid
 
@@ -827,12 +861,15 @@ def build_chunk_engine(
     auxes = {dev: (table_to_device(table_np, dev) if impl in ("kernel", "tabulated")
                    else make_kjma_grid(dev)) for dev in devices}
     if impl == "kernel" and any(dev.type == "cuda" for dev in devices):
-        from bdlz_tpu_torch.ops.kjma_kernel import load_point_library
-
-        load_point_library()
+        kjma_kernel.load_point_library()
     step = make_sweep_step(static, n_y, impl, fuse_exp, reduce, esdirk_knobs=esdirk_knobs,
                            esdirk_stats_sink=esdirk_stats_sink, mesh=mesh)
-    return step, (auxes[devices[0]] if mesh is None else auxes)
+    if mesh is not None:
+        return step, auxes
+    dev = devices[0]
+    if impl == "kernel":
+        return _GraphedStep(step, dev, static, n_y, fuse_exp, reduce), auxes[dev]
+    return _EagerStep(step, dev), auxes[dev]
 
 
 def make_chunk_runner(
@@ -877,8 +914,7 @@ def make_chunk_runner(
                                     mesh=mesh)
 
     def run_chunk(lo: int, hi: int) -> np.ndarray:
-        padded = _pad_chunk(pp_all, lo, hi, chunk)
-        return evaluate_chunk(engine, padded, chunk, dev, mesh)["DM_over_B"]
+        return evaluate_chunk(engine, pp_all, chunk, (lo, hi, chunk), mesh)["DM_over_B"]
 
     return run_chunk, chunk
 
@@ -978,48 +1014,11 @@ class SweepPlan:
             table_nodes=self.table_nodes, esdirk_knobs=self.esdirk_knobs,
             esdirk_stats_sink=esdirk_stats_sink, mesh=self.mesh)
 
-    def dispatch_local(self, engine, lo: int, hi: int) -> list:
-        """Launch this process's share of one engine evaluation over
-        [lo, hi), padded to :attr:`pad_size`: the inputs shipped from
-        pinned staging, the step enqueued, and the results' copies back
-        started, one event per member (:func:`dispatch_chunk`).  The
-        chunk step is the JAX engine's jitted program: no sanitizer
-        checkpoint inside it."""
-        from bdlz_tpu_torch import sanitize
-
-        with sanitize.opaque():
-            return dispatch_chunk(engine, self.pp_all, hi - lo, self.device, self.mesh,
-                                  bounds=(lo, hi, self.pad_size))
-
-    def collect_local(self, pending: list) -> Dict[str, np.ndarray]:
-        """A dispatched chunk's rows as host arrays (:func:`collect_chunk`):
-        without a mesh the valid rows, with one the process's rows of the
-        padded chunk (:meth:`gather` brings the rest)."""
-        return collect_chunk(pending)
-
-    def compute_local(self, engine, lo: int, hi: int) -> Dict[str, np.ndarray]:
-        """:meth:`dispatch_local`, :func:`wait_chunk`, then
-        :meth:`collect_local` in the span ``chunk.finish``."""
-        pending = self.dispatch_local(engine, lo, hi)
-        wait_chunk(pending)
-        with span("chunk.finish"):
-            return self.collect_local(pending)
-
-    def gather(self, local: Dict[str, np.ndarray], lo: int, hi: int
-               ) -> Dict[str, np.ndarray]:
-        """Every process's rows of :meth:`compute_local`, tiled in process
-        order and cut to the valid [lo, hi) (a collective on a mesh)."""
-        if self.mesh is None:
-            return local
-        from bdlz_tpu_torch.parallel.multihost import gather_to_host
-
-        full = gather_to_host(local)
-        return {f: full[f][: hi - lo] for f in self.fields}
-
     def compute(self, engine, lo: int, hi: int) -> Dict[str, np.ndarray]:
-        """One engine evaluation over [lo, hi): the valid rows as host
-        arrays."""
-        return self.gather(self.compute_local(engine, lo, hi), lo, hi)
+        """One engine evaluation over [lo, hi), padded to :attr:`pad_size`:
+        the valid rows as host arrays (gathered across processes on a
+        mesh)."""
+        return evaluate_chunk(engine, self.pp_all, hi - lo, (lo, hi, self.pad_size), self.mesh)
 
     def apply_nan_faults(self, host: Dict[str, np.ndarray], lo: int, hi: int
                          ) -> Dict[str, np.ndarray]:
@@ -1133,7 +1132,6 @@ def agree_kernel_digest() -> None:
     ``[v, -v]`` gives ``[min, -max]``; min ≠ max raises on every process
     together, so a fleet with mixed builds never splices mixed-kernel
     chunks.  The identity in one process."""
-    from bdlz_tpu_torch.ops import kjma_kernel
     from bdlz_tpu_torch.parallel.multihost import allreduce_min
 
     local = int(kjma_kernel.kernel_digest()[:15], 16)
@@ -1417,14 +1415,15 @@ def _run_sweep(base, axes, static, *, chunk_size, n_y, out_dir, keep_outputs, ta
             if faults is not None:
                 faults.fire("step", ci)
                 faults.check_range("step", lo_r, hi_r)
-            local = plan.compute_local(engine, lo_r, hi_r)
+            local = evaluate_chunk(engine, plan.pp_all, hi_r - lo_r,
+                                   (lo_r, hi_r, plan.pad_size))
         except FloatingPointError:
             raise  # enable_nan_debugging aborts the sweep; never healed
         except Exception as exc:  # noqa: BLE001 — the healing path decides
             err = exc
         if not _agree_ok(err is None):
             return 0, None, err or RuntimeError("chunk dispatch failed on another process")
-        host = plan.gather(local, lo_r, hi_r)
+        host = gather_chunk(local, hi_r - lo_r, plan.mesh)
         return 1, plan.apply_nan_faults(host, lo_r, hi_r), None
 
     def _quarantine(ci, lo_r, hi_r, err):
@@ -1510,7 +1509,7 @@ def _run_sweep(base, axes, static, *, chunk_size, n_y, out_dir, keep_outputs, ta
         if faults is not None:
             faults.fire("step", ci)
             faults.check_range("step", lo, hi)
-        return plan.dispatch_local(engine, lo, hi)
+        return dispatch_chunk(engine, plan.pp_all, hi - lo, (lo, hi, plan.pad_size))
 
     def _finish(entry):
         """Wait for one dispatched chunk, collect it (healing a failure
@@ -1526,11 +1525,11 @@ def _run_sweep(base, axes, static, *, chunk_size, n_y, out_dir, keep_outputs, ta
             if host is None:
                 local = None
                 if err is None:
-                    local, err = _healable(plan.collect_local, pending)
+                    local, err = _healable(collect_chunk, pending)
                 if heal_on and multiproc and not _agree_ok(err is None) and err is None:
                     err = RuntimeError("chunk gather failed on another process")
                 if err is None:
-                    host = plan.gather(local, lo, hi)
+                    host = gather_chunk(local, hi - lo, plan.mesh)
                 else:
                     host, q = _heal(ci, lo, hi, err, paid)
             if q is None:

@@ -1,5 +1,5 @@
 """The kernel engine's chunk step as a CUDA graph (``ops/kjma_kernel``'s
-``graph_route``, ``graph_key``, ``KernelStep``), on the CPU: what decides
+``graph_route``, ``graph_key``, ``chunk_graph``), on the CPU: what decides
 the route and what keys the cache, without launching anything.
 
 * The route: eager on the CPU, under NaN debugging and for an empty
@@ -9,7 +9,7 @@ the route and what keys the cache, without launching anything.
   the tier, the ``StaticChoices`` fields the step reads, the table's
   scalars and length, the stream and the thread; the sweep hands the
   step a chunk's length only, never its values.
-* ``KernelStep.graph`` runs a key's first chunk eagerly and builds
+* ``chunk_graph`` runs a key's first chunk eagerly and builds
   nothing, then keeps one graph per key, the most recent
   ``GRAPH_CACHE_SIZE`` of them (the graph and the card stood in for).
 * A launch made while a graph captures is recorded by the capture, which
@@ -77,11 +77,11 @@ def test_the_graph_runs_on_one_card_for_a_non_empty_chunk(device, n_points, want
 
 def test_a_mesh_sweep_never_asks_for_a_graph(monkeypatch):
     """The mesh's members run the eager step on streams of their own:
-    ``dispatch_chunk``'s mesh branch never reaches ``KernelStep.graph``."""
+    the mesh step never reaches ``chunk_graph``."""
     def refuse(*args):
         raise AssertionError("a mesh member asked for a graph")
 
-    monkeypatch.setattr(kk.KernelStep, "graph", refuse)
+    monkeypatch.setattr(kk, "chunk_graph", refuse)
     kk.reset_graph_stats()
     res = ts.run_sweep(tc.config_from_dict(ARCHIVED), AXES, _static(), impl="kernel",
                        mesh=make_mesh((2, 1), devices=["cpu", "cpu"]), **KW)
@@ -132,28 +132,25 @@ def test_the_key_ignores_what_the_capture_does_not_read(table):
     assert _key(table._replace(values=table.values.copy())) == _key(table)
 
 
-class _RecordingStep(kk.KernelStep):
-    """The kernel step, recording what the sweep asks its graph for."""
-
-    def __init__(self, *args):
-        super().__init__(*args)
-        self.asked = []
-
-    def graph(self, n_points, device, table):
-        self.asked.append((n_points, str(device), table))
-        return super().graph(n_points, device, table)
-
-
-def test_the_sweep_asks_for_a_graph_by_the_chunk_s_length_only(table):
+def test_the_sweep_asks_for_a_graph_by_the_chunk_s_length_only(table, monkeypatch):
+    """The kernel engine's step asks the graph cache, recording here what
+    it asks for."""
     base = tc.config_from_dict(ARCHIVED)
     pp = ts.build_grid(base, AXES)
-    step = _RecordingStep(_static(), 400, False, True)
-    engine = (step, table._replace(values=torch.as_tensor(table.values)))
-    outs = [ts.evaluate_chunk(engine, ts._pad_chunk(pp, lo, lo + 16, 16), 16, "cpu")
+    asked, real = [], kk.chunk_graph
+
+    def recording(n_points, device, tab, *tier):
+        asked.append((n_points, str(device), tab))
+        return real(n_points, device, tab, *tier)
+
+    monkeypatch.setattr(kk, "chunk_graph", recording)
+    engine = ts.build_chunk_engine(None, _static(), n_y=400, impl="kernel", device="cpu",
+                                   table_np=table)
+    outs = [ts.evaluate_chunk(engine, ts._pad_chunk(pp, lo, lo + 16, 16), 16)
             for lo in (0, 16)]
     assert not np.array_equal(outs[0]["DM_over_B"], outs[1]["DM_over_B"])
-    assert [a[:2] for a in step.asked] == [(16, "cpu")] * 2
-    assert step.asked[0][2] is step.asked[1][2] is engine[1]
+    assert [a[:2] for a in asked] == [(16, "cpu")] * 2
+    assert asked[0][2] is asked[1][2] is engine[1]
 
 
 class _StandIn:
@@ -165,7 +162,7 @@ class _StandIn:
 
 @pytest.fixture
 def stand_in_card(monkeypatch):
-    """``KernelStep.graph`` on a stood-in card: ``_StandIn`` graphs, one
+    """``chunk_graph`` on a stood-in card: ``_StandIn`` graphs, one
     stream; a table said to be on cuda:0."""
     monkeypatch.setattr(kk, "ChunkGraph", _StandIn)
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -178,30 +175,37 @@ def stand_in_card(monkeypatch):
         kk.clear_graphs()
 
 
-def _seen(step, n_points, tab):
+def _graph_of(n_y=8000):
+    """The graph lookup of the kernel engine's P1 tier at ``n_y``."""
+    def graph(n_points, device, table):
+        return kk.chunk_graph(n_points, device, table, _static(), n_y, False, True)
+    return graph
+
+
+def _seen(graph, n_points, tab):
     """Ask for the graph of ``n_points`` twice: the first time builds
     nothing, the second captures."""
-    assert step.graph(n_points, CUDA0, tab) is None
-    return step.graph(n_points, CUDA0, tab)
+    assert graph(n_points, CUDA0, tab) is None
+    return graph(n_points, CUDA0, tab)
 
 
 def test_one_graph_per_key_and_the_most_recent_kept(stand_in_card, monkeypatch):
     monkeypatch.setattr(kk, "GRAPH_CACHE_SIZE", 3)
     tab = stand_in_card
-    step = kk.KernelStep(_static(), 8000, False, True)
-    first = _seen(step, 8192, tab)
+    graph = _graph_of()
+    first = _seen(graph, 8192, tab)
     assert first.made_for == (CUDA0, 8192)
-    assert step.graph(8192, "cuda:0", tab) is first
-    others = [_seen(step, n, tab) for n in (16, 32)]
+    assert graph(8192, "cuda:0", tab) is first
+    others = [_seen(graph, n, tab) for n in (16, 32)]
     assert len(kk._GRAPHS) == 3 and len({id(g) for g in others + [first]}) == 3
-    assert step.graph(8192, CUDA0, tab) is first      # now the most recent
-    _seen(step, 64, tab)                              # evicts the graph of 16
+    assert graph(8192, CUDA0, tab) is first      # now the most recent
+    _seen(graph, 64, tab)                        # evicts the graph of 16
     assert len(kk._GRAPHS) == 3
-    assert step.graph(32, CUDA0, tab) is others[1]
-    assert step.graph(16, CUDA0, tab) is None         # seen anew: eager once more
-    assert step.graph(16, CUDA0, tab) is not others[0]
+    assert graph(32, CUDA0, tab) is others[1]
+    assert graph(16, CUDA0, tab) is None         # seen anew: eager once more
+    assert graph(16, CUDA0, tab) is not others[0]
     # a table on another device stays on the eager step, which refuses it
-    assert step.graph(8192, CUDA0, tab._replace(values=torch.zeros(512))) is None
+    assert graph(8192, CUDA0, tab._replace(values=torch.zeros(512))) is None
 
 
 def test_a_key_seen_once_builds_nothing(stand_in_card, monkeypatch):
@@ -209,11 +213,11 @@ def test_a_key_seen_once_builds_nothing(stand_in_card, monkeypatch):
     run eagerly and never capture; the keys seen once are bounded."""
     monkeypatch.setattr(kk, "SEEN_KEYS", 4)
     tab = stand_in_card
-    step = kk.KernelStep(_static(), 8000, False, True)
-    assert [step.graph(n, CUDA0, tab) for n in range(1, 11)] == [None] * 10
+    graph = _graph_of()
+    assert [graph(n, CUDA0, tab) for n in range(1, 11)] == [None] * 10
     assert not kk._GRAPHS and len(kk._SEEN) == 4
-    assert step.graph(3, CUDA0, tab) is None          # forgotten: seen anew
-    assert step.graph(10, CUDA0, tab).made_for == (CUDA0, 10)
+    assert graph(3, CUDA0, tab) is None          # forgotten: seen anew
+    assert graph(10, CUDA0, tab).made_for == (CUDA0, 10)
     assert list(kk._GRAPHS) and 10 not in [k[2] for k in kk._SEEN]
 
 
@@ -314,7 +318,7 @@ def test_a_cpu_sweep_runs_its_chunks_eagerly(impl):
     assert res.chunks == 4 and res.n_failed == 0
     want = {"captures": 0, "replays": 0, "eager": 4 if impl == "kernel" else 0}
     assert kk.GRAPH_STATS == want
-    assert kk.KernelStep(_static(), 400, False, True).graph(16, "cpu", None) is None
+    assert _graph_of(400)(16, "cpu", None) is None
 
 
 def test_the_kernel_step_names_its_tier_s_kernel():

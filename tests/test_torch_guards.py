@@ -48,6 +48,37 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _imported_modules(path):
+    """Every module ``path`` imports from, with each name it takes from
+    one, relative imports resolved."""
+    package = list(path.relative_to(REPO).with_suffix("").parts[:-1])
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            yield from (f"{module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize(
+    "path", sorted(p for layer in ("ops", "lz", "models")
+                   for p in (REPO / "bdlz_tpu_torch" / layer).rglob("*.py")),
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_the_layers_below_the_sweep_import_nothing_of_it(path):
+    """Imports point one way: the kernels, the LZ layer and the models
+    never reach up into ``parallel/``."""
+    up = "bdlz_tpu_torch.parallel"
+    bad = sorted(m for m in _imported_modules(path) if m == up or m.startswith(up + "."))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_the_sweep_loop_names_no_engine_s_step_class():
+    """The chunk loop reaches every engine through the step interface
+    (``ship``/``launch``), never by telling one engine's class apart."""
+    assert "KernelStep" not in (REPO / "bdlz_tpu_torch" / "parallel" / "sweep.py").read_text()
+
+
 @pytest.mark.parametrize("name", EVIDENCE_TOOLS)
 def test_each_evidence_tool_without_a_card_exits_non_zero_naming_it(name):
     """Run as a user runs it, with no card visible and no ``--device cpu``."""

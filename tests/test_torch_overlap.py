@@ -219,21 +219,44 @@ def test_an_overlapped_directory_resumes_in_the_other_package(writer, tmp_path):
         np.testing.assert_array_equal(read.outputs[f], wrote.outputs[f])
 
 
+@pytest.mark.parametrize("kind", ["tabulated", "kernel", "mesh2x1"])
+def test_each_step_kind_dispatches_the_rows_of_its_step_called_directly(kind):
+    """``dispatch_chunk`` then ``collect_chunk`` through the one-device
+    eager step, the kernel engine's step (eager on the CPU) and the mesh
+    step: the rows of the engine's step called on the whole padded chunk,
+    bit for bit (10 valid points padded to 16)."""
+    from bdlz_tpu_torch.interop import point_params_from_numpy
+
+    base, static = tc.config_from_dict(ARCHIVED), _static()
+    impl = "tabulated" if kind == "mesh2x1" else kind
+    mesh = _mesh(MESHES.get(kind))
+    engine = ts.build_chunk_engine(base, static, n_y=400, impl=impl, device="cpu",
+                                   table_nodes=512, mesh=mesh)
+    aux = engine[1] if mesh is None else engine[1][torch.device("cpu")]
+    pp = ts.build_grid(base, AXES)
+    got = ts.collect_chunk(ts.dispatch_chunk(engine, pp, 10, (20, 30, 16)))
+    direct = ts.make_sweep_step(static, 400, impl)(
+        point_params_from_numpy(ts._pad_chunk(pp, 20, 30, 16), "cpu"), aux)
+    for f, want in zip(direct._fields, direct):
+        assert got[f].shape == ((10,) if mesh is None else (16,)), f
+        assert got[f][:10].tobytes() == want[:10].numpy().tobytes(), f
+
+
 def _call_order(monkeypatch):
     """Record the loop's dispatches ("D<lo>") and collections ("C")."""
     order = []
-    real_d, real_c = ts.SweepPlan.dispatch_local, ts.SweepPlan.collect_local
+    real_d, real_c = ts.dispatch_chunk, ts.collect_chunk
 
-    def dispatch(self, engine, lo, hi):
-        order.append(f"D{lo}")
-        return real_d(self, engine, lo, hi)
+    def dispatch(engine, pp_np, n_valid, bounds=None):
+        order.append(f"D{bounds[0]}")
+        return real_d(engine, pp_np, n_valid, bounds)
 
-    def collect(self, pending):
+    def collect(pending):
         order.append("C")
-        return real_c(self, pending)
+        return real_c(pending)
 
-    monkeypatch.setattr(ts.SweepPlan, "dispatch_local", dispatch)
-    monkeypatch.setattr(ts.SweepPlan, "collect_local", collect)
+    monkeypatch.setattr(ts, "dispatch_chunk", dispatch)
+    monkeypatch.setattr(ts, "collect_chunk", collect)
     return order
 
 
@@ -288,15 +311,15 @@ def test_a_failure_at_collection_is_healed_there_with_jax_s_events(monkeypatch):
     monkeypatch.setattr(jmh, "gather_to_host", real_gather)
 
     order = _call_order(monkeypatch)
-    real_c, seen = ts.SweepPlan.collect_local, [0]
+    real_c, seen = ts.collect_chunk, [0]
 
-    def collect_once_failing(self, pending):
+    def collect_once_failing(pending):
         seen[0] += 1
         if seen[0] == 1:
             raise err
-        return real_c(self, pending)
+        return real_c(pending)
 
-    monkeypatch.setattr(ts.SweepPlan, "collect_local", collect_once_failing)
+    monkeypatch.setattr(ts, "collect_chunk", collect_once_failing)
     tres, tev, tsl, _ = _port(True)
     retries = [e for e in tev if e["event"] == "chunk_retry"]
     assert retries == [{"event": "chunk_retry", "chunk": 0, "lo": 0, "hi": 16, "attempt": 1,
@@ -311,10 +334,10 @@ def test_a_failure_at_collection_is_healed_there_with_jax_s_events(monkeypatch):
 
 
 def test_a_floating_point_error_at_collection_aborts(monkeypatch):
-    def collect(self, pending):
+    def collect(pending):
         raise FloatingPointError("NaN produced by torch op 'mul'")
 
-    monkeypatch.setattr(ts.SweepPlan, "collect_local", collect)
+    monkeypatch.setattr(ts, "collect_chunk", collect)
     with pytest.raises(FloatingPointError, match="NaN produced"):
         _port(True)
 

@@ -1,18 +1,22 @@
 // Dephased Landau–Zener transport for NVIDIA Hopper (sm_90a): the final Bloch
-// vector of each speed through a sampled wall profile, in one kernel.
+// vector of each lane (a speed at a rate) through a sampled wall profile, in
+// one kernel.
 //
 // What it computes.  A χ/B two-level system crosses S segments; segment k
 // carries the midpoint Hamiltonian H_k = a_k σ_z + b_k σ_x and is crossed in
 // τ = dξ_k / v.  Its propagator exp(−i H_k τ) is the unit quaternion
 // (cos θ, (b/ω) sin θ, 0, (a/ω) sin θ), θ = ω τ, ω = sqrt(a² + b²), whose
 // SO(3) adjoint R_k rotates the Bloch vector; the coherences then decay,
-// D_k = diag(e^(−Γτ), e^(−Γτ), 1).  From r₀ = ẑ the kernel returns
-// r = D_S R_S ··· D_1 R_1 ẑ per speed, segment 1 first and each later
-// segment on the left: what lz/kernel.propagate_bloch_plain returns (its
-// plain version, a pairwise tree of 3×3 products).  A segment with
-// a = b = 0 is the identity rotation: a/ω and b/ω are stored as 0 there.
-// Speeds are clamped at 1e-12 (a NaN speed stays NaN), as the plain
-// version's torch.clamp_min does; the wrapper clamps Γ < 0 to 0.
+// D_k = diag(e^(−Γτ), e^(−Γτ), 1).  A lane is one speed v at its own
+// rate Γ (the thermal scenario's lanes are the distinct (Γ_φ, v_w) pairs
+// of a sweep; a caller with one rate gives it to every lane).  From
+// r₀ = ẑ the kernel returns r = D_S R_S ··· D_1 R_1 ẑ per lane, segment 1
+// first and each later segment on the left: what
+// lz/kernel.propagate_bloch_plain returns (its plain version, a pairwise
+// tree of 3×3 products).  A segment with a = b = 0 is the identity
+// rotation: a/ω and b/ω are stored as 0 there.  Speeds are clamped at
+// 1e-12 (a NaN speed stays NaN), as the plain version's torch.clamp_min
+// does; the wrapper clamps Γ < 0 to 0.
 //
 // Which TPU program it replaces: none.  bdlz_tpu/lz/kernel.py:192
 // (propagate_bloch) is plain XLA with the same pairwise tree, no
@@ -23,30 +27,35 @@
 //
 // Bound on this card: f64 operations.  The benchmark's frozen count
 // (benchmark/harness/dephase_work.py) is 79 f64 instructions a
-// lane-segment (lane = one speed at one rate): 1/v and Γ/v hoisted per
-// speed, ω dξ, a/ω, b/ω hoisted per segment, each rotation applied to the
-// vector.  A pass of the benchmark's cell is 1024 speeds × 800 segments:
-// 819,200 lane-segments, 64.7 M instructions, 3.8 µs at the H100's
-// 17e12 f64 instructions a second; its bytes (the segments once, each
-// speed's v and r) are ~31 KB.
+// lane-segment: 1/v and Γ/v hoisted per lane, ω dξ, a/ω, b/ω hoisted per
+// segment, each rotation applied to the vector.  A sweep of the
+// benchmark's cell is one pass of 128 rates × 1024 speeds = 131,072 lanes
+// × 800 segments: 104.9 M lane-segments, 8.28 G instructions, 0.487 ms at
+// the H100's 17e12 f64 instructions a second; its bytes (the segments
+// once, each lane's v, Γ and r) are ~5 MB.
 //
-// Design.  1024 speeds, one thread each, would fill 32 warps of the 132
+// Design.  1024 lanes, one thread each, would fill 32 warps of the 132
 // SMs and wait on one chain of 800 dependent segments each.  So each
-// speed's segments are cut into kSlices = 64 contiguous slices, one
-// thread per slice (kWarpsPerSpeed = 2 warps a speed): a thread composes
+// lane's segments are cut into kSlices = 64 contiguous slices, one
+// thread per slice (kWarpsPerSpeed = 2 warps a lane): a thread composes
 // its slice's maps into one 3×3 map in registers (27 FMA a segment
 // besides the rotation, more than the count's 11 for a vector, but
 // 64-fold parallel), the slices' maps are combined in order, later
 // slices on the left, by __shfl_down_sync over log₂32 levels inside a
-// warp and through shared memory across the two warps, and the speed's
-// first thread applies the result to its vector.  kSpeedsPerBlock speeds
+// warp and through shared memory across the two warps, and the lane's
+// first thread applies the result to its vector.  kSpeedsPerBlock lanes
 // share a block, which stages the hoisted per-segment values (ω dξ, a/ω,
 // b/ω, dξ) in shared memory once for all of them, kTile segments at a
 // time: a profile of any length is walked tile by tile, the vector
-// carried across tiles.  At 1024 speeds that is 128 blocks of 512
+// carried across tiles.  At 1024 lanes that is 128 blocks of 512
 // threads, one block and 16 warps on each SM, 12–13 segments a thread:
-// 11.3 µs a pass on an H100 (PERF.md §6), where one warp a speed (8
-// warps an SM, 25 segments a thread) took 12.9 µs.
+// 11.3 µs a launch on an H100, where one warp a lane (8 warps an SM, 25
+// segments a thread) took 12.9 µs.  The thermal scenario's 131,072 lanes
+// in one launch are 16,384 blocks, two resident on each SM (PERF.md §6).
+// The slices depend on the segment count alone and a lane reads only its
+// own v and Γ, so a lane's r is the same bits whatever other lanes share
+// its launch: one launch over many rates gives what one launch per rate
+// gives.
 //
 // Numbers.  The kernel composes in another order than the tree and
 // evaluates θ as (ω dξ)(1/v) where the tree forms ω (dξ / v), so the two
@@ -80,7 +89,8 @@ __device__ __forceinline__ void mul3(const double* A, const double* B, double* C
 __global__ void __launch_bounds__(kThreads)
 bloch_transport_kernel(const double* __restrict__ a, const double* __restrict__ b,
                        const double* __restrict__ dxi, const double* __restrict__ v,
-                       int n_seg, int n_speeds, double gamma, double* __restrict__ r_out) {
+                       const double* __restrict__ gamma, int n_seg, int n_speeds,
+                       double* __restrict__ r_out) {
   __shared__ double s_phase[kTile];  // ω dξ
   __shared__ double s_z[kTile];      // a / ω (0 where ω = 0)
   __shared__ double s_x[kTile];      // b / ω (0 where ω = 0)
@@ -92,14 +102,14 @@ bloch_transport_kernel(const double* __restrict__ a, const double* __restrict__ 
   const int local = warp / kWarpsPerSpeed;  // this speed's index in the block
   const int part = warp % kWarpsPerSpeed;   // the speed's first (0) or second warp
   const int slice = part * kWarp + lane;
-  const int speed = blockIdx.x * kSpeedsPerBlock + local;
+  const int speed = blockIdx.x * kSpeedsPerBlock + local;  // the lane
   const bool live = speed < n_speeds;  // the same for a whole warp
 
   double inv_v = 0.0, rate = 0.0;
   if (live) {
     const double vs = v[speed];
     inv_v = 1.0 / (vs < 1e-12 ? 1e-12 : vs);
-    rate = gamma * inv_v;
+    rate = gamma[speed] * inv_v;
   }
   double r0 = 0.0, r1 = 0.0, r2 = 1.0;  // the speed's first thread: r, from ẑ
 
@@ -179,14 +189,14 @@ bloch_transport_kernel(const double* __restrict__ a, const double* __restrict__ 
 extern "C" {
 
 // Launches on `stream`, does not synchronise, and returns the launch's
-// cudaError_t (0 = launched).  a, b, dxi: (n_seg,) f64; v: (n_speeds,) f64;
-// r: (n_speeds, 3) f64; gamma >= 0.
+// cudaError_t (0 = launched).  a, b, dxi: (n_seg,) f64; v, gamma:
+// (n_lanes,) f64, gamma >= 0; r: (n_lanes, 3) f64.
 int bloch_transport(const double* a, const double* b, const double* dxi, const double* v,
-                    int n_seg, int n_speeds, double gamma, double* r, void* stream) {
-  if (n_speeds <= 0) return 0;
-  const int blocks = (n_speeds + kSpeedsPerBlock - 1) / kSpeedsPerBlock;
+                    int n_seg, int n_lanes, const double* gamma, double* r, void* stream) {
+  if (n_lanes <= 0) return 0;
+  const int blocks = (n_lanes + kSpeedsPerBlock - 1) / kSpeedsPerBlock;
   bloch_transport_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, dxi, v, n_seg, n_speeds, gamma, r);
+      a, b, dxi, v, gamma, n_seg, n_lanes, r);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -160,22 +160,28 @@ def _quat_to_rotations(q):
 def propagate_bloch(a, b, dxi, v, gamma_phi):
     """Dephased transport: the final Bloch vector from r₀ = ẑ per speed,
     (B,) → (B, 3).  Each segment applies its SU(2) propagator's SO(3)
-    rotation, then the coherence decay diag(e^(−Γτ), e^(−Γτ), 1).
-    P_{χ→B} = (1 − r_z)/2.  On CUDA tensors one hand kernel
+    rotation, then the coherence decay diag(e^(−Γτ), e^(−Γτ), 1), at one
+    rate ``gamma_phi`` for every speed (a float) or at a rate per speed (a
+    (B,) tensor).  P_{χ→B} = (1 − r_z)/2.  On CUDA tensors one hand kernel
     (``ops/bloch_kernel``); on CPU tensors :func:`propagate_bloch_plain`."""
     from bdlz_tpu_torch.ops.bloch_kernel import bloch_transport
 
-    return bloch_transport(a, b, dxi, v, gamma_phi)
+    rates = gamma_phi if torch.is_tensor(gamma_phi) else torch.full_like(v, gamma_phi)
+    return bloch_transport(a, b, dxi, v, rates)
 
 
 def propagate_bloch_plain(a, b, dxi, v, gamma_phi):
     """:func:`propagate_bloch`'s plain version: the segments' 3×3 maps
-    staged as (B, 2^k, 3, 3) leaves and composed by the pairwise tree."""
+    staged as (B, 2^k, 3, 3) leaves and composed by the pairwise tree,
+    each speed's coherences decaying at its own rate ``gamma_phi`` (B,)."""
+    if gamma_phi.shape != v.shape:
+        raise ValueError("propagate_bloch_plain: gamma_phi must hold one rate per speed, "
+                         f"got {tuple(gamma_phi.shape)} for {tuple(v.shape)} speeds")
     tau = _traversal_times(dxi, v)
     Rs = _quat_to_rotations(_su2_quaternions(a, b, tau))
     # Γ < 0 is rejected at every host boundary; the clamp only keeps a
     # negative rate from growing coherences
-    decay = torch.exp(-max(float(gamma_phi), 0.0) * tau)
+    decay = torch.exp(-torch.clamp_min(gamma_phi, 0.0)[:, None] * tau)
     scale = torch.stack([decay, decay, torch.ones_like(decay)], dim=-1)
     Ms = Rs * scale[..., None]
     M_total = _ordered_tree_product(Ms, torch.matmul, np.eye(3))
@@ -203,7 +209,8 @@ def validate_gamma_phi(gamma_phi: float, method: str) -> None:
 def make_P_of_speed(method: str, a, b, dxi, gamma_phi):
     """``P_of_speed(v)``, (B,) → (B,), for the propagating estimators: the
     single home of P = q_x² + q_y² (coherent) and P = (1 − r_z)/2
-    (dephased)."""
+    (dephased), the latter at ``gamma_phi``, one rate or a rate per speed
+    (:func:`propagate_bloch`)."""
     if method == "dephased":
         def P_of_speed(speed):
             r = propagate_bloch(a, b, dxi, speed, gamma_phi)
@@ -243,21 +250,24 @@ def staged_bytes_per_speed(method: str, n_seg: int, device) -> int:
 
 
 def over_speed_chunks(fn, speeds: torch.Tensor, per_speed_bytes: int,
-                      budget: "int | None" = None) -> torch.Tensor:
+                      budget: "int | None" = None, lanes: tuple = ()) -> torch.Tensor:
     """``fn`` over ``speeds`` (B,) in chunks whose staged bytes fit the
-    budget.  A short last chunk is padded with the last speed, so every
-    call has one shape (the JAX package's one-compile rule, kept so that
-    a row's bits never depend on where the chunks fall)."""
+    budget; each (B,) tensor of ``lanes`` (a rate per speed) is cut with
+    the speeds and passed after them.  A short last chunk is padded with
+    the last lane, so every call has one shape (the JAX package's
+    one-compile rule, kept so that a row's bits never depend on where the
+    chunks fall)."""
     n = speeds.shape[0]
     budget = speed_chunk_budget() if budget is None else int(budget)
     chunk = max(1, min(n, budget // max(per_speed_bytes, 1)))
     parts = []
     for lo in range(0, n, chunk):
         hi = min(lo + chunk, n)
-        sp = speeds[lo:hi]
+        args = [t[lo:hi] for t in (speeds,) + lanes]
         if hi - lo < chunk:
-            sp = torch.cat([sp, speeds[-1:].expand(chunk - (hi - lo))])
-        parts.append(fn(sp)[: hi - lo])
+            args = [torch.cat([x, t[-1:].expand(chunk - (hi - lo))])
+                    for x, t in zip(args, (speeds,) + lanes)]
+        parts.append(fn(*args)[: hi - lo])
     return torch.cat(parts) if parts else speeds.new_zeros((0,))
 
 

@@ -18,9 +18,9 @@ The propagating methods run on ``device`` over unique speeds, in chunks
 whose staged bytes fit ``BDLZ_LZ_SPEED_CHUNK_BYTES`` (default 1 GiB; the
 tree's leaves, or on the card the dephased kernel's output alone); the
 last chunk is padded with the last speed, as in the JAX package.  A
-sweep's dephased pass (one rate's speeds to host P) is the span
-``lz.dephase``.  The JAX package's ``TRACE_COUNTS`` pins its one-compile
-contract; eager PyTorch compiles nothing, so it has no counterpart.
+sweep's dephased pass (its lanes, each a speed at its rate, to host P)
+is the span ``lz.dephase``.  The JAX package's ``TRACE_COUNTS`` pins its
+one-compile contract; eager PyTorch compiles nothing, so it has no counterpart.
 """
 from __future__ import annotations
 
@@ -52,11 +52,13 @@ def profile_fingerprint(profile: Union[str, BounceProfile]) -> str:
 
 
 def _propagated(profile: BounceProfile, speeds_np: np.ndarray, method: str,
-                gamma_phi: float, dev) -> np.ndarray:
-    """P at each of ``speeds_np`` (already unique and clipped) through the
-    coherent or dephased kernel on ``dev``, chunked; host (n,) array.  A
-    dephased call is one pass, the span ``lz.dephase``: it ends with the
-    host copy, so the pass's device work lies inside it."""
+                gamma_phi, dev) -> np.ndarray:
+    """P ∈ [0, 1] at each of ``speeds_np`` (already clipped) through the
+    coherent or dephased kernel on ``dev``, chunked; host (n,) array.
+    ``gamma_phi`` is one rate for every speed, or a host (n,) array of
+    rates, a lane's own.  A dephased call is one pass, the span
+    ``lz.dephase``: it ends with the host copy, so the pass's device work
+    lies inside it."""
     from bdlz_tpu_torch.lz.kernel import (
         _segment_hamiltonians,
         make_P_of_speed,
@@ -66,11 +68,13 @@ def _propagated(profile: BounceProfile, speeds_np: np.ndarray, method: str,
 
     with span("lz.dephase") if method == "dephased" else contextlib.nullcontext():
         a, b, dxi = _segment_hamiltonians(profile, dev)
-        P_of_speed = make_P_of_speed(method, a, b, dxi, gamma_phi)
         per_speed = staged_bytes_per_speed(method, a.shape[0], dev)
         speeds = torch.as_tensor(speeds_np, dtype=F64, device=dev)
+        rates = torch.as_tensor(gamma_phi, dtype=F64, device=dev).expand(speeds.shape)
+        P = over_speed_chunks(lambda sp, g: make_P_of_speed(method, a, b, dxi, g)(sp),
+                              speeds, per_speed, lanes=(rates,))
         # layer boundary: the P table goes to the sweep's host grid
-        return over_speed_chunks(P_of_speed, speeds, per_speed).cpu().numpy()  # bdlz-lint: disable=R3
+        return torch.clamp(P, 0.0, 1.0).cpu().numpy()  # bdlz-lint: disable=R3
 
 
 def probabilities_for_points(
@@ -110,7 +114,7 @@ def probabilities_for_points(
         uniq, inverse = np.unique(v_w, return_inverse=True)
         P_uniq = _propagated(profile, np.clip(uniq, 1e-6, 1.0 - 1e-12), method,
                              gamma_phi, dev)
-        return np.clip(P_uniq, 0.0, 1.0)[inverse]
+        return P_uniq[inverse]
 
     if T_p_GeV is None or m_chi_GeV is None:
         raise ValueError("method='local-momentum' needs per-point T_p_GeV and m_chi_GeV")

@@ -16,7 +16,9 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import numpy as np
+import torch
 
+from bdlz_tpu_torch.backend import F64, resolve_device
 from bdlz_tpu_torch.lz.profile import BounceProfile, load_profile_csv
 
 
@@ -90,25 +92,43 @@ def thermal_probabilities_for_points(
     device=None,
 ) -> np.ndarray:
     """P per sweep point with Γ_φ derived from each point's own T_p.
-    Points are grouped by their rate, and each group's speeds go through
-    the two-channel batch path (the Γ = 0 group through the coherent
-    kernel); non-finite (T, v) rows stay NaN."""
-    from bdlz_tpu_torch.lz.sweep_bridge import probabilities_for_points
 
+    The points go to ``device`` once and are grouped there: the distinct
+    (T_p, v_w) pairs are the lanes, with an inverse index from the points
+    to them, and both come back to the host once.  The rates are NumPy's
+    :func:`thermal_gamma_phi` on the distinct temperatures.  The Γ = 0
+    lanes go through one coherent pass, every lane with Γ_φ > 0 through
+    one dephased pass at its own rate; the lanes' P is scattered to the
+    points by the inverse, and rows whose rate or speed is not finite
+    stay NaN.  A lane's P is the bits of one pass per rate, as the kernel
+    and the plain tree compute each lane alone."""
+    from bdlz_tpu_torch.lz.sweep_bridge import _propagated
+
+    eta, omega_c = validate_bath(eta, omega_c_GeV)
     if isinstance(profile, str):
         profile = load_profile_csv(profile)
     v_w = np.asarray(v_w, dtype=np.float64)
     if v_w.size == 0:
-        validate_bath(eta, omega_c_GeV)
         return np.zeros(0)
-    T = np.broadcast_to(np.asarray(T_p_GeV, dtype=np.float64), v_w.shape)
-    gam = np.atleast_1d(np.asarray(thermal_gamma_phi(T, eta, omega_c_GeV)))
-    out = np.full(v_w.shape, np.nan)
-    finite = np.isfinite(gam) & np.isfinite(v_w)
-    for g in np.unique(gam[finite]):
-        sel = finite & (gam == g)
-        method, g_used = thermal_method_for(float(g))
-        out[sel] = probabilities_for_points(
-            profile, v_w[sel], method=method, gamma_phi=g_used, device=device
-        )
-    return out
+    dev = resolve_device(device)
+    v = torch.as_tensor(v_w.reshape(-1), dtype=F64, device=dev)
+    T = torch.as_tensor(np.asarray(T_p_GeV, dtype=np.float64), dtype=F64, device=dev)
+    T = torch.broadcast_to(T, v_w.shape).reshape(-1)
+    inf = torch.tensor(np.inf, dtype=F64, device=dev)
+    # one key for every NaN T (its rate, as +inf's, is NaN) and for every
+    # non-finite speed (the point is NaN whatever its rate)
+    T_u, T_of = torch.unique(torch.where(torch.isnan(T), inf, T), return_inverse=True)
+    v_u, v_of = torch.unique(torch.where(torch.isfinite(v), v, inf), return_inverse=True)
+    n_v = v_u.numel()
+    keys, lane_of = torch.unique(T_of * n_v + v_of, return_inverse=True)
+    # layer boundary: the lanes and the points' lane index go to the host once
+    T_u, v_u, keys, lane_of = (t.cpu().numpy() for t in (T_u, v_u, keys, lane_of))  # bdlz-lint: disable=R3
+    rate = thermal_gamma_phi(T_u, eta, omega_c)[keys // n_v]
+    lane_v = v_u[keys % n_v]
+    speed = np.clip(lane_v, 1e-6, 1.0 - 1e-12)
+    ok = np.isfinite(rate) & np.isfinite(lane_v)
+    P = np.full(keys.shape, np.nan)
+    for method, sel in (("coherent", ok & (rate == 0.0)), ("dephased", ok & (rate > 0.0))):
+        if np.any(sel):
+            P[sel] = _propagated(profile, speed[sel], method, rate[sel], dev)
+    return P[lane_of].reshape(v_w.shape)

@@ -1091,9 +1091,11 @@ LZ_METHODS = {  # sweep estimators and scenarios of the lz_path sweeps
 
 def _dephased_passes(name: str, axes: dict) -> int:
     """The dephased transport passes an lz_path sweep makes, each one
-    launch of the kernel: one for the dephased estimator, one per
-    distinct Γ_φ > 0 of the grid's T_p for the thermal scenario, none for
-    the others."""
+    launch of the kernel: one for the dephased estimator; for the thermal
+    scenario one for every lane with Γ_φ > 0 of the grid's T_p together,
+    whatever its rates (its Γ_φ = 0 lanes, if any, make one coherent pass
+    of their own, which launches no transport kernel); none for the
+    others."""
     if name == "dephased":
         return 1
     if name != "thermal":
@@ -1101,7 +1103,7 @@ def _dephased_passes(name: str, axes: dict) -> int:
     from bdlz_tpu_torch.lz.thermal import thermal_gamma_phi
 
     gam = np.asarray(thermal_gamma_phi(axes["T_p_GeV"], *LZ_BATH))
-    return int(np.count_nonzero(np.unique(gam) > 0.0))
+    return int(bool(np.any(gam > 0.0)))
 
 
 def phase_lz_path(dev, sol, kernel_pps: float) -> int:
@@ -1206,8 +1208,10 @@ def phase_lz_path(dev, sol, kernel_pps: float) -> int:
 # The dephased transport's least work (benchmark/harness/dephase_work.py,
 # frozen there): f64 instructions per lane-segment.
 BLOCH_F64_INSTR_PER_LANE_SEGMENT = 79
-# The cell bounce_lz_dephased.scan's pass: 1024 speeds at one bath rate.
-BLOCH_SPEEDS, BLOCH_RATE = 1024, 0.07
+# The cell bounce_lz_dephased.scan's pass: its 128 bath rates (T_p
+# geom(30, 300, 128)) × 1024 speeds in one launch, and a scalar-rate
+# launch of its 1024 speeds at one rate.
+BLOCH_RATES, BLOCH_SPEEDS, BLOCH_RATE = 128, 1024, 0.07
 
 
 def _kernel_device_ms(fn, name: str, reps: int = 20, repeats: int = 5) -> list:
@@ -1237,47 +1241,84 @@ def _kernel_device_ms(fn, name: str, reps: int = 20, repeats: int = 5) -> list:
     return out
 
 
+def _bloch_bound_ms(lanes: int, n_seg: int) -> float:
+    """The transport's least ms for ``lanes`` lanes over ``n_seg``
+    segments: the frozen count's operations, or the segments read once
+    and each lane's v, Γ and r (4 f64) moved once."""
+    ops = lanes * n_seg * BLOCH_F64_INSTR_PER_LANE_SEGMENT
+    return 1e3 * max(ops / FP64_INSTR_PER_S, (n_seg * 3 + lanes * 4) * 8 / HBM_BYTES_PER_S)
+
+
 def phase_bloch_path(dev, main_launches=None) -> dict:
     """The dephased transport's kernel at the benchmark cell's shape (the
-    shot reference profile's 800 segments, 1024 speeds, one bath rate):
-    its device time (median of 5×20 launches, the profiler's device
-    events), its bound from the frozen count, the plain tree's time at
-    the same shape (not a yardstick of speed) and the largest |Δr|
-    against the tree.  The row's ``launches`` are ``main_launches``, the
-    main path's (the timed launches are the phase's own)."""
+    shot reference profile's 800 segments): the cell's one pass a sweep,
+    its 128 bath rates × 1024 speeds = 131,072 lanes in one launch at a
+    rate per lane, checked against the plain tree on the card at the same
+    lanes (chunked as a pass chunks it) and bit for bit against one launch
+    per rate; and one rate's 1024 speeds against the tree.  Each shape's
+    device time (median of 5×20 launches, the profiler's device events)
+    and bound from the frozen count; the plain tree's time at each shape
+    (not a yardstick of speed).  The row is the cell's pass; its
+    ``launches`` are ``main_launches``, the main path's (the timed
+    launches are the phase's own)."""
     from bdlz_tpu_torch.bounce import bounce_profile, reference_potential
     from bdlz_tpu_torch.lz import kernel as lk
+    from bdlz_tpu_torch.lz.thermal import thermal_gamma_phi
     from bdlz_tpu_torch.ops import bloch_kernel as bk
 
     t0 = time.perf_counter()
     prof = bounce_profile(reference_potential(), device=dev)
     a, b, dxi = lk._segment_hamiltonians(prof, dev)
-    v = torch.linspace(0.05, 0.95, BLOCH_SPEEDS, dtype=torch.float64, device=dev)
-    plain = lk.propagate_bloch_plain(a, b, dxi, v, BLOCH_RATE)
-    bk.reset_launches()
-    err = float((bk.bloch_transport(a, b, dxi, v, BLOCH_RATE) - plain).abs().max())
-    check(err <= 1e-12, f"bloch kernel vs the tree: {err:.3e}")
-
-    samples = _kernel_device_ms(lambda: bk.bloch_transport(a, b, dxi, v, BLOCH_RATE),
-                                "bloch_transport_kernel")
-    check(bool(samples), "the profiler recorded the transport kernel")
-    timed_launches = bk.LAUNCHES["bloch"]
-    check(timed_launches == 1 + 1 + 5 * 20, f"bloch launches counted, got {timed_launches}")
-    plain_samples = _cuda_ms(lambda: lk.propagate_bloch_plain(a, b, dxi, v, BLOCH_RATE), 20)
     n_seg = int(a.shape[0])
-    ops = BLOCH_SPEEDS * n_seg * BLOCH_F64_INSTR_PER_LANE_SEGMENT
-    bound_ms = 1e3 * max(ops / FP64_INSTR_PER_S,
-                         (n_seg * 3 + BLOCH_SPEEDS * 4) * 8 / HBM_BYTES_PER_S)
-    ms = float(np.median(samples))
+    v = torch.linspace(0.05, 0.95, BLOCH_SPEEDS, dtype=torch.float64, device=dev)
+    v_g = torch.full_like(v, BLOCH_RATE)
+    bk.reset_launches()
+    err_1024 = float((bk.bloch_transport(a, b, dxi, v, v_g)
+                      - lk.propagate_bloch_plain(a, b, dxi, v, v_g)).abs().max())
+    check(err_1024 <= 1e-12, f"bloch kernel vs the tree at one rate: {err_1024:.3e}")
+    rates = thermal_gamma_phi(np.geomspace(30.0, 300.0, BLOCH_RATES), *LZ_BATH)
+    lane_v = v.repeat(BLOCH_RATES)
+    lane_g = torch.as_tensor(np.repeat(rates, BLOCH_SPEEDS), dtype=torch.float64, device=dev)
+    per_speed = lk.staged_bytes_per_speed("dephased", n_seg, "cpu")  # the tree's leaves
+
+    def plain_pass():  # (lanes, 3): the chunks' rows in order
+        return lk.over_speed_chunks(lambda sp, g: lk.propagate_bloch_plain(a, b, dxi, sp, g),
+                                    lane_v, per_speed, lanes=(lane_g,))
+
+    one = bk.bloch_transport(a, b, dxi, lane_v, lane_g)
+    err = float((one - plain_pass()).abs().max())
+    check(err <= 1e-12, f"bloch kernel vs the tree at the cell's lanes: {err:.3e}")
+    per_rate = torch.cat([lk.propagate_bloch(a, b, dxi, v, float(g)) for g in rates])
+    check(torch.equal(one, per_rate), "one launch at a rate per lane is the per-rate launches")
+
+    samples = _kernel_device_ms(lambda: bk.bloch_transport(a, b, dxi, lane_v, lane_g),
+                                "bloch_transport_kernel")
+    samples_1024 = _kernel_device_ms(lambda: bk.bloch_transport(a, b, dxi, v, v_g),
+                                     "bloch_transport_kernel")
+    check(bool(samples) and bool(samples_1024), "the profiler recorded the transport kernel")
+    timed_launches = bk.LAUNCHES["bloch"]
+    check(timed_launches == 1 + 1 + BLOCH_RATES + 2 * (1 + 5 * 20),
+          f"bloch launches counted, got {timed_launches}")
+    plain_samples = _cuda_ms(plain_pass, 1, repeats=3)
+    plain_1024 = _cuda_ms(lambda: lk.propagate_bloch_plain(a, b, dxi, v, v_g), 20)
+    lanes = BLOCH_RATES * BLOCH_SPEEDS
+    bound_ms, bound_1024 = _bloch_bound_ms(lanes, n_seg), _bloch_bound_ms(BLOCH_SPEEDS, n_seg)
+    ms, ms_1024 = float(np.median(samples)), float(np.median(samples_1024))
     row = {"name": bk.KERNELS["bloch"][0], "route": "cuda",
            "source": "bdlz_tpu_torch/csrc/" + bk.SOURCE, "replaces": bk.KERNELS["bloch"][1],
            "launches": main_launches, "max_abs_err": err, "ms": ms,
            "plain_ms": float(np.median(plain_samples)), "bound_ms": bound_ms,
            "bound_by": "operations", "library_ms": None}
     emit({"phase": "bloch_path", "seconds": time.perf_counter() - t0,
-          "speeds": BLOCH_SPEEDS, "segments": n_seg, "gamma_phi": BLOCH_RATE,
-          "timed_launches": timed_launches, "ms_samples": samples, "plain_ms_samples": plain_samples,
-          "f64_instructions": ops, "bound_share": bound_ms / ms, "kernel": row})
+          "lanes": lanes, "rates": BLOCH_RATES, "speeds": BLOCH_SPEEDS, "segments": n_seg,
+          "timed_launches": timed_launches, "ms_samples": samples,
+          "plain_ms_samples": plain_samples,
+          "f64_instructions": lanes * n_seg * BLOCH_F64_INSTR_PER_LANE_SEGMENT,
+          "bound_share": bound_ms / ms,
+          "one_rate": {"gamma_phi": BLOCH_RATE, "max_abs_err": err_1024,
+                       "ms_samples": samples_1024, "bound_ms": bound_1024,
+                       "bound_share": bound_1024 / ms_1024, "plain_ms_samples": plain_1024},
+          "kernel": row})
     return row
 
 

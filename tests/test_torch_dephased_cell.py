@@ -10,8 +10,11 @@ counters that the ``bounce_lz_dephased.scan`` cell reads.
   segment after the other; they differ by rounding, <= 1e-12 relative.
 * A thermal ``run_sweep`` on the kernel engine against the reference's
   yields fed the reference's P.
-* The span ``lz.dephase`` once per dephased pass (one per distinct rate
-  under the thermal bath, none on the coherent path), inside
+* The thermal scenario's one pass (every distinct (T_p, v_w) pair a lane
+  at its own rate) against the route of one pass per distinct rate,
+  reproduced here: the same bits, NaN rows included.
+* The span ``lz.dephase`` once per dephased pass (one under the thermal
+  bath whatever its rates, none on the coherent path), inside
   ``lz.points``.
 """
 import dataclasses
@@ -24,7 +27,11 @@ from torch.profiler import ProfilerActivity, profile
 from bdlz_tpu_torch import config as tc
 from bdlz_tpu_torch.lz.profile import BounceProfile
 from bdlz_tpu_torch.lz.sweep_bridge import probabilities_for_points
-from bdlz_tpu_torch.lz.thermal import thermal_gamma_phi, thermal_probabilities_for_points
+from bdlz_tpu_torch.lz.thermal import (
+    thermal_gamma_phi,
+    thermal_method_for,
+    thermal_probabilities_for_points,
+)
 from bdlz_tpu_torch.parallel import sweep as ts
 from benchmark.reference import bloch
 from benchmark.reference import yields as ry
@@ -122,7 +129,7 @@ def test_each_dephased_pass_is_one_span(path):
     if path == "thermal":
         _, spans = _lz_spans(lambda: thermal_probabilities_for_points(prof, v, T, 0.001, 50.0,
                                                                       device="cpu"))
-        passes = 5
+        passes = 1
     else:
         gamma = 0.05 if path == "dephased" else 0.0
         _, spans = _lz_spans(lambda: probabilities_for_points(prof, v, method=path,
@@ -142,5 +149,84 @@ def test_the_dephased_passes_lie_inside_the_points_span():
     assert res.n_failed == 0
     (points,) = [s for s in spans if s[0] == "lz.points"]
     dephase = [s for s in spans if s[0] == "lz.dephase"]
-    assert len(dephase) == 3
+    assert len(dephase) == 1
     assert all(points[1] <= s[1] and s[2] <= points[2] for s in dephase)
+
+
+def _per_rate_route(prof, v, T, eta, omega_c):
+    """The thermal scenario as one pass per distinct rate: each rate's
+    points masked out of all of them, their speeds through
+    ``probabilities_for_points`` (the Gamma = 0 group through the coherent
+    kernel), the result scattered back; non-finite rows NaN."""
+    v = np.asarray(v, dtype=np.float64)
+    gam = np.atleast_1d(thermal_gamma_phi(np.broadcast_to(T, v.shape), eta, omega_c))
+    out = np.full(v.shape, np.nan)
+    finite = np.isfinite(gam) & np.isfinite(v)
+    for g in np.unique(gam[finite]):
+        sel = finite & (gam == g)
+        method, g_used = thermal_method_for(float(g))
+        out[sel] = probabilities_for_points(prof, v[sel], method=method, gamma_phi=g_used,
+                                            device="cpu")
+    return out
+
+
+def _thermal_case(case, r):
+    """(v, T, eta, omega_c) of one mix of points, shuffled."""
+    speeds = r.uniform(0.05, 0.95, 9)
+    temps = r.uniform(20.0, 400.0, 6)
+    eta, omega_c = r.uniform(1e-4, 5e-3), r.uniform(5.0, 200.0)
+    if case == "cold":          # a Gamma = 0 group beside the dephased rates
+        temps = np.concatenate([temps, [0.0, -3.0, -np.inf]])
+    elif case == "no_bath":     # eta = 0: every rate 0, the coherent pass alone
+        eta = 0.0
+    elif case == "clips":       # speeds at and beyond the clips, repeated
+        speeds = np.array([0.0, -0.2, 1e-7, 1e-6, 0.5, 1.0 - 1e-12, 1.0, 1.7, 0.5, 1e-7])
+    elif case == "non_finite":  # NaN and inf rows of either axis
+        speeds = np.concatenate([speeds, [np.nan, np.inf, -np.inf]])
+        temps = np.concatenate([temps, [np.nan, np.inf]])
+    T, v = (x.ravel() for x in np.meshgrid(temps, speeds, indexing="ij"))
+    T, v = np.tile(T, 3), np.tile(v, 3)  # every pair three times
+    order = r.permutation(v.size)
+    return v[order], T[order], eta, omega_c
+
+
+def _same_bits(got, want):
+    assert got.shape == want.shape
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    assert np.array_equal(got[ok].view(np.uint64), want[ok].view(np.uint64))
+
+
+@pytest.mark.parametrize("case", ["mixed", "cold", "no_bath", "clips", "non_finite"])
+@pytest.mark.parametrize("seed", SEEDS[:2])
+def test_the_thermal_pass_is_the_per_rate_route_bit_for_bit(seed, case):
+    r = np.random.default_rng(seed + 3)
+    prof = _profile(seed)
+    v, T, eta, omega_c = _thermal_case(case, r)
+    got = thermal_probabilities_for_points(prof, v, T, eta, omega_c, device="cpu")
+    _same_bits(got, _per_rate_route(prof, v, T, eta, omega_c))
+    assert np.isnan(got).any() == (case == "non_finite")
+
+
+def test_the_thermal_pass_keeps_its_bits_where_the_budget_cuts_its_lanes(monkeypatch):
+    # a budget of 5 speeds' tree leaves: the lanes (speeds with their
+    # rates) are cut into chunks of 5, the last padded with the last lane
+    r = np.random.default_rng(7)
+    prof = _profile(SEEDS[3], n_seg=40)
+    v, T, eta, omega_c = _thermal_case("mixed", r)
+    want = _per_rate_route(prof, v, T, eta, omega_c)
+    monkeypatch.setenv("BDLZ_LZ_SPEED_CHUNK_BYTES", str(64 * 8 * 9 * 5))
+    _same_bits(thermal_probabilities_for_points(prof, v, T, eta, omega_c, device="cpu"), want)
+
+
+@pytest.mark.parametrize("shape", ["scalar_T", "2-D"])
+def test_the_thermal_pass_takes_the_points_shapes(shape):
+    prof = _profile(SEEDS[0], n_seg=30)
+    v = np.linspace(0.1, 0.9, 12)
+    T = 80.0 if shape == "scalar_T" else np.geomspace(30.0, 300.0, 3)[:, None]
+    if shape == "2-D":
+        v = np.broadcast_to(v, (3, 12))
+    got = thermal_probabilities_for_points(prof, v, T, 0.001, 50.0, device="cpu")
+    assert got.shape == v.shape
+    _same_bits(got.ravel(), _per_rate_route(prof, v.ravel(),
+                                            np.broadcast_to(T, v.shape).ravel(), 0.001, 50.0))

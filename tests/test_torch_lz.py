@@ -7,7 +7,8 @@ Tolerances (the port's residuals are recorded in PERF.md):
 * local P, λ_eff, the thermal rate, the k-quadrature: ≤ 1e-14 relative;
 * coherent and dephased P, the P-tables and their evaluators: ≤ 1e-10;
 * momentum average: local and coherent ≤ 1e-12, dephased ≤ 1e-10;
-* the thermal cold limit against the port's own coherent P: bitwise.
+* the thermal cold limit against the port's own coherent P, and the
+  plain Bloch tree at a rate per speed against one call per rate: bitwise.
 """
 import numpy as np
 import pytest
@@ -195,6 +196,37 @@ def test_gamma_zero_bloch_equals_coherent_to_roundoff():
                           rtol=1e-9, atol=1e-12)
     assert torch.allclose(r.norm(dim=1), torch.ones(len(SPEEDS), dtype=torch.float64),
                           atol=1e-10)
+
+
+def _bloch_tree_at_one_rate(a, b, dxi, v, gamma_phi):
+    """The plain tree as it was written for one scalar rate, the decay
+    e^(−max(Γ, 0)·τ) from a Python float."""
+    tau = tk._traversal_times(dxi, v)
+    Rs = tk._quat_to_rotations(tk._su2_quaternions(a, b, tau))
+    decay = torch.exp(-max(float(gamma_phi), 0.0) * tau)
+    scale = torch.stack([decay, decay, torch.ones_like(decay)], dim=-1)
+    return tk._ordered_tree_product(Rs * scale[..., None], torch.matmul, np.eye(3))[:, :, 2]
+
+
+@pytest.mark.parametrize("seed", [3, 8])
+def test_bloch_plain_with_a_rate_per_speed_is_the_scalar_rate_calls(seed):
+    """A (B,) tensor of rates gives every speed the bits of a scalar-rate
+    call at its own rate (a negative rate taken as 0), the rates mixed
+    and the speeds repeated across them; a float rate given to
+    ``propagate_bloch`` keeps the scalar tree's bits."""
+    a, b, dxi = tk._segment_hamiltonians(seeded(tp, seed=seed), CPU)
+    rng = np.random.default_rng(seed)
+    rates = np.array([0.0, 0.01, 0.07, 0.07, 3.0, -0.4])[rng.integers(0, 6, 30)]
+    v = torch.tensor(rng.choice(SPEEDS, 30), dtype=torch.float64)
+    got = tk.propagate_bloch_plain(a, b, dxi, v, torch.tensor(rates, dtype=torch.float64))
+    assert got.shape == (30, 3)
+    for i, g in enumerate(rates):
+        assert torch.equal(got[i], _bloch_tree_at_one_rate(a, b, dxi, v[i:i + 1], g)[0])
+    for g in np.unique(rates):
+        sel = torch.as_tensor(rates == g)
+        want = _bloch_tree_at_one_rate(a, b, dxi, v[sel], g)
+        assert torch.equal(got[sel], want)
+        assert torch.equal(tk.propagate_bloch(a, b, dxi, v[sel], float(g)), want)
 
 
 def test_probability_from_profile_seam_matches_jax(tmp_path):
